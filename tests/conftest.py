@@ -35,6 +35,10 @@ def pytest_configure(config):
         "markers",
         "tpu: exercises compiled paths on attached TPU hardware "
         "(subprocess; auto-skips when no TPU)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs the PyTorch port's CUDA kernels on an NVIDIA GPU "
+        "(skips when torch.cuda is unavailable)")
 
 
 @pytest.fixture(scope="session")
