@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's count-index main path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's count indexes on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,15 +7,21 @@ Phases (each prints its seconds; every timing line carries the card's name
 and power limit as nvidia-smi reports them):
 
 * P0  device: nvidia-smi name/power limit and torch's device name.
-* P1  build: nvcc compiles the three CUDA kernels of
-      kmerind_tpu_torch/ops/csrc into kmerind_tpu_torch/_build.
+* P1  build: nvcc compiles the four CUDA sources of
+      kmerind_tpu_torch/ops/csrc (one process each, all at once) into
+      kmerind_tpu_torch/_build.
 * P2  every kernel against its plain PyTorch version on the card, at the
-      main path's shapes; bitwise equality required; both timed with CUDA
-      events (median of 5).
+      main paths' shapes; bitwise equality required; both timed with CUDA
+      events (median of 5).  K2′ (the row-major merge entry, which no index
+      calls) runs only here.
 * P3  exact reference: ~12M bases of synthetic reads indexed through
       CountIndex.insert_batch in 2^20-base chunks with max_runs=2 (many K2
       merges), then compact(); to_dict() must equal an independent numpy
       canonical 21-mer counter.
+* P3s the same reads through SortedCountIndex with 4 shards: to_dict()
+      equals the numpy counter, the shards hold contiguous key ranges that
+      obey the splitter owner rule, items_in_range() of a slice equals
+      numpy, and erasing 1,000 keys erases 1,000 that then count 0.
 * P4  full size, one bacterial sequencing run: reads at 30x coverage of a
       random genome of E. coli K-12 length (4,641,652 bp), 150 bp, half
       reverse-complemented, 0.5% substitutions, 0.1% N — about 139M bases,
@@ -25,6 +31,10 @@ and power limit as nvidia-smi reports them):
       must sum to the window count), compact().  The kernel launch
       counters are zeroed just before and read just after: K1, K2 and K3
       must all have run.
+* P5  the same FASTQ through SortedCountIndex.build on one shard: the 1M
+      queries return P4's numpy reference counts, size() equals P4's
+      distinct count, the store's counts sum to the window count.  Counters
+      zeroed just before, read just after: K1 and K4 ran once per chunk.
 
 Exits non-zero, printing no result, when there is no CUDA device, a build
 fails or any check fails.  The last line of standard output is the
@@ -152,9 +162,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
-    from kmerind_tpu_torch import DNA, DNA16, CountIndex, KmerSpec
+    from kmerind_tpu_torch import (DNA, DNA16, CountIndex, KmerSpec,
+                                   SortedCountIndex)
     from kmerind_tpu_torch.io import native, read_file, split_records_at_invalid
     from kmerind_tpu_torch.ops import kernels, packing, sortops
+    from kmerind_tpu_torch.ops.keys import to_numpy_u32
 
     dev = torch.device("cuda")
     t_all = time.perf_counter()
@@ -231,6 +243,19 @@ def main() -> int:
                err)
         del a, b, pa, pb, gk, gp, wk, wp
 
+    a, b = (sorted_run(CHUNK).t().contiguous() for _ in range(2))
+    pa, pb = ((torch.randint(0, 100, (CHUNK,), dtype=torch.int32, device=dev,
+                             generator=gen),) for _ in range(2))
+    kernels.LAUNCHES["merge_sorted_runs"] = 0
+    gk, gp = kernels.merge_sorted_runs(a, pa, b, pb)
+    wk, wp = kernels.merge_sorted_runs_plain(a, pa, b, pb)
+    record("merge_sorted_runs", f"{CHUNK}+{CHUNK} rows w=2 payloads=1",
+           median_ms(lambda: kernels.merge_sorted_runs(a, pa, b, pb)),
+           median_ms(lambda: kernels.merge_sorted_runs_plain(a, pa, b, pb)),
+           max(err_of(gk, wk), err_of(gp[0], wp[0])))
+    k2r_launches = kernels.LAUNCHES["merge_sorted_runs"]
+    del a, b, pa, pb, gk, gp, wk, wp
+
     for hi in (2, 101):
         x = torch.randint(0, hi, (1 << 28,), dtype=torch.int32, device=dev,
                           generator=gen)
@@ -239,6 +264,46 @@ def main() -> int:
                median_ms(lambda: kernels.prefix_sum_i32(x)),
                median_ms(lambda: kernels.prefix_sum_i32_plain(x)), err)
         del x
+
+    def run_lengths(case, kcols, tv):
+        got = kernels.run_length_weights(kcols, tv)
+        want = kernels.run_length_weights_plain(kcols, tv)
+        if int(want.sum()) != int(tv):
+            raise AssertionError(f"run_length_weights {case}: weights do not "
+                                 "sum to total_valid")
+        record("run_length_weights", case,
+               median_ms(lambda: kernels.run_length_weights(kcols, tv)),
+               median_ms(lambda: kernels.run_length_weights_plain(kcols, tv)),
+               err_of(got, want))
+
+    # the real input: sorted canonical 21-mers of one chunk of reads
+    rcodes = make_reads(GENOME_LEN, CHUNK // READ_LEN + 1, seed=5)
+    rcodes = rcodes.reshape(-1)[:CHUNK].copy()
+    rcodes[rcodes == 4] = 0
+    words, _ = kernels.extract_canonical(torch.from_numpy(rcodes).to(dev),
+                                         KmerSpec(K, DNA))
+    kcols, _, s_valid = sortops.sort_rows(
+        words, (), torch.arange(CHUNK, device=dev) <= CHUNK - K,
+        is_stable=False, sentinel_ok=True, as_cols=True)
+    run_lengths(f"n={CHUNK} sorted canonical 21-mers of reads", kcols,
+                s_valid.sum(dtype=torch.int32))
+    # ~1000 distinct keys in 2^27 rows: runs of ~134k rows span many tiles
+    table = sortops.sort_rows(torch.randint(
+        -(2**31), 2**31 - 1, (1000, 2), dtype=torch.int32, device=dev,
+        generator=gen), ())[0]
+    pick = torch.sort(torch.randint(0, 1000, (1 << 27,), device=dev,
+                                    generator=gen)).values
+    kcols = table[pick].t().contiguous()
+    run_lengths("n=2^27 w=2 ~1000 keys", kcols, torch.tensor(
+        1 << 27, dtype=torch.int32, device=dev))
+    # tv < n, the first invalid row equal to the last valid one
+    kcols = kcols[:, :CHUNK].contiguous()
+    tv = CHUNK // 2 + 7
+    if not torch.equal(kcols[:, tv], kcols[:, tv - 1]):
+        raise AssertionError("P2: row tv does not repeat row tv-1")
+    run_lengths(f"n={CHUNK} tv={tv} row tv == row tv-1", kcols,
+                torch.tensor(tv, dtype=torch.int32, device=dev))
+    del rcodes, words, kcols, s_valid, table, pick
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"P2 seconds {time.perf_counter() - t0:.2f} [{smi}]")
@@ -269,7 +334,39 @@ def main() -> int:
             f"{idx.timer.count('insert')} chunks, {merges} merges, "
             f"{len(want)} distinct canonical 21-mers == numpy counter; "
             f"seconds {time.perf_counter() - t0:.2f} [{smi}]")
-        del idx, batch, got, want, canon, has_n, uniq, cnt
+        del idx, got, canon, has_n, cnt
+
+        # ----------------------------------------------------------- P3s
+        t0 = time.perf_counter()
+        sidx = SortedCountIndex(spec, device=dev, nparts=4)
+        sidx.insert_batch(batch, chunk_bases=1 << 20)
+        if sidx.to_dict() != want:
+            raise AssertionError("P3s: to_dict != numpy counter")
+        keys = to_numpy_u32(sidx.store.keys)
+        sizes = sidx.store.size.cpu().numpy()
+        shard_keys = [spec.to_ints(keys[s, :n]) for s, n in enumerate(sizes)]
+        flat = np.concatenate(shard_keys)
+        if not (np.diff(flat.astype(np.int64)) > 0).all():
+            raise AssertionError("P3s: shards not globally range-partitioned")
+        bounds = spec.to_ints(sidx.splitter_table())
+        for s, ks in enumerate(shard_keys):
+            if not (np.searchsorted(bounds, ks, side="right") == s).all():
+                raise AssertionError(f"P3s: shard {s} breaks the owner rule")
+        lo, hi = int(uniq[len(uniq) // 3]), int(uniq[len(uniq) // 3 + 5000])
+        if sidx.items_in_range(lo, hi) != [(k, want[k]) for k in
+                                           uniq[len(uniq) // 3:
+                                                len(uniq) // 3 + 5000]
+                                           .tolist()]:
+            raise AssertionError("P3s: items_in_range != numpy slice")
+        gone = np.stack([spec.from_int(int(k)) for k in uniq[::len(uniq)
+                                                             // 1000][:1000]])
+        if sidx.erase(gone) != 1000 or sidx.count(gone).any():
+            raise AssertionError("P3s: erase of 1000 keys")
+        log(f"P3s sorted index, 4 shards: {sidx.timer.count('insert')} "
+            f"chunks, shard sizes {sizes.tolist()} == numpy counter, range "
+            f"partitioned by splitters, items_in_range 5000 keys, erase 1000; "
+            f"seconds {time.perf_counter() - t0:.2f} [{smi}]")
+        del sidx, batch, want, uniq, keys
 
         # ------------------------------------------------------------ P4
         t0 = time.perf_counter()
@@ -332,7 +429,7 @@ def main() -> int:
         idx.compact()
         torch.cuda.synchronize()
         compact_s = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+        launches = {"P4": dict(kernels.LAUNCHES)}
         peak = torch.cuda.max_memory_allocated()
         if idx.size() != rows.shape[0]:
             raise AssertionError("P4: compact() changed the distinct count")
@@ -340,20 +437,69 @@ def main() -> int:
             f" == windows, {items_s:.3f} s; compact {compact_s:.3f} s; "
             f"peak device memory {peak} bytes [{smi}]")
         log("P4 phases:\n" + idx.timer.report("P4"))
-        log(f"P4 launches: {launches}")
-        if launches["extract_canonical"] != idx.timer.count("insert"):
+        p4 = launches["P4"]
+        log(f"P4 launches: {p4}")
+        if p4["extract_canonical"] != idx.timer.count("insert"):
             raise AssertionError("P4: K1 launches != chunks")
-        if launches["merge_runs_cols"] < idx.timer.count("merge"):
+        if p4["merge_runs_cols"] < idx.timer.count("merge"):
             raise AssertionError("P4: K2 launches < merges")
-        if not all(launches.values()):
-            raise AssertionError(f"P4: a kernel never ran: {launches}")
+        for kname in ("extract_canonical", "merge_runs_cols",
+                      "prefix_sum_i32"):
+            if not p4[kname]:
+                raise AssertionError(f"P4: {kname} never ran: {p4}")
+        distinct = rows.shape[0]
+        del idx, rows, cnts
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------------------ P5
+        sidx = SortedCountIndex(spec, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        sidx.build(path)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        chunks = sidx.timer.count("insert")
+        t0 = time.perf_counter()
+        size = sidx.size()
+        flush_s = time.perf_counter() - t0
+        q_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            counts = sidx.count(queries)
+            q_s.append(time.perf_counter() - t0)
+        launches["P5"] = p5 = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"P5 sorted index, 1 shard: build {build_s:.3f} s = "
+            f"{n_windows / build_s:.0f} k-mers/s, {chunks} chunks; flush "
+            f"(first size()) {flush_s:.3f} s; {queries.shape[0]} count() "
+            f"queries, first {q_s[0]:.3f} s = {queries.shape[0] / q_s[0]:.0f} "
+            f"q/s, second {q_s[1]:.3f} s = {queries.shape[0] / q_s[1]:.0f} "
+            f"q/s; peak device memory {peak} bytes [{smi}]")
+        log("P5 phases:\n" + sidx.timer.report("P5"))
+        log(f"P5 launches: {p5}")
+        if not np.array_equal(counts, want_counts):
+            raise AssertionError(
+                f"P5: {int((counts != want_counts).sum())} of {counts.size} "
+                "counts differ from the numpy reference")
+        if size != distinct:
+            raise AssertionError(f"P5: size {size} != P4 distinct {distinct}")
+        if int(sidx.store.counts.sum()) != n_windows:
+            raise AssertionError("P5: store counts do not sum to windows")
+        if not p5["extract_canonical"] == p5["run_length_weights"] == chunks:
+            raise AssertionError(f"P5: K1 / K4 launches != {chunks} chunks")
+        del sidx
 
     log(f"total seconds {time.perf_counter() - t_all:.2f} [{smi}]")
     entries = []
     for kname, (src, replaces) in kernels.KERNELS.items():
         ms, plain_ms, err = results[kname]
+        # main-path launches (P4 + P5); K2′ is on no index's path: P2's
+        n = (k2r_launches if kname == "merge_sorted_runs"
+             else launches["P4"][kname] + launches["P5"][kname])
         entries.append({"name": kname, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[kname],
+                        "replaces": replaces, "launches": n,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
     print(smi)
     print(json.dumps({"kernels": entries}))

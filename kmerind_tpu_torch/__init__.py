@@ -7,8 +7,10 @@ Hopper (``ops/csrc``).  It mirrors the JAX package's module layout:
 * ``alphabets`` / ``kmer`` — k-mer data model (numpy);
 * ``io``       — host-side FASTQ/FASTA parsing into read batches;
 * ``ops``      — k-mer extraction, sort/merge/search, the CUDA kernels;
-* ``parallel`` — owner routing (single shard so far);
-* ``index``    — run-layout stores and the `CountIndex` API.
+* ``parallel`` — owner exchange and sample sort over p shards stacked on
+  one device;
+* ``index``    — count stores and the `CountIndex` (hash, one shard) and
+  `SortedCountIndex` (range-partitioned, p shards) APIs.
 
 Every tensor function runs on the device its inputs live on; the index
 takes an explicit ``device``.  Nothing here imports JAX.
@@ -17,7 +19,8 @@ takes an explicit ``device``.  Nothing here imports JAX.
 from . import alphabets
 from .alphabets import ASCII, DNA, DNA5, DNA6, DNA16, DNA_IUPAC, RNA, RNA5, RNA6
 from .index.api import CountIndex
+from .index.sorted_api import SortedCountIndex
 from .kmer import KmerSpec
 
-__all__ = ["alphabets", "KmerSpec", "CountIndex", "DNA", "DNA5", "DNA6",
+__all__ = ["alphabets", "KmerSpec", "CountIndex", "SortedCountIndex", "DNA", "DNA5", "DNA6",
            "DNA16", "DNA_IUPAC", "RNA", "RNA5", "RNA6", "ASCII"]

@@ -1,16 +1,17 @@
-"""Top-level k-mer index API — the count index on one device.
+"""Top-level k-mer index API — the hash count index and the shared
+input path of every index.
 
-The port of ``kmerind_tpu.index.api.CountIndex`` (the reference's
-``bliss::index::kmer::Index`` CountIndex preset,
-src/index/kmer_index.hpp:98-411), single-shard: the whole index lives on
-the one `device` the caller names (no auto-selection).
+The port of ``kmerind_tpu.index.api`` (the reference's
+``bliss::index::kmer::Index`` presets, src/index/kmer_index.hpp:98-411).
+An index lives on the one `device` the caller names (no auto-selection),
+as `nparts` shards stacked on it; `CountIndex` has one shard so far.
 
 Host-side responsibilities (this file): parsing files, cutting the base
-stream into fixed-shape chunks with a k-1 halo, feeding them to the device
-double-buffered (a worker thread parses and marshals chunk i+1 while the
-main thread copies chunk i to the device and launches its work), and the
-run-list (LSM) bookkeeping.  Device work is in ``distributed.py`` /
-``store.py``.
+stream into fixed-shape chunks with a k-1 halo and each chunk into one
+piece per shard, feeding them to the device double-buffered (a worker
+thread parses and marshals chunk i+1 while the main thread copies chunk i
+to the device and launches its work), and the run-list (LSM) bookkeeping.
+Device work is in ``distributed.py`` / ``store.py``.
 """
 
 from __future__ import annotations
@@ -48,10 +49,12 @@ class _IndexBase:
     stream_threshold_bytes = 64 << 20
 
     def __init__(self, spec: KmerSpec, device, canonical=True,
-                 timer: PhaseTimer | None = None):
+                 nparts: int = 1, timer: PhaseTimer | None = None):
+        if nparts < 1:
+            raise ValueError(f"nparts must be >= 1, got {nparts}")
         self.spec = spec
         self.device = torch.device(device)
-        self.nparts = 1
+        self.nparts = nparts
         self.canonical = canonical
         transform_name(canonical)  # rejects transforms not ported yet
         self.timer = timer if timer is not None else PhaseTimer()
@@ -85,35 +88,61 @@ class _IndexBase:
         rc = bitops.revcomp(words, self.spec)
         return torch.where(packing.lex_less(rc, words)[:, None], rc, words)
 
-    def _marshal_bufs(self, n: int) -> dict:
-        """Pooled host buffers for one chunk's per-base columns, alternating
-        between two generations: the worker fills one while the main thread
-        copies the other to the device."""
-        gens = self._marshal_pool.get(n)
+    def _shard_rows(self, rows: torch.Tensor, extra=()):
+        """[m, ...] rows -> ([p, mq, ...] tensors, valid bool[p, mq], m):
+        rows dealt in order to the shards, mq per shard, zero-padded."""
+        m, p = rows.shape[0], self.nparts
+        mq = max(1, -(-m // p))
+        valid = torch.arange(p * mq, device=rows.device) < m
+
+        def put(a):
+            a = torch.as_tensor(a).to(rows.device)
+            pad = a.new_zeros((p * mq - m,) + tuple(a.shape[1:]))
+            return torch.cat([a, pad]).reshape((p, mq) + tuple(a.shape[1:]))
+
+        return [put(a) for a in (rows, *extra)], valid.reshape(p, mq), m
+
+    def _marshal_bufs(self, pad_to: int) -> dict:
+        """Pooled host buffers [p, pad_to] for one chunk's per-base columns,
+        alternating between two generations: the worker fills one while
+        the main thread copies the other to the device."""
+        gens = self._marshal_pool.get(pad_to)
         if gens is None:
             layout = (("codes", np.uint8), ("valid", bool), ("owned", bool),
                       ("seg_id", np.int32))
-            gens = self._marshal_pool[n] = [
-                [{nm: np.empty(n, dt) for nm, dt in layout} for _ in range(2)],
-                0]
+            gens = self._marshal_pool[pad_to] = [
+                [{nm: np.empty((self.nparts, pad_to), dt)
+                  for nm, dt in layout} for _ in range(2)], 0]
         gens[1] ^= 1
         return gens[0][gens[1]]
 
     def _marshal_chunk(self, batch: ReadBatch) -> dict:
-        """Host work only (runs on the feeding thread): copy a chunk's
-        per-base columns into pooled buffers — the JAX package's
-        `_batch_to_stacked` for one shard.  The chunk already carries its
-        k-1 halo, so one shard needs no further padding."""
+        """Host work only (runs on the feeding thread): split a chunk's
+        per-base columns over the shards into pooled buffers — the JAX
+        package's `_batch_to_stacked`.  Shard s owns bases
+        [s * owned, (s + 1) * owned) and also gets the k-1 bases after them
+        (valid, not owned), so every window lies whole on one shard; short
+        shards are padded (invalid, seg_id -1).  One shard takes the chunk
+        as it is: it already carries its halo."""
         with self.timer.phase("marshal"):
-            bufs = self._marshal_bufs(batch.num_bases)
-            for nm in bufs:
-                bufs[nm][:] = getattr(batch, nm)
+            p, n = self.nparts, batch.num_bases
+            halo = self.spec.k - 1
+            owned = -(-n // p)
+            bufs = self._marshal_bufs(owned + (halo if p > 1 else 0))
+            for s in range(p):
+                lo = min(s * owned, n)
+                ln = min(lo + owned + halo, n) - lo
+                for nm, fill in (("codes", 0), ("valid", False),
+                                 ("seg_id", -1), ("owned", False)):
+                    bufs[nm][s, :ln] = getattr(batch, nm)[lo:lo + ln]
+                    bufs[nm][s, ln:] = fill
+                bufs["owned"][s, owned:] = False
             return bufs
 
     def _to_device(self, cols: dict) -> DeviceBases:
-        """Synchronous host-to-device copies (main thread): the pooled
-        buffer is rewritten two chunks later, so the copy must have read it
-        by the time this returns."""
+        """Synchronous host-to-device copies (main thread) of [p, L]
+        columns: the pooled buffer is rewritten two chunks later, so the
+        copy must have read it by the time this returns."""
         put = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
         return DeviceBases(codes=put(cols["codes"]), valid=put(cols["valid"]),
                            owned=put(cols["owned"]),
@@ -141,7 +170,27 @@ class _IndexBase:
                 fut = ex.submit(produce)
                 consume(cols)
 
+    def _query_words(self, kmers) -> torch.Tensor:
+        """Query or insert rows as device key words, transformed like the
+        index's own k-mers."""
+        return self._maybe_canonicalize_queries(
+            from_numpy_u32(self._to_words(kmers), self.device))
+
     # -- build paths ---------------------------------------------------------
+    def insert_batch(self, batch: ReadBatch, chunk_bases: int | None = None):
+        """Insert a parsed batch's k-mers, streamed through the device in
+        chunks of `chunk_bases` bases (a k-1 lookahead keeps the windows
+        that span a chunk boundary)."""
+        if chunk_bases is None:
+            chunk_bases = self.default_chunk_bases
+        if batch.num_bases > chunk_bases:
+            chunks = list(batch.iter_chunks(chunk_bases, self.spec.k - 1))
+        else:
+            chunks = [batch]
+        self._stream_chunks_iter(iter(chunks), self._marshal_chunk,
+                                 self._insert_cols)
+        return self
+
     def build(self, path, fmt: str | None = None, file_id: int = 0):
         """Read a FASTQ/FASTA file and insert all its k-mers
         (Index::build_posix/build_mmap, kmer_index.hpp:201-394).  Files
@@ -215,8 +264,13 @@ class CountIndex(_IndexBase):
 
     def __init__(self, spec: KmerSpec, device, canonical=True,
                  initial_capacity: int = 1 << 12, max_runs: int = 8,
-                 timer: PhaseTimer | None = None):
-        super().__init__(spec, device, canonical, timer)
+                 nparts: int = 1, timer: PhaseTimer | None = None):
+        if nparts != 1:
+            raise NotImplementedError(
+                "CountIndex with nparts > 1 needs owner hashing, not ported "
+                "yet: ROADMAP queue 1, item 4 (SortedCountIndex takes "
+                "nparts > 1)")
+        super().__init__(spec, device, canonical, nparts, timer)
         self.initial_capacity = initial_capacity
         self.max_runs = max_runs
         self.runs = [st.empty_run_count_store(initial_capacity, spec.nwords,
@@ -333,23 +387,9 @@ class CountIndex(_IndexBase):
             new_cap = _next_pow2(new_cap + ovf)
 
     # ------------------------------------------------------------------
-    def insert_batch(self, batch: ReadBatch, chunk_bases: int | None = None):
-        """Extract + canonicalize + sort + merge a parsed batch, streamed
-        through the device in chunks of `chunk_bases` bases (k-1 lookahead
-        keeps boundary windows)."""
-        if chunk_bases is None:
-            chunk_bases = self.default_chunk_bases
-        if batch.num_bases > chunk_bases:
-            chunks = list(batch.iter_chunks(chunk_bases, self.spec.k - 1))
-        else:
-            chunks = [batch]
-        self._stream_chunks_iter(iter(chunks), self._marshal_chunk,
-                                 self._insert_cols)
-        return self
-
     def _insert_cols(self, cols: dict):
         with self.timer.phase("insert"):
-            bases = self._to_device(cols)
+            bases = self._to_device(cols).shard(0)
             rw, rwt = dx.run_ingest_step(bases, self.spec, self.canonical,
                                          self.nparts)
         # a chunk's weight is at most its window count
@@ -377,8 +417,7 @@ class CountIndex(_IndexBase):
     def count(self, kmers) -> np.ndarray:
         """int32[m] per-query counts in query order (Index::count,
         kmer_index.hpp:142).  kmers: uint32[m, w] rows, strings or ints."""
-        words = from_numpy_u32(self._to_words(kmers), self.device)
-        words = self._maybe_canonicalize_queries(words)
+        words = self._query_words(kmers)
         aux = self._ensure_aux()
         with self.timer.phase("count"):
             counts = dx.runs_count_query_step(words, aux, self.nparts)

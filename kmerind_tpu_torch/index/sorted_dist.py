@@ -1,0 +1,129 @@
+"""Range-partitioned (sorted) count index steps: shard-local ingest, the
+samplesort flush and splitter-routed queries.
+
+The port of the count subset of ``kmerind_tpu.index.sorted_dist`` — the
+reference's second distribution strategy (counting_sorted_map,
+distributed_sorted_map.hpp:2825).  Where the hash strategy owns keys by
+``hash(key) % p``, here shard i owns the key range
+[splitter[i-1], splitter[i]):
+
+* **ingest** appends shard-local rows (distributed_sorted_map.hpp:341):
+  extract (K1), sort, run lengths (K4) — no exchange;
+* **flush** (the lazy global sort on first query, :341,940,2061): samples
+  of every shard's sorted rows give p-1 splitters, rows route to their
+  range's shard, and each shard sorts and sums its rows into a
+  `CountStore` — the result is globally sorted;
+* **queries** route by splitter (:1568-1600) through the same exchange.
+
+Each JAX ``make_*_step`` factory returns a jitted ``shard_map`` program;
+here each step is a plain function over stacked [p, ...] shard tensors
+(``parallel/distribute.py``), looping over the shards between exchanges.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..io.kmer_parsers import DeviceBases, extract_tuples
+from ..ops import sortops
+from ..parallel import distribute as dist
+from ..parallel.sample_sort import global_splitters, owners_from_splitters
+from . import store as st
+
+__all__ = ["owners_from_splitters", "local_ingest_step", "count_flush_step",
+           "count_query_step", "count_erase_step", "count_select_step"]
+
+
+def local_ingest_step(bases: DeviceBases, spec, canonical):
+    """Shard-local extraction and pre-reduction, no exchange.  bases: [p, L]
+    tensors.  Returns (words [p, L, w], weights int32[p, L], emit
+    bool[p, L]): each shard's rows sorted, the last row of each key run
+    emitted with the run's length."""
+    words, weights, emit = [], [], []
+    for s in range(bases.codes.shape[0]):
+        tup = extract_tuples(bases.shard(s), spec, canonical=canonical)
+        s_cols, _, s_valid = sortops.sort_rows(
+            tup.words, (), tup.valid, is_stable=False,
+            sentinel_ok=spec.sentinel_safe, as_cols=True)
+        wt, em = sortops.run_length_counts(s_cols.t(), s_valid)
+        words.append(s_cols.t())
+        weights.append(wt)
+        emit.append(em)
+    return torch.stack(words), torch.stack(weights), torch.stack(emit)
+
+
+def count_flush_step(words, weights, valid, nparts: int, capacity: int,
+                     saturate: int | None = None, sentinel_ok: bool = False,
+                     oversample: int = 64):
+    """(words [p, n, w], weights [p, n], valid [p, n]) -> (store [p, cap, w],
+    splitters [p-1, w], overflow).
+
+    The whole-index rebuild of counting_sorted_map's lazy sort: the inputs
+    are ALL live rows (store contents as weighted rows plus pending
+    inserts); the output store is globally range-partitioned, one row per
+    key with its summed weight (clipped at `saturate`).  Each shard's
+    capacity is cut to next_pow2 of the largest shard's size (at least
+    16)."""
+    splitters = global_splitters(words, valid, nparts, oversample,
+                                 sentinel_ok)
+    owner = owners_from_splitters(words, splitters, nparts)
+    (rw, rwts), rvalid, route = dist.distribute(
+        (words, weights), owner, valid, nparts, capacity)
+    reduced = []
+    for s in range(nparts):
+        s2, (v2,), sv2 = sortops.sort_rows(
+            rw[s], (rwts[s],), rvalid[s], is_stable=False,
+            sentinel_ok=sentinel_ok)
+        uniq, red, n_unique = sortops.segment_reduce_sorted(s2, sv2, v2)
+        if saturate is not None:
+            red = red.clamp(max=saturate)
+        reduced.append((uniq, red, n_unique.to(torch.int32)))
+    largest = max(int(r[2]) for r in reduced)
+    cap = min(reduced[0][0].shape[0], 1 << max(4, (largest - 1).bit_length()))
+    store = st.stack_count_stores(
+        [st.CountStore(u[:cap], r[:cap], n) for u, r, n in reduced])
+    return store, splitters, route.overflow
+
+
+def count_query_step(store: st.CountStore, splitters, queries, qvalid,
+                     nparts: int, capacity: int):
+    """Splitter-routed count: (counts int32[p, m], overflow) for queries
+    [p, m, w] (qvalid [p, m]); invalid queries count 0."""
+    owner = owners_from_splitters(queries, splitters, nparts)
+    (rq,), rvalid, route = dist.distribute((queries,), owner, qvalid,
+                                           nparts, capacity)
+    local = torch.stack([
+        torch.where(rvalid[s], st.count_lookup(store.shard(s), rq[s]), 0)
+        for s in range(nparts)])
+    (back,) = dist.undistribute((local,), route, nparts, capacity)
+    return back, route.overflow
+
+
+def count_erase_step(store: st.CountStore, splitters, keys, valid,
+                     nparts: int, capacity: int):
+    """Splitter-routed erase: (new store, n_erased int32[p], overflow).
+    Erasing never moves keys between shards, so the splitters stay."""
+    owner = owners_from_splitters(keys, splitters, nparts)
+    (rk,), rvalid, route = dist.distribute((keys,), owner, valid, nparts,
+                                           capacity)
+    out = [st.count_erase(store.shard(s), rk[s], rvalid[s])
+           for s in range(nparts)]
+    return (st.stack_count_stores([o[0] for o in out]),
+            torch.stack([o[1] for o in out]), route.overflow)
+
+
+def count_select_step(store: st.CountStore, pred):
+    """Per shard, the live entries satisfying pred(keys [cap, w], counts
+    [cap]) -> bool[cap] moved to the front in key order, the others after
+    them.  Returns (keys_out [p, cap, w], counts_out [p, cap], n int[p])."""
+    keys_out, counts_out, n = [], [], []
+    for s in range(store.keys.shape[0]):
+        sh = store.shard(s)
+        live = torch.arange(sh.keys.shape[0], device=sh.keys.device) < sh.size
+        emit = pred(sh.keys, sh.counts) & live
+        order = torch.cat([torch.nonzero(emit).squeeze(1),
+                           torch.nonzero(~emit).squeeze(1)])
+        keys_out.append(sh.keys[order])
+        counts_out.append(sh.counts[order])
+        n.append(emit.sum())
+    return torch.stack(keys_out), torch.stack(counts_out), torch.stack(n)

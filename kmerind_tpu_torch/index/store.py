@@ -1,6 +1,8 @@
-"""Run-layout count store (the count subset of ``kmerind_tpu.index.store``).
+"""Count stores (the count subset of ``kmerind_tpu.index.store``).
 
-A `RunCountStore` holds keys sorted over ALL rows with duplicates allowed,
+A `CountStore` holds each distinct key once, sorted, with its count — one
+shard of the range-partitioned `SortedCountIndex`, rebuilt whole by each
+flush.  A `RunCountStore` holds keys sorted over ALL rows with duplicates allowed,
 per-row weights and an exclusive prefix sum; the count of key q is the
 total weight of its key run.  Building a store from sorted chunks is then a
 MERGE of already-sorted runs (the K2 kernel), and only weighted adoption
@@ -23,10 +25,74 @@ import torch
 from ..ops import kernels, sortops
 from ..ops.keys import SENTINEL
 
-__all__ = ["RunCountStore", "empty_run_count_store", "run_from_sorted",
+__all__ = ["CountStore", "empty_count_store", "stack_count_stores",
+           "count_lookup", "count_erase",
+           "RunCountStore", "empty_run_count_store", "run_from_sorted",
            "run_merge", "run_from_sorted_unit", "run_merge_unit",
            "run_totals", "run_distinct", "run_query_aux", "run_lookup_aux",
            "run_compact"]
+
+
+@dataclasses.dataclass
+class CountStore:
+    """Unique-key counting store.
+
+    One shard: ``keys`` int32[cap, w] (uint32 words) sorted, distinct in
+    rows [0, size), all-ones sentinel rows after; ``counts`` int32[cap], 0
+    past size; ``size`` int32 0-d.  An index of p shards stacks them:
+    [p, cap, w], [p, cap], [p] (`stack_count_stores`, `shard`)."""
+
+    keys: torch.Tensor
+    counts: torch.Tensor
+    size: torch.Tensor
+
+    def shard(self, s: int) -> "CountStore":
+        return CountStore(self.keys[s], self.counts[s], self.size[s])
+
+
+def empty_count_store(capacity: int, nwords: int, device) -> CountStore:
+    return CountStore(
+        keys=torch.full((capacity, nwords), SENTINEL, dtype=torch.int32,
+                        device=device),
+        counts=torch.zeros(capacity, dtype=torch.int32, device=device),
+        size=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def stack_count_stores(stores) -> CountStore:
+    """Per-shard stores of one capacity -> the stacked [p, ...] store."""
+    return CountStore(*(torch.stack([getattr(x, f) for x in stores])
+                        for f in ("keys", "counts", "size")))
+
+
+def count_lookup(store: CountStore, queries: torch.Tensor) -> torch.Tensor:
+    """int32[m] count per query row [m, w] of one shard (0 if absent):
+    bucket-seeded binary search plus two gathers.  The JAX package routes
+    batches with m * 8 >= cap to a sort-merge join instead (a TPU-tuned
+    crossover, ROADMAP queue 2); the answers are the same."""
+    idx = sortops.lower_bound_bucketed(store.keys, store.size, queries)
+    hit = sortops.rows_equal_at(store.keys, idx, queries, store.size)
+    return torch.where(hit, store.counts[idx.clamp(0, store.keys.shape[0] - 1)],
+                       0)
+
+
+def count_erase(store: CountStore, queries: torch.Tensor,
+                qvalid: torch.Tensor):
+    """Remove the valid query keys from one shard; the kept rows stay in
+    order.  Returns (new_store, n_erased 0-d)."""
+    cap = store.keys.shape[0]
+    idx = sortops.lower_bound_bucketed(store.keys, store.size, queries)
+    hit = sortops.rows_equal_at(store.keys, idx, queries, store.size) & qvalid
+    kill = torch.zeros(cap + 1, dtype=torch.bool, device=store.keys.device)
+    kill[torch.where(hit, idx, cap)] = True
+    arange = torch.arange(cap, device=store.keys.device)
+    rows = torch.nonzero((arange < store.size) & ~kill[:cap]).squeeze(1)
+    keys = torch.full_like(store.keys, SENTINEL)
+    counts = torch.zeros_like(store.counts)
+    keys[: rows.shape[0]] = store.keys[rows]
+    counts[: rows.shape[0]] = store.counts[rows]
+    new_size = torch.tensor(rows.shape[0], dtype=torch.int32,
+                            device=store.keys.device)
+    return CountStore(keys, counts, new_size), store.size - new_size
 
 
 @dataclasses.dataclass

@@ -23,12 +23,18 @@ __all__ = ["DeviceBases", "KmerTuples", "extract_tuples", "transform_name"]
 
 @dataclasses.dataclass
 class DeviceBases:
-    """Per-base tensors of one shard, all shape [n]."""
+    """Per-base tensors of one shard, all shape [n] — or of p shards
+    stacked, [p, n]."""
 
     codes: torch.Tensor   # uint8
     valid: torch.Tensor   # bool
     owned: torch.Tensor   # bool
     seg_id: torch.Tensor  # int32
+
+    def shard(self, s: int) -> "DeviceBases":
+        """Shard s of stacked bases."""
+        return DeviceBases(self.codes[s], self.valid[s], self.owned[s],
+                           self.seg_id[s])
 
 
 @dataclasses.dataclass

@@ -1,15 +1,19 @@
 """Hand-written CUDA kernels of the main path, their wrappers and plain
 versions.
 
-Three kernels replace the Pallas kernels that the count-index main path
-reaches in ``kmerind_tpu/ops/pallas_kernels.py``:
+The kernels replace the Pallas kernels of
+``kmerind_tpu/ops/pallas_kernels.py``:
 
 * K1 `extract_canonical` (``csrc/extract_canonical.cu``) — plain version
   ``ops/packing.py::extract_canonical``;
 * K2 `merge_runs_cols` (``csrc/merge_runs.cu``) — plain version
   `merge_runs_cols_plain`;
+* K2′ `merge_sorted_runs` — the same kernel behind a row-major entry,
+  plain version `merge_sorted_runs_plain`;
 * K3 `prefix_sum_i32` (``csrc/prefix_sum.cu``) — plain version
-  `prefix_sum_i32_plain`.
+  `prefix_sum_i32_plain`;
+* K4 `run_length_weights` (``csrc/run_length_weights.cu``) — plain version
+  `run_length_weights_plain`.
 
 Each wrapper takes the plain version for tensors on the CPU and, for CUDA
 tensors, launches its kernel or raises: nothing falls back.  It checks
@@ -17,10 +21,11 @@ device, dtype, shape and contiguity, allocates outputs with `torch.empty`,
 launches on the current stream, raises on a non-zero ``cudaGetLastError()``
 and adds one to ``LAUNCHES[name]`` per call that launched.
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ctypes, at first use (`build`).  The
-library lands in ``kmerind_tpu_torch/_build/`` under a name that carries a
-hash of the sources and flags, so a stale build is never loaded.
+The sources are compiled by ``nvcc`` for ``sm_90a`` — one process per
+source, all at once, then one link — into a shared library with a plain C
+interface, loaded with ctypes, at first use (`build`).  The library lands
+in ``kmerind_tpu_torch/_build/`` under a name that carries a hash of the
+sources and flags, so a stale build is never loaded.
 """
 
 from __future__ import annotations
@@ -43,14 +48,17 @@ from .keys import SENTINEL, biased, lex_argsort
 
 __all__ = ["LAUNCHES", "KERNELS", "build", "reset_launches",
            "extract_canonical", "merge_runs_cols", "merge_runs_cols_plain",
-           "prefix_sum_i32", "prefix_sum_i32_plain"]
+           "merge_sorted_runs", "merge_sorted_runs_plain",
+           "prefix_sum_i32", "prefix_sum_i32_plain",
+           "run_length_weights", "run_length_weights_plain"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "ops" / "csrc"
 BUILD_DIR = _PKG / "_build"
-_SOURCES = ("extract_canonical.cu", "merge_runs.cu", "prefix_sum.cu")
+_SOURCES = ("extract_canonical.cu", "merge_runs.cu", "prefix_sum.cu",
+            "run_length_weights.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: name -> (source in the repo, TPU kernel it replaces)
 KERNELS = {
@@ -60,9 +68,15 @@ KERNELS = {
     "merge_runs_cols": (
         "kmerind_tpu_torch/ops/csrc/merge_runs.cu",
         "kmerind_tpu/ops/pallas_kernels.py:877"),
+    "merge_sorted_runs": (
+        "kmerind_tpu_torch/ops/csrc/merge_runs.cu",
+        "kmerind_tpu/ops/pallas_kernels.py:832"),
     "prefix_sum_i32": (
         "kmerind_tpu_torch/ops/csrc/prefix_sum.cu",
         "kmerind_tpu/ops/pallas_kernels.py:1090"),
+    "run_length_weights": (
+        "kmerind_tpu_torch/ops/csrc/run_length_weights.cu",
+        "kmerind_tpu/ops/pallas_kernels.py:351"),
 }
 
 #: launches per kernel wrapper (one per wrapper call that launched)
@@ -110,14 +124,23 @@ def build() -> dict:
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(CSRC / s) for s in _SOURCES)]
+            objs = [tmp.with_suffix(f".{src}.o") for src in _SOURCES]
             t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
+            procs = [subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(_SOURCES, objs)]
+            logs = [proc.communicate()[0] for proc in procs]
+            link = subprocess.run(
+                [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True) if all(
+                proc.returncode == 0 for proc in procs) else None
             seconds = time.perf_counter() - t0
-            log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+            log = "".join(logs) + (link.stdout + link.stderr if link else "")
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+            if link is None or link.returncode != 0:
+                raise RuntimeError(f"nvcc failed:\n{log}")
             os.replace(tmp, path)
         if _lib is None:
             lib = ctypes.CDLL(str(path))
@@ -129,8 +152,13 @@ def build() -> dict:
             lib.kmerind_prefix_sum_tiles.argtypes = [_i64]
             lib.kmerind_prefix_sum_tiles.restype = _i64
             lib.kmerind_prefix_sum_i32.argtypes = [_vp, _vp, _i64, _vp, _vp]
+            lib.kmerind_run_length_tiles.argtypes = [_i64]
+            lib.kmerind_run_length_tiles.restype = _i64
+            lib.kmerind_run_length_weights.argtypes = [
+                _vp, _int, _i64, _vp, _vp, _vp, _vp]
             for fn in (lib.kmerind_extract_canonical, lib.kmerind_merge_runs,
-                       lib.kmerind_prefix_sum_i32):
+                       lib.kmerind_prefix_sum_i32,
+                       lib.kmerind_run_length_weights):
                 fn.restype = _int
             _lib = lib
         return {"path": str(path), "seconds": seconds, "log": log}
@@ -231,21 +259,27 @@ def merge_runs_cols(a_keys, a_payloads, b_keys, b_payloads):
     first."""
     if a_keys.device.type == "cpu":
         return merge_runs_cols_plain(a_keys, a_payloads, b_keys, b_payloads)
+    return _merge_cols("merge_runs_cols", a_keys, a_payloads, b_keys,
+                       b_payloads)
+
+
+def _merge_cols(name, a_keys, a_payloads, b_keys, b_payloads):
+    """Check and launch the K2 kernel; counts the launch under `name`."""
     dev = a_keys.device
     w, na = a_keys.shape
     nb = b_keys.shape[1]
     npay = len(a_payloads)
     if not 1 <= w <= 5 or b_keys.shape[0] != w:
-        raise ValueError(f"merge_runs_cols takes 1-5 key words, got "
+        raise ValueError(f"{name} takes 1-5 key words, got "
                          f"{tuple(a_keys.shape)} and {tuple(b_keys.shape)}")
     if npay > 3 or len(b_payloads) != npay:
-        raise ValueError("merge_runs_cols takes 0-3 payloads per run")
-    _check_cuda("merge_runs_cols a_keys", a_keys, torch.int32, 2, dev)
-    _check_cuda("merge_runs_cols b_keys", b_keys, torch.int32, 2, dev)
+        raise ValueError(f"{name} takes 0-3 payloads per run")
+    _check_cuda(f"{name} a_keys", a_keys, torch.int32, 2, dev)
+    _check_cuda(f"{name} b_keys", b_keys, torch.int32, 2, dev)
     for p, m in [(p, na) for p in a_payloads] + [(p, nb) for p in b_payloads]:
-        _check_cuda("merge_runs_cols payload", p, torch.int32, 1, dev)
+        _check_cuda(f"{name} payload", p, torch.int32, 1, dev)
         if p.shape[0] != m:
-            raise ValueError("merge_runs_cols: payload length != run length")
+            raise ValueError(f"{name}: payload length != run length")
     n = _merged_len(na, nb)
     out_keys = torch.empty((w, n), dtype=torch.int32, device=dev)
     out_pays = tuple(torch.empty(n, dtype=torch.int32, device=dev)
@@ -259,8 +293,30 @@ def merge_runs_cols(a_keys, a_payloads, b_keys, b_payloads):
         a_keys.data_ptr(), na, b_keys.data_ptr(), nb, w,
         *three(a_payloads), *three(b_payloads), npay,
         out_keys.data_ptr(), *three(out_pays), n, _stream(dev))
-    _launched("merge_runs_cols", rc)
+    _launched(name, rc)
     return out_keys, out_pays
+
+
+# ---------------------------------------------------------------- K2′
+def merge_sorted_runs_plain(a_keys, a_payloads, b_keys, b_payloads):
+    """Plain K2′: `merge_runs_cols_plain` on the transposed runs."""
+    keys, pays = merge_runs_cols_plain(a_keys.t(), a_payloads, b_keys.t(),
+                                       b_payloads)
+    return keys.t().contiguous(), pays
+
+
+def merge_sorted_runs(a_keys, a_payloads, b_keys, b_payloads):
+    """K2′: merge two ascending ROW-major runs (int32[n_i, w] key rows,
+    aligned int32 payloads) — the K2 kernel on their transposes.  Returns
+    (keys int32[n, w], payloads), n = next_pow2(na + nb), sentinel rows with
+    payload 0 at the tail; ties keep A first."""
+    if a_keys.device.type == "cpu":
+        return merge_sorted_runs_plain(a_keys, a_payloads, b_keys,
+                                       b_payloads)
+    keys, pays = _merge_cols("merge_sorted_runs", a_keys.t().contiguous(),
+                             tuple(a_payloads), b_keys.t().contiguous(),
+                             tuple(b_payloads))
+    return keys.t().contiguous(), pays
 
 
 # ---------------------------------------------------------------- K3
@@ -285,4 +341,52 @@ def prefix_sum_i32(x: torch.Tensor) -> torch.Tensor:
                                         scratch.data_ptr(),
                                         _stream(x.device))
         _launched("prefix_sum_i32", rc)
+    return out
+
+
+# ---------------------------------------------------------------- K4
+def run_length_weights_plain(kcols: torch.Tensor,
+                             total_valid) -> torch.Tensor:
+    """Plain K4: run ids from a cumsum of the head flags, each row's run
+    start gathered from the head positions (torch's cummax is a slow
+    single-block scan on CUDA)."""
+    w, n = kcols.shape
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int32, device=kcols.device)
+    idx = torch.arange(n, device=kcols.device)
+    neq = (kcols[:, 1:] != kcols[:, :-1]).any(dim=0)
+    one = torch.ones(1, dtype=torch.bool, device=kcols.device)
+    head = torch.cat([one, neq])
+    end = torch.cat([neq, one]) | (idx == total_valid - 1)
+    start = idx[head][torch.cumsum(head, 0) - 1]
+    return torch.where((idx < total_valid) & end, idx - start + 1,
+                       0).to(torch.int32)
+
+
+def run_length_weights(kcols: torch.Tensor, total_valid) -> torch.Tensor:
+    """K4: int32[n] run lengths of sorted keys.
+
+    kcols int32[w, n]: column-major key words sorted lexicographically over
+    the rows, the first `total_valid` rows valid (an int32 0-d tensor on the
+    keys' device; the kernel reads it there).  out[j] is the length of row
+    j's run of equal keys when j is the run's last valid row (the next row
+    differs, or j == total_valid - 1), else 0."""
+    if kcols.device.type == "cpu":
+        return run_length_weights_plain(kcols, total_valid)
+    dev = kcols.device
+    _check_cuda("run_length_weights keys", kcols, torch.int32, 2, dev)
+    _check_cuda("run_length_weights total_valid", total_valid, torch.int32,
+                0, dev)
+    w, n = kcols.shape
+    if w < 1:
+        raise ValueError("run_length_weights needs at least one key word")
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        lib = _cuda_lib()
+        scratch = torch.empty(2 * lib.kmerind_run_length_tiles(n),
+                              dtype=torch.int64, device=dev)
+        rc = lib.kmerind_run_length_weights(
+            kcols.data_ptr(), w, n, total_valid.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), _stream(dev))
+        _launched("run_length_weights", rc)
     return out

@@ -1,9 +1,15 @@
-"""Sort / merge / binary-search primitives over multi-word keys (the
-main-path subset of ``kmerind_tpu.ops.sortops``).
+"""Sort / merge / reduce / binary-search primitives over multi-word keys
+(the subset of ``kmerind_tpu.ops.sortops`` that the hash count index and
+the sorted count index call).
 
 Keys are int32-held uint32 words (``ops/keys.py``), word 0 most
 significant, so lexicographic row order is k-mer order.  Row-major keys are
 [n, w]; the run store keeps them column-major [w, n].
+
+Where the JAX package avoids TPU gathers and scatters — cummax / cummin
+broadcasts, compaction by a stable sort — the port gathers and compacts
+with boolean masks: same results, and torch's cummax is a slow
+single-block scan on CUDA.
 """
 
 from __future__ import annotations
@@ -13,8 +19,10 @@ import torch
 from . import kernels
 from .keys import SENTINEL, biased, lex_argsort, to_u64
 
-__all__ = ["sort_rows", "merge_sorted_runs_cols",
-           "lower_bound_cols_prebuilt"]
+__all__ = ["sort_rows", "compact_runs", "run_weight_totals",
+           "run_length_counts", "segment_reduce_sorted", "merge_sorted_runs",
+           "merge_sorted_runs_cols", "lower_bound_cols_prebuilt",
+           "lower_bound_bucketed", "rows_equal_at"]
 
 
 def sort_rows(words: torch.Tensor, payloads=(), valid=None,
@@ -49,6 +57,98 @@ def sort_rows(words: torch.Tensor, payloads=(), valid=None,
     sorted_words = torch.stack([c[perm] for c in cols],
                                dim=0 if as_cols else 1)
     return sorted_words, tuple(p[perm] for p in payloads), sorted_valid
+
+
+def _row_neq_prev(sorted_words: torch.Tensor) -> torch.Tensor:
+    """bool[n]: row differs from the previous row (row 0 -> True)."""
+    neq = torch.ones(sorted_words.shape[0], dtype=torch.bool,
+                     device=sorted_words.device)
+    neq[1:] = (sorted_words[1:] != sorted_words[:-1]).any(dim=1)
+    return neq
+
+
+def compact_runs(sorted_words: torch.Tensor, sorted_valid: torch.Tensor,
+                 payloads=()):
+    """Move the first valid row of every run of equal keys to the front, in
+    order; the other rows follow in order (a stable partition).
+
+    Returns (uniq_rows [n, w], payload_firsts, starts int64[n] — source row
+    of each output row, n_unique, total_valid), the counts as 0-d
+    tensors."""
+    is_new = _row_neq_prev(sorted_words) & sorted_valid
+    starts = torch.cat([torch.nonzero(is_new).squeeze(1),
+                        torch.nonzero(~is_new).squeeze(1)])
+    return (sorted_words[starts], tuple(p[starts] for p in payloads), starts,
+            is_new.sum(), sorted_valid.sum())
+
+
+def run_weight_totals(sorted_words: torch.Tensor, sorted_valid: torch.Tensor,
+                      weights: torch.Tensor) -> torch.Tensor:
+    """int32[n]: per-row sum of `weights` over the row's run of equal keys
+    (invalid rows contribute 0): prefix sums at each run's end minus at its
+    start, broadcast through run ids (a cumsum of the head flags).  Sums
+    are exact in int64 and wrap to int32 like the JAX package's int32
+    prefix sums."""
+    n = sorted_words.shape[0]
+    wmask = torch.where(sorted_valid, weights.to(torch.int64), 0)
+    incl = torch.cumsum(wmask, 0)
+    neq_prev = _row_neq_prev(sorted_words)
+    neq_next = torch.ones(n, dtype=torch.bool, device=sorted_words.device)
+    neq_next[:-1] = neq_prev[1:]
+    run_id = torch.cumsum(neq_prev, 0) - 1
+    totals = incl[neq_next] - (incl - wmask)[neq_prev]
+    return totals[run_id].to(torch.int32)
+
+
+def run_length_counts(sorted_words: torch.Tensor, sorted_valid: torch.Tensor):
+    """Run lengths of equal sorted keys without compaction: (weights
+    int32[n], emit bool[n]) — the last valid row of every run holds the
+    run's length, every other row 0 / False.  The rows must be sorted with
+    all valid rows first (`sort_rows` guarantees it).  The K4 kernel on the
+    device (``kernels.run_length_weights``), reading the keys
+    column-major: free when `sorted_words` is the transpose of
+    ``sort_rows(..., as_cols=True)``'s output."""
+    weights = kernels.run_length_weights(
+        sorted_words.t().contiguous(), sorted_valid.sum(dtype=torch.int32))
+    return weights, weights > 0
+
+
+def segment_reduce_sorted(sorted_words: torch.Tensor,
+                          sorted_valid: torch.Tensor, values: torch.Tensor,
+                          reduce: str = "sum"):
+    """Sum `values` ([n] or [n, d]) over runs of equal sorted keys.
+
+    Returns (uniq [n, w] — the distinct keys first, sentinel rows after;
+    reduced — each key's sum, 0 past n_unique; n_unique 0-d).  Only
+    reduce="sum" is ported: the counting maps need it."""
+    if reduce != "sum":
+        raise NotImplementedError(
+            f"segment_reduce_sorted(reduce={reduce!r}) is not ported yet: "
+            "ROADMAP queue 1, item 13 (value maps)")
+    cols = values[:, None] if values.dim() == 1 else values
+    totals = tuple(run_weight_totals(sorted_words, sorted_valid, cols[:, j])
+                   for j in range(cols.shape[1]))
+    uniq, red, _, n_unique, _ = compact_runs(sorted_words, sorted_valid,
+                                             payloads=totals)
+    live = torch.arange(sorted_words.shape[0],
+                        device=sorted_words.device) < n_unique
+    uniq = torch.where(live[:, None], uniq, SENTINEL)
+    reduced = torch.where(live[:, None], torch.stack(red, dim=1), 0)
+    if values.dim() == 1:
+        reduced = reduced[:, 0]
+    return uniq, reduced.to(values.dtype), n_unique
+
+
+def merge_sorted_runs(a_keys: torch.Tensor, a_payloads,
+                      b_keys: torch.Tensor, b_payloads):
+    """Merge two ascending row-major runs ([n_i, w] keys plus aligned [n_i]
+    payloads) into one of n = next_pow2(n_a + n_b) rows, sentinel keys with
+    payload 0 at the tail — the K2′ kernel (``kernels.merge_sorted_runs``)
+    on the device.
+
+    Returns (keys [n, w], payloads)."""
+    return kernels.merge_sorted_runs(a_keys, tuple(a_payloads),
+                                     b_keys, tuple(b_payloads))
 
 
 def merge_sorted_runs_cols(a_kcols: torch.Tensor, a_payloads,
@@ -109,3 +209,25 @@ def lower_bound_cols_prebuilt(ext: torch.Tensor, w: int, bstart: torch.Tensor,
     b = to_u64(queries[:, 0]) >> (32 - tbits)
     return _bsearch_rounds(ext[:w], queries, bstart[b].to(torch.int64),
                            bstart[b + 1].to(torch.int64))
+
+
+def lower_bound_bucketed(keys: torch.Tensor, size, queries: torch.Tensor,
+                         tbits: int = 16) -> torch.Tensor:
+    """lower_bound of each query row [m, w] in the live rows [0, size) of
+    sorted row-major keys [cap, w], seeded by a 2^tbits-entry prefix-bucket
+    table of word 0.  Rows >= size must hold the all-ones sentinel (every
+    store's invariant), so clipping the bucket bounds to `size` keeps the
+    result."""
+    starts = _prefix_starts(keys[:, 0], tbits).to(torch.int64)
+    b = to_u64(queries[:, 0]) >> (32 - tbits)
+    size = torch.as_tensor(size, device=keys.device).to(torch.int64)
+    return _bsearch_rounds(keys.t(), queries, torch.minimum(starts[b], size),
+                           torch.minimum(starts[b + 1], size))
+
+
+def rows_equal_at(keys: torch.Tensor, idx: torch.Tensor, queries: torch.Tensor,
+                  size) -> torch.Tensor:
+    """bool[m]: keys[idx] == queries and idx < size (the query is
+    present)."""
+    rows = keys[idx.clamp(0, keys.shape[0] - 1)]
+    return (idx < size) & (rows == queries).all(dim=-1)

@@ -158,3 +158,94 @@ def test_prefix_starts_and_prebuilt_lower_bound(tbits):
         jp = jsort.lower_bound_cols_prebuilt(jnp.asarray(keys), 2, jstarts,
                                              jnp.asarray(queries))
         np.testing.assert_array_equal(got.numpy(), np.asarray(jp))
+
+
+@pytest.mark.parametrize("w,npay,na,nb", [
+    (1, 0, 1000, 999), (2, 1, 3000, 1), (2, 2, 0, 513), (3, 3, 2047, 2049)])
+def test_merge_sorted_runs_row_major_matches_jax(w, npay, na, nb):
+    """K2′'s plain version (sortops.merge_sorted_runs on CPU tensors)
+    against the JAX row-major merge, per key multiset."""
+    rng = np.random.default_rng(w * 100 + npay + nb % 11)
+    a, pa, b, pb = _runs(rng, w, na, nb, npay, sent_b=min(nb, 3))
+    keys, pays = sortops.merge_sorted_runs(
+        words_t(a.T), tuple(torch.from_numpy(p) for p in pa),
+        words_t(b.T), tuple(torch.from_numpy(p) for p in pb))
+    jk, jp = jsort.merge_sorted_runs(
+        jnp.asarray(a.T), tuple(jnp.asarray(p) for p in pa),
+        jnp.asarray(b.T), tuple(jnp.asarray(p) for p in pb))
+    _assert_merge_equal(words_np(keys).T, [p.numpy() for p in pays],
+                        np.asarray(jk).T, [np.asarray(p) for p in jp])
+
+
+def _sorted_rows(rng, n, w, nkeys, tv, sentinel_tail=True):
+    keys = rng.integers(0, 2**32, (nkeys, w), dtype=np.uint32)
+    rows = keys[rng.integers(0, nkeys, n)]
+    rows[:tv] = rows[:tv][np.lexsort(rows[:tv].T[::-1])]
+    if sentinel_tail:
+        rows[tv:] = 0xFFFFFFFF
+    return rows, np.arange(n) < tv
+
+
+@pytest.mark.parametrize("n,w,nkeys,tv", [
+    (1, 1, 1, 1), (3000, 2, 40, 2500), (3000, 3, 900, 3000), (500, 2, 5, 0)])
+def test_segment_reduce_matches_jax(n, w, nkeys, tv):
+    """Sums over key runs (1-d and [n, d] values), the stable compaction
+    and the run totals equal the JAX package's."""
+    rng = np.random.default_rng(n + w + tv)
+    rows, valid = _sorted_rows(rng, n, w, nkeys, tv)
+    vals = rng.integers(0, 2**20, (n, 2)).astype(np.int32)
+    for v in (vals[:, 0], vals):
+        ju, jr, jn = jsort.segment_reduce_sorted(
+            jnp.asarray(rows), jnp.asarray(valid), jnp.asarray(v))
+        tu, tr, tn = sortops.segment_reduce_sorted(
+            words_t(rows), torch.from_numpy(valid), torch.from_numpy(v))
+        np.testing.assert_array_equal(words_np(tu), np.asarray(ju))
+        np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+        assert int(tn) == int(jn)
+    ju, (jp,), js, jn, jt = jsort.compact_runs(
+        jnp.asarray(rows), jnp.asarray(valid), (jnp.asarray(vals[:, 1]),))
+    tu, (tp,), ts, tn, tt = sortops.compact_runs(
+        words_t(rows), torch.from_numpy(valid),
+        (torch.from_numpy(vals[:, 1]),))
+    np.testing.assert_array_equal(words_np(tu), np.asarray(ju))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert (int(tn), int(tt)) == (int(jn), int(jt))
+    np.testing.assert_array_equal(
+        sortops.run_weight_totals(words_t(rows), torch.from_numpy(valid),
+                                  torch.from_numpy(vals[:, 0])).numpy(),
+        np.asarray(jsort.run_weight_totals(
+            jnp.asarray(rows), jnp.asarray(valid), jnp.asarray(vals[:, 0]))))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        sortops.segment_reduce_sorted(words_t(rows), torch.from_numpy(valid),
+                                      torch.from_numpy(vals[:, 0]), "min")
+
+
+def test_run_weight_totals_wrap_like_int32():
+    rows = np.zeros((3, 1), np.uint32)
+    vals = np.full(3, 2**30 + 7, np.int32)
+    got = sortops.run_weight_totals(words_t(rows), torch.ones(3, dtype=bool),
+                                    torch.from_numpy(vals))
+    want = jsort.run_weight_totals(jnp.asarray(rows), jnp.ones(3, bool),
+                                   jnp.asarray(vals))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("size", [0, 1, 2999, 3000])
+def test_lower_bound_bucketed_matches_jax(size):
+    rng = np.random.default_rng(size)
+    rows, _ = _sorted_rows(rng, 4000, 2, 3500, size)
+    rows[:size, 0] >>= 8                    # crowded word-0 buckets
+    rows[:size] = rows[:size][np.lexsort(rows[:size].T[::-1])]
+    queries = np.concatenate([
+        rows[rng.integers(0, max(size, 1), 300)],
+        rng.integers(0, 2**32, (300, 2), dtype=np.uint32)])
+    want = jsort.lower_bound_bucketed(jnp.asarray(rows), size,
+                                      jnp.asarray(queries))
+    got = sortops.lower_bound_bucketed(words_t(rows), size, words_t(queries))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        sortops.rows_equal_at(words_t(rows), got, words_t(queries),
+                              size).numpy(),
+        np.asarray(jsort.rows_equal_at(jnp.asarray(rows), want,
+                                       jnp.asarray(queries), size)))

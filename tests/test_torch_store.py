@@ -131,3 +131,37 @@ def test_run_merge_and_unit_merge_match_jax():
         np.testing.assert_array_equal(g.weights.numpy(),
                                       np.asarray(w.weights))
         np.testing.assert_array_equal(g.csum.numpy(), np.asarray(w.csum))
+
+
+def _count_store(rng, cap=5000, size=3700):
+    keys = np.unique(rng.integers(0, 2**32, (2 * size, 2), dtype=np.uint32),
+                     axis=0)[:size]
+    full = np.full((cap, 2), 0xFFFFFFFF, np.uint32)
+    full[:size] = keys
+    counts = np.zeros(cap, np.int32)
+    counts[:size] = rng.integers(1, 1000, size)
+    return full, counts, size
+
+
+def test_count_store_lookup_and_erase_match_jax():
+    """CountStore (the sorted index's shard): lookups, then an erase of
+    present, absent, duplicated and invalid query rows."""
+    rng = np.random.default_rng(4)
+    keys, counts, size = _count_store(rng)
+    j = jst.CountStore(jnp.asarray(keys), jnp.asarray(counts),
+                       jnp.asarray(size, jnp.int32))
+    t = tst.CountStore(words_t(keys), torch.from_numpy(counts),
+                       torch.tensor(size, dtype=torch.int32))
+    q = np.concatenate([keys[rng.integers(0, size, 400)],
+                        rng.integers(0, 2**32, (100, 2), dtype=np.uint32),
+                        keys[size:size + 5]])
+    np.testing.assert_array_equal(
+        tst.count_lookup(t, words_t(q)).numpy(),
+        np.asarray(jst.count_lookup(j, jnp.asarray(q))))
+    qvalid = rng.random(q.shape[0]) < 0.8
+    jn, jcount = jst.count_erase(j, jnp.asarray(q), jnp.asarray(qvalid))
+    tn, tcount = tst.count_erase(t, words_t(q), torch.from_numpy(qvalid))
+    assert int(tcount) == int(jcount) > 0
+    np.testing.assert_array_equal(words_np(tn.keys), np.asarray(jn.keys))
+    np.testing.assert_array_equal(tn.counts.numpy(), np.asarray(jn.counts))
+    assert int(tn.size) == int(jn.size)
