@@ -12,8 +12,13 @@ and power limit as nvidia-smi reports them):
       kmerind_tpu_torch/_build.
 * P2  every kernel against its plain PyTorch version on the card, at the
       main paths' shapes; bitwise equality required; both timed with CUDA
-      events (median of 5).  K2′ (the row-major merge entry, which no index
-      calls) runs only here.
+      events (median of 5).  Beside them: the kernel's bound (the bytes it
+      must move, `kernel_bytes`, over the HBM rate) and, where one PyTorch
+      call computes the same function, that call's time (K3:
+      torch.cumsum; K2 / K2′: a stable torch.sort of the runs' packed int64
+      keys — a sort, the nearest single call to a merge).  The port never
+      calls those.  K2′ (the row-major merge entry, which no index calls)
+      runs only here.
 * P3  exact reference: ~12M bases of synthetic reads indexed through
       CountIndex.insert_batch in 2^20-base chunks with max_runs=2 (many K2
       merges), then compact(); to_dict() must equal an independent numpy
@@ -58,6 +63,34 @@ CHUNK = (1 << 23) + K - 1          # default_chunk_bases + the k-1 halo
 GENOME_LEN = 4_641_652             # E. coli K-12 MG1655
 READ_LEN = 150
 COVERAGE = 30
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA's data sheet
+
+
+def kernel_bytes(kname: str, **shape) -> int:
+    """Bytes a kernel must move at the least: each input read once, each
+    output written once, from the call's shapes.
+
+    extract_canonical(n, nwords): uint8 codes in; int32 [nwords, n] words
+    and bool [n] was_rc out.  merge_runs_cols / merge_sorted_runs(na, nb,
+    n_out, w, npay): w key words and npay payloads of int32 per row, na +
+    nb rows in, n_out out.  prefix_sum_i32(n): int32 in and out.
+    run_length_weights(n, w): int32 [w, n] keys and the int32 valid count
+    in, int32 [n] weights out."""
+    if kname == "extract_canonical":
+        return shape["n"] * (1 + 4 * shape["nwords"] + 1)
+    if kname in ("merge_runs_cols", "merge_sorted_runs"):
+        row = 4 * (shape["w"] + shape["npay"])
+        return (shape["na"] + shape["nb"] + shape["n_out"]) * row
+    if kname == "prefix_sum_i32":
+        return 8 * shape["n"]
+    if kname == "run_length_weights":
+        return 4 * shape["w"] * shape["n"] + 4 + 4 * shape["n"]
+    raise KeyError(kname)
+
+
+def bound_ms(nbytes: int) -> float:
+    """Least milliseconds to move `nbytes` at the HBM rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def log(msg: str):
@@ -166,7 +199,7 @@ def main() -> int:
                                    SortedCountIndex)
     from kmerind_tpu_torch.io import native, read_file, split_records_at_invalid
     from kmerind_tpu_torch.ops import kernels, packing, sortops
-    from kmerind_tpu_torch.ops.keys import to_numpy_u32
+    from kmerind_tpu_torch.ops.keys import biased, to_numpy_u32
 
     dev = torch.device("cuda")
     t_all = time.perf_counter()
@@ -197,15 +230,27 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
 
-    def record(kname, case, ms, plain_ms, err):
+    def record(kname, case, ms, plain_ms, err, nbytes, library_ms=None):
+        bound = bound_ms(nbytes)
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"P2 {kname} {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"max_abs_err {err} [{smi}]")
+            f"bound {bound:.4f} ms ({nbytes} bytes, {100 * bound / ms:.1f} %), "
+            f"library {lib}, max_abs_err {err} [{smi}]")
         if err != 0:
             raise AssertionError(f"{kname} {case}: kernel != plain")
-        results.setdefault(kname, (ms, plain_ms, err))
+        results.setdefault(kname, {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms})
 
     def err_of(a, b):
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+    def sort_ms(a_cols, b_cols):
+        """A stable torch.sort of the runs' packed int64 keys (w=2)."""
+        cols = torch.cat([a_cols, b_cols], 1)
+        key = ((biased(cols[0]).to(torch.int64) << 32)
+               | (cols[1].to(torch.int64) & 0xFFFFFFFF))
+        return median_ms(lambda: torch.sort(key, stable=True))
 
     for spec in (KmerSpec(21, DNA), KmerSpec(63, DNA), KmerSpec(31, DNA16)):
         codes = torch.randint(0, spec.alphabet.size, (CHUNK,),
@@ -216,7 +261,8 @@ def main() -> int:
         err = max(err_of(w[:nv], pw[:nv]), err_of(rc[:nv], prc[:nv]))
         record("extract_canonical", f"n={CHUNK} {spec}",
                median_ms(lambda: kernels.extract_canonical(codes, spec)),
-               median_ms(lambda: packing.extract_canonical(codes, spec)), err)
+               median_ms(lambda: packing.extract_canonical(codes, spec)), err,
+               kernel_bytes("extract_canonical", n=CHUNK, nwords=spec.nwords))
         del w, rc, pw, prc
 
     def sorted_run(n):
@@ -240,7 +286,9 @@ def main() -> int:
         record("merge_runs_cols", f"{na}+{nb} w=2 payloads={npay}",
                median_ms(lambda: kernels.merge_runs_cols(a, pa, b, pb)),
                median_ms(lambda: kernels.merge_runs_cols_plain(a, pa, b, pb)),
-               err)
+               err, kernel_bytes("merge_runs_cols", na=na, nb=nb,
+                                 n_out=gk.shape[1], w=2, npay=npay),
+               sort_ms(a, b))
         del a, b, pa, pb, gk, gp, wk, wp
 
     a, b = (sorted_run(CHUNK).t().contiguous() for _ in range(2))
@@ -252,7 +300,10 @@ def main() -> int:
     record("merge_sorted_runs", f"{CHUNK}+{CHUNK} rows w=2 payloads=1",
            median_ms(lambda: kernels.merge_sorted_runs(a, pa, b, pb)),
            median_ms(lambda: kernels.merge_sorted_runs_plain(a, pa, b, pb)),
-           max(err_of(gk, wk), err_of(gp[0], wp[0])))
+           max(err_of(gk, wk), err_of(gp[0], wp[0])),
+           kernel_bytes("merge_sorted_runs", na=CHUNK, nb=CHUNK,
+                        n_out=gk.shape[0], w=2, npay=1),
+           sort_ms(a.t(), b.t()))
     k2r_launches = kernels.LAUNCHES["merge_sorted_runs"]
     del a, b, pa, pb, gk, gp, wk, wp
 
@@ -262,7 +313,9 @@ def main() -> int:
         err = err_of(kernels.prefix_sum_i32(x), kernels.prefix_sum_i32_plain(x))
         record("prefix_sum_i32", f"n=2^28 values 0..{hi - 1}",
                median_ms(lambda: kernels.prefix_sum_i32(x)),
-               median_ms(lambda: kernels.prefix_sum_i32_plain(x)), err)
+               median_ms(lambda: kernels.prefix_sum_i32_plain(x)), err,
+               kernel_bytes("prefix_sum_i32", n=x.shape[0]),
+               median_ms(lambda: torch.cumsum(x, 0, dtype=torch.int32)))
         del x
 
     def run_lengths(case, kcols, tv):
@@ -274,7 +327,8 @@ def main() -> int:
         record("run_length_weights", case,
                median_ms(lambda: kernels.run_length_weights(kcols, tv)),
                median_ms(lambda: kernels.run_length_weights_plain(kcols, tv)),
-               err_of(got, want))
+               err_of(got, want), kernel_bytes(
+                   "run_length_weights", n=kcols.shape[1], w=kcols.shape[0]))
 
     # the real input: sorted canonical 21-mers of one chunk of reads
     rcodes = make_reads(GENOME_LEN, CHUNK // READ_LEN + 1, seed=5)
@@ -494,13 +548,12 @@ def main() -> int:
     log(f"total seconds {time.perf_counter() - t_all:.2f} [{smi}]")
     entries = []
     for kname, (src, replaces) in kernels.KERNELS.items():
-        ms, plain_ms, err = results[kname]
         # main-path launches (P4 + P5); K2′ is on no index's path: P2's
         n = (k2r_launches if kname == "merge_sorted_runs"
              else launches["P4"][kname] + launches["P5"][kname])
         entries.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        **results[kname]})
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

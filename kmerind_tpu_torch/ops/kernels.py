@@ -111,6 +111,29 @@ def _lib_path() -> pathlib.Path:
     return BUILD_DIR / f"libkmerind_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _bind(lib):
+    """Set the C signatures of the kernel library's entries; returns lib."""
+    lib.kmerind_extract_canonical.argtypes = [
+        _vp, _i64, _vp, _int, _int, _int, _int, _vp, _vp, _vp]
+    lib.kmerind_merge_runs.argtypes = [
+        _vp, _i64, _vp, _i64, _int, _vp, _vp, _vp, _vp, _vp, _vp,
+        _int, _vp, _vp, _vp, _vp, _i64, _vp, _vp]
+    lib.kmerind_merge_runs_parts.argtypes = [_i64, _i64]
+    lib.kmerind_merge_runs_parts.restype = _i64
+    lib.kmerind_prefix_sum_scratch_words.argtypes = [_i64]
+    lib.kmerind_prefix_sum_scratch_words.restype = _i64
+    lib.kmerind_prefix_sum_i32.argtypes = [_vp, _vp, _i64, _vp, _vp]
+    lib.kmerind_run_length_tiles.argtypes = [_i64]
+    lib.kmerind_run_length_tiles.restype = _i64
+    lib.kmerind_run_length_weights.argtypes = [
+        _vp, _int, _i64, _vp, _vp, _vp, _vp]
+    for fn in (lib.kmerind_extract_canonical, lib.kmerind_merge_runs,
+               lib.kmerind_prefix_sum_i32,
+               lib.kmerind_run_length_weights):
+        fn.restype = _int
+    return lib
+
+
 def build() -> dict:
     """Compile (if not built yet) and load the kernel library.
 
@@ -143,24 +166,7 @@ def build() -> dict:
                 raise RuntimeError(f"nvcc failed:\n{log}")
             os.replace(tmp, path)
         if _lib is None:
-            lib = ctypes.CDLL(str(path))
-            lib.kmerind_extract_canonical.argtypes = [
-                _vp, _i64, _vp, _int, _int, _int, _int, _vp, _vp, _vp]
-            lib.kmerind_merge_runs.argtypes = [
-                _vp, _i64, _vp, _i64, _int, _vp, _vp, _vp, _vp, _vp, _vp,
-                _int, _vp, _vp, _vp, _vp, _i64, _vp]
-            lib.kmerind_prefix_sum_tiles.argtypes = [_i64]
-            lib.kmerind_prefix_sum_tiles.restype = _i64
-            lib.kmerind_prefix_sum_i32.argtypes = [_vp, _vp, _i64, _vp, _vp]
-            lib.kmerind_run_length_tiles.argtypes = [_i64]
-            lib.kmerind_run_length_tiles.restype = _i64
-            lib.kmerind_run_length_weights.argtypes = [
-                _vp, _int, _i64, _vp, _vp, _vp, _vp]
-            for fn in (lib.kmerind_extract_canonical, lib.kmerind_merge_runs,
-                       lib.kmerind_prefix_sum_i32,
-                       lib.kmerind_run_length_weights):
-                fn.restype = _int
-            _lib = lib
+            _lib = _bind(ctypes.CDLL(str(path)))
         return {"path": str(path), "seconds": seconds, "log": log}
 
 
@@ -264,7 +270,9 @@ def merge_runs_cols(a_keys, a_payloads, b_keys, b_payloads):
 
 
 def _merge_cols(name, a_keys, a_payloads, b_keys, b_payloads):
-    """Check and launch the K2 kernel; counts the launch under `name`."""
+    """Check and launch K2 (its partition and tile launches, with the
+    partition scratch from `torch.empty`); counts one launch under
+    `name`."""
     dev = a_keys.device
     w, na = a_keys.shape
     nb = b_keys.shape[1]
@@ -289,10 +297,14 @@ def _merge_cols(name, a_keys, a_payloads, b_keys, b_payloads):
         ps = [_ptr(t) for t in ts]
         return ps + [None] * (3 - len(ps))
 
-    rc = _cuda_lib().kmerind_merge_runs(
+    lib = _cuda_lib()
+    parts = torch.empty(lib.kmerind_merge_runs_parts(na, nb),
+                        dtype=torch.int64, device=dev)
+    rc = lib.kmerind_merge_runs(
         a_keys.data_ptr(), na, b_keys.data_ptr(), nb, w,
         *three(a_payloads), *three(b_payloads), npay,
-        out_keys.data_ptr(), *three(out_pays), n, _stream(dev))
+        out_keys.data_ptr(), *three(out_pays), n, parts.data_ptr(),
+        _stream(dev))
     _launched(name, rc)
     return out_keys, out_pays
 
@@ -335,8 +347,8 @@ def prefix_sum_i32(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if n:
         lib = _cuda_lib()
-        scratch = torch.empty(lib.kmerind_prefix_sum_tiles(n),
-                              dtype=torch.int32, device=x.device)
+        scratch = torch.empty(lib.kmerind_prefix_sum_scratch_words(n),
+                              dtype=torch.int64, device=x.device)
         rc = lib.kmerind_prefix_sum_i32(x.data_ptr(), out.data_ptr(), n,
                                         scratch.data_ptr(),
                                         _stream(x.device))

@@ -1,0 +1,54 @@
+"""The byte counts behind chip_smoke.py's kernel bounds: each input read
+once and each output written once, from the shapes of P2's cases."""
+
+import pathlib
+import sys
+
+import pytest
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+
+import chip_smoke  # noqa: E402
+
+CHUNK = chip_smoke.CHUNK
+
+
+@pytest.mark.parametrize("kname,shape,want", [
+    # K1, k=21 DNA: 8.4 MB of codes in, 67.1 MB of words + 8.4 MB of flags out
+    ("extract_canonical", dict(n=CHUNK, nwords=2), CHUNK * 10),
+    # K2 CHUNK + CHUNK keys only: 134,218,048 in + 268,435,456 out
+    ("merge_runs_cols", dict(na=CHUNK, nb=CHUNK, n_out=1 << 25, w=2, npay=0),
+     402_653_504),
+    ("merge_runs_cols", dict(na=1 << 26, nb=CHUNK, n_out=1 << 27, w=2,
+                             npay=0), ((1 << 26) + CHUNK + (1 << 27)) * 8),
+    ("merge_runs_cols", dict(na=CHUNK, nb=CHUNK, n_out=1 << 25, w=2, npay=1),
+     201_327_072 + 402_653_184),
+    ("merge_sorted_runs", dict(na=3, nb=5, n_out=8, w=5, npay=3),
+     (3 + 5 + 8) * 32),
+    # K2 with an empty run: the sentinel rows are still written
+    ("merge_runs_cols", dict(na=0, nb=0, n_out=2, w=1, npay=0), 8),
+    # K3 at 2^28: 2^31 bytes
+    ("prefix_sum_i32", dict(n=1 << 28), 1 << 31),
+    ("prefix_sum_i32", dict(n=1), 8),
+    # K4, w=2: 67.1 MB of keys + the valid count in, 33.6 MB of weights out
+    ("run_length_weights", dict(n=CHUNK, w=2), CHUNK * 12 + 4),
+])
+def test_kernel_bytes(kname, shape, want):
+    assert chip_smoke.kernel_bytes(kname, **shape) == want
+
+
+def test_bound_ms_is_bytes_over_the_hbm_rate():
+    assert chip_smoke.HBM_BYTES_PER_S == 3.35e12
+    assert chip_smoke.bound_ms(3_350_000_000) == pytest.approx(1.0)
+    # K3 at 2^28 and K2 CHUNK + CHUNK, as PERF.md's table states them
+    assert chip_smoke.bound_ms(1 << 31) == pytest.approx(0.641, abs=5e-4)
+    assert chip_smoke.bound_ms(402_653_504) == pytest.approx(0.120, abs=5e-4)
+
+
+def test_kernel_bytes_covers_every_kernel_and_no_other():
+    from kmerind_tpu_torch.ops import kernels
+    shape = dict(n=4, nwords=1, na=1, nb=1, n_out=2, w=1, npay=0)
+    for kname in kernels.KERNELS:
+        assert chip_smoke.kernel_bytes(kname, **shape) > 0
+    with pytest.raises(KeyError):
+        chip_smoke.kernel_bytes("sort", **shape)

@@ -1,6 +1,9 @@
 """The CUDA kernels against their plain versions on the card, at small and
 edge-case shapes (empty runs, one row, 5 key words with 3 payloads, k up
-to 512, sums that wrap, runs crossing every tile, no valid rows), and the
+to 512, sums that wrap, runs crossing every tile, no valid rows; for the
+K2 merge ties across every tile boundary, lopsided, disjoint and sentinel
+runs, totals around the tile size; for the K3 scan sizes around its tile,
+look-back over many tiles, repeated calls, unaligned views), and the
 port's CountIndex and SortedCountIndex on the card against the same index
 on the CPU.  Exact equality throughout: everything is integer,
 and the K2 merge keeps ties in the plain version's (stable) order.
@@ -74,13 +77,160 @@ def test_merge_runs_kernel(dev, w, npay, na, nb):
     assert all(torch.equal(g.cpu(), p) for g, p in zip(got_p, want_p))
 
 
-@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 300_000, 5_000_001])
+MERGE_TILE = 1024   # outputs per CTA of merge_runs.cu (kTile)
+SCAN_TILE = 8192    # values per tile of prefix_sum.cu (kTile)
+
+
+def test_tile_sizes_match_the_sources(dev):
+    lib = kernels._cuda_lib()
+    assert lib.kmerind_merge_runs_parts(MERGE_TILE, 0) == 2
+    assert lib.kmerind_merge_runs_parts(0, MERGE_TILE + 1) == 3
+    assert lib.kmerind_merge_runs_parts(0, 0) == 1
+    assert lib.kmerind_prefix_sum_scratch_words(SCAN_TILE) == 2
+    assert lib.kmerind_prefix_sum_scratch_words(SCAN_TILE + 1) == 3
+
+
+def _tied_run(rng, w, n, lo, hi, n_sentinel=0):
+    """uint32[w, n] ascending run: word 0 in [lo, hi), the other words 0 or
+    1, so equal keys repeat; `n_sentinel` all-ones rows at the tail."""
+    live = n - n_sentinel
+    cols = [rng.integers(lo, hi, live, dtype=np.uint32)]
+    cols += [rng.integers(0, 2, live, dtype=np.uint32) for _ in range(w - 1)]
+    order = np.lexsort(cols[::-1])
+    keys = np.full((w, n), 0xFFFFFFFF, np.uint32)
+    keys[:, :live] = np.stack([c[order] for c in cols])
+    return keys
+
+
+def _check_merge(dev, a, b, npay):
+    """K2 on uint32 runs a, b with distinct payloads (A rows 0.., B rows
+    after them), so any tie taken out of order shows: bitwise equal to the
+    plain version's stable merge, one launch counted."""
+    na, nb = a.shape[1], b.shape[1]
+    pa = tuple(torch.arange(na, dtype=torch.int32) + p for p in range(npay))
+    pb = tuple(torch.arange(na, na + nb, dtype=torch.int32) + p
+               for p in range(npay))
+    at, bt = words_t(a), words_t(b)
+    want_k, want_p = kernels.merge_runs_cols_plain(at, pa, bt, pb)
+    before = kernels.LAUNCHES["merge_runs_cols"]
+    got_k, got_p = kernels.merge_runs_cols(
+        at.to(dev), tuple(p.to(dev) for p in pa),
+        bt.to(dev), tuple(p.to(dev) for p in pb))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["merge_runs_cols"] == before + 1
+    assert torch.equal(got_k.cpu(), want_k)
+    assert all(torch.equal(g.cpu(), p) for g, p in zip(got_p, want_p))
+
+
+@pytest.mark.parametrize("w,npay,na,nb,nvals", [
+    (1, 1, 5 * MERGE_TILE + 37, 3 * MERGE_TILE + 11, 10),
+    (2, 3, 4 * MERGE_TILE - 1, 4 * MERGE_TILE + 1, 3),
+    (5, 2, 9 * MERGE_TILE + 5, 2 * MERGE_TILE, 2),
+    (2, 1, 100_003, 99_997, 1000)])
+def test_merge_ties_straddle_every_tile_boundary(dev, w, npay, na, nb, nvals):
+    """Few distinct keys: every tile boundary falls inside a run of ties
+    between A and B."""
+    rng = np.random.default_rng(na + nb + w)
+    _check_merge(dev, _tied_run(rng, w, na, 0, nvals),
+                 _tied_run(rng, w, nb, 0, nvals), npay)
+
+
+@pytest.mark.parametrize("w,na,nb", [
+    (1, 7 * MERGE_TILE + 5, 5 * MERGE_TILE + 3), (3, 6 * MERGE_TILE, 0),
+    (2, 1, 8 * MERGE_TILE + 9)])
+def test_merge_equal_keys_longer_than_many_tiles(dev, w, na, nb):
+    """One key value in both runs: the whole merge is ties, A first."""
+    a = np.full((w, na), 12345, np.uint32)
+    b = np.full((w, nb), 12345, np.uint32)
+    _check_merge(dev, a, b, 2)
+
+
+@pytest.mark.parametrize("na,nb,a_range,b_range", [
+    (200_001, 7, (0, 50), (0, 50)),              # na >> nb
+    (5, 150_000, (0, 50), (0, 50)),              # nb >> na
+    (30_000, 20_000, (0, 1000), (2000, 3000)),   # all of A below all of B
+    (30_000, 20_000, (2000, 3000), (0, 1000)),   # all of A above all of B
+])
+def test_merge_lopsided_and_disjoint_runs(dev, na, nb, a_range, b_range):
+    rng = np.random.default_rng(na * 3 + nb)
+    _check_merge(dev, _tied_run(rng, 2, na, *a_range),
+                 _tied_run(rng, 2, nb, *b_range), 1)
+
+
+@pytest.mark.parametrize("na,nb,a_sent,b_sent", [
+    (3000, 2000, 3000, 0),          # A all sentinel
+    (4097, 5000, 0, 5000),          # B all sentinel
+    (2048, 2048, 2048, 2048),       # both all sentinel
+    (6000, 7000, 1500, 4000)])      # sentinel tails inside both runs
+def test_merge_sentinel_runs(dev, na, nb, a_sent, b_sent):
+    """Sentinel rows inside a run are ordinary keys with their payloads."""
+    rng = np.random.default_rng(na + b_sent)
+    _check_merge(dev, _tied_run(rng, 2, na, 0, 100, a_sent),
+                 _tied_run(rng, 2, nb, 0, 100, b_sent), 2)
+
+
+@pytest.mark.parametrize("total", [4 * MERGE_TILE - 1, 4 * MERGE_TILE,
+                                   4 * MERGE_TILE + 1])
+@pytest.mark.parametrize("w,npay", [(1, 0), (2, 1), (3, 3)])
+def test_merge_totals_around_the_tile(dev, total, w, npay):
+    """na + nb at T*m - 1, T*m, T*m + 1: a last tile of T - 1, T or 1 rows,
+    and a sentinel fill of 1, 0 or T*m - 1 rows (unaligned head and tail)."""
+    rng = np.random.default_rng(total + w)
+    na = total // 3
+    _check_merge(dev, _tied_run(rng, w, na, 0, 500),
+                 _tied_run(rng, w, total - na, 0, 500), npay)
+
+
+@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, SCAN_TILE - 1, SCAN_TILE,
+                               SCAN_TILE + 1, 300_000, 5_000_001])
 def test_prefix_sum_kernel(dev, n):
     x = torch.from_numpy(np.random.default_rng(n).integers(
         -(2**31), 2**31 - 1, n, dtype=np.int64).astype(np.int32))
     got = kernels.prefix_sum_i32(x.to(dev))
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), kernels.prefix_sum_i32_plain(x))
+
+
+def test_prefix_sum_look_back_over_many_tiles(dev):
+    """2^26 values (8,192 tiles): look-back may reach past 32 tiles; sums
+    wrap modulo 2^32 many times."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randint(-(2**31), 2**31 - 1, (1 << 26,), dtype=torch.int32,
+                      device=dev, generator=gen)
+    assert torch.equal(kernels.prefix_sum_i32(x),
+                       kernels.prefix_sum_i32_plain(x))
+
+
+def test_prefix_sum_wraps(dev):
+    x = torch.full((3 * SCAN_TILE + 5,), 2**30, dtype=torch.int32)
+    got = kernels.prefix_sum_i32(x.to(dev)).cpu()
+    np.testing.assert_array_equal(
+        got.numpy(), np.cumsum(x.numpy(), dtype=np.int32))
+
+
+def test_prefix_sum_twice_resets_its_scratch(dev):
+    """Two calls in a row with the same scratch size: the tile counter and
+    the status flags start from zero each time."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randint(0, 100, (7 * SCAN_TILE + 3,), dtype=torch.int32,
+                      device=dev, generator=gen)
+    y = torch.randint(0, 100, x.shape, dtype=torch.int32, device=dev,
+                      generator=gen)
+    before = kernels.LAUNCHES["prefix_sum_i32"]
+    gx, gy = kernels.prefix_sum_i32(x), kernels.prefix_sum_i32(y)
+    assert kernels.LAUNCHES["prefix_sum_i32"] == before + 2
+    assert torch.equal(gx, kernels.prefix_sum_i32_plain(x))
+    assert torch.equal(gy, kernels.prefix_sum_i32_plain(y))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_prefix_sum_unaligned_views(dev, offset):
+    """A contiguous view that starts off a 16-byte boundary takes the
+    scalar path."""
+    x = torch.arange(3 * SCAN_TILE + 17, dtype=torch.int32, device=dev)
+    v = x[offset:]
+    assert torch.equal(kernels.prefix_sum_i32(v),
+                       kernels.prefix_sum_i32_plain(v))
 
 
 @pytest.mark.parametrize("w,npay,na,nb", [

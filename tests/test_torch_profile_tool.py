@@ -37,3 +37,18 @@ def test_phase_device_items_clips_to_the_range():
     assert sorted(spans) == [(2.0, 10.0), (5.0, 15.0), (90.0, 100.0)]
     assert by_name == {"k": 18.0, "HtoD": 10.0}
     assert profile_p4.union_length(spans) == 23.0
+
+
+def test_port_kernel_ms_sums_each_kernels_launches():
+    by_name = {
+        "void (anonymous namespace)::merge_partition_kernel<2>(Cols, long)":
+            10.0,
+        "void (anonymous namespace)::merge_tiles_kernel<2>(Cols, int)": 990.0,
+        "(anonymous namespace)::prefix_scan_kernel(unsigned int const*)": 500.0,
+        "void at::native::merge_tiles_kernel_other(int)": 7.0,
+        "void cub::DeviceRadixSortOnesweepKernel<int>(int)": 3000.0,
+        "rl_tiles": 2.0,
+    }
+    got = profile_p4.port_kernel_ms(by_name)
+    assert got == {"extract_canonical": 0.0, "merge_runs_cols": 1.0,
+                   "prefix_sum_i32": 0.5, "run_length_weights": 0.002}

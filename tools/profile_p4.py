@@ -17,8 +17,8 @@ Device busy for a phase is the union of the kernel, memcpy and memset
 intervals of the trace that fall inside the phase's range, over the
 range's length: device work that overlaps is counted once, so the share
 cannot exceed 100 %.  Per phase the script prints the wall seconds of
-both passes, busy seconds and share, and the device items that take the
-most time; then the PhaseTimer report of the profiled pass; and last one
+both passes, busy seconds and share, the device items that take the
+most time and the device milliseconds of each of the port's kernels; then the PhaseTimer report of the profiled pass; and last one
 JSON object with all of it.  Every timing line carries the card's name
 and power limit as nvidia-smi reports them.
 """
@@ -29,6 +29,7 @@ import argparse
 import collections
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -44,6 +45,13 @@ from chip_smoke import (COVERAGE, GENOME_LEN, K, READ_LEN,  # noqa: E402
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 PHASES = ("build", "count1", "count2", "items", "compact")
+#: the port's kernels -> the CUDA kernel names (ops/csrc) of their launches
+PORT_KERNELS = {
+    "extract_canonical": ("extract_canonical_kernel",),
+    "merge_runs_cols": ("merge_partition_kernel", "merge_tiles_kernel"),
+    "prefix_sum_i32": ("prefix_scan_kernel",),
+    "run_length_weights": ("rl_tiles", "rl_carry"),
+}
 
 
 def union_length(intervals) -> float:
@@ -69,6 +77,14 @@ def phase_device_items(trace: dict, lo: float, hi: float):
             spans.append((s, e))
             by_name[ev.get("name", "?")] += e - s
     return spans, by_name
+
+
+def port_kernel_ms(by_name) -> dict:
+    """{port kernel: device ms} from `phase_device_items`' {name: us}; a
+    trace name matches when it holds a CUDA kernel's name as a word."""
+    return {k: sum(us for n, us in by_name.items()
+                   if any(re.search(rf"\b{c}\b", n) for c in cuda)) / 1e3
+            for k, cuda in PORT_KERNELS.items()}
 
 
 def make_queries(codes: np.ndarray) -> np.ndarray:
@@ -160,21 +176,23 @@ def main(argv=None) -> int:
               and str(ev.get("name", "")).startswith("p4:")}
     out = {"card": smi, "phases": {}}
     print("| phase | wall s | profiled wall s | device busy s | busy % "
-          "| top device items (ms) |")
-    print("| --- | --- | --- | --- | --- | --- |")
+          "| top device items (ms) | port kernels (ms) |")
+    print("| --- | --- | --- | --- | --- | --- | --- |")
     for name in PHASES:
         lo, hi = ranges[name]
         spans, by_name = phase_device_items(trace, lo, hi)
         busy = union_length(spans) / 1e6
         span = (hi - lo) / 1e6
         top = [(n, us / 1e3) for n, us in by_name.most_common(5)]
+        ours = port_kernel_ms(by_name)
         out["phases"][name] = {
             "wall_s": wall[name], "profiled_wall_s": span,
             "device_busy_s": busy, "busy_share": busy / span,
-            "device_items": len(spans), "top_ms": top}
+            "device_items": len(spans), "top_ms": top, "port_kernel_ms": ours}
         tops = "; ".join(f"{n[:48]} {ms:.3f}" for n, ms in top)
+        kms = "; ".join(f"{k} {ms:.3f}" for k, ms in ours.items() if ms)
         print(f"| {name} | {wall[name]:.6f} | {span:.6f} | {busy:.6f} | "
-              f"{100 * busy / span:.2f} | {tops} |")
+              f"{100 * busy / span:.2f} | {tops} | {kms} |")
     print(f"card: {smi}")
     print(idx.timer.report("profiled"))
     print(json.dumps(out))

@@ -1,0 +1,246 @@
+#!/usr/bin/env python3
+"""Time design variants of the port's K2 and K3 CUDA kernels on one GPU.
+
+    python3 tools/sweep_variants.py [--kernel merge|scan|all] [--rounds 2]
+
+A variant is a committed source of kmerind_tpu_torch/ops/csrc with a few
+text substitutions (`VARIANTS`: tile shape, ordering of the look-back's
+status stores, cache hints); "committed" is the source as it is.  All
+variants are compiled at once (one nvcc each, sm_90a, the package's flags)
+and linked with the other committed sources into one library each under
+kmerind_tpu_torch/_build/variants.  In turn, each library is bound in place
+of the package's and called through the port's own wrapper
+(kernels.merge_runs_cols / kernels.prefix_sum_i32) at chip_smoke.py P2's
+shapes: checked bitwise against the plain version, then timed with CUDA
+events (median of 10 single calls, after a warm-up); in the first round
+also 3 calls under torch.profiler, for each CUDA kernel's mean device time
+per call (a kernel's own launches, without the gaps between them).
+Beside them, in the same rounds: the library yardstick of P2 (a stable
+torch.sort of the runs' packed int64 keys; torch.cumsum) and, for the scan,
+a device copy of the same bytes.  The rounds alternate over the variants, so drift shows as a
+spread.  Prints one line per variant and case, each with the card's name
+and power limit, then one JSON object of all the times.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import pathlib
+import re
+import subprocess
+import sys
+import tempfile
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from chip_smoke import CHUNK, bound_ms, kernel_bytes  # noqa: E402
+
+_LDCS = ("buf[swz(c)] = __ldcs(x4 + c);", "buf[swz(c)] = x4[c];")
+_STCS = ("__stcs(o4 + c, buf[swz(c)]);", "o4[c] = buf[swz(c)];")
+
+#: kernel -> (source, {variant: [(committed text, variant text), ...]})
+VARIANTS = {
+    "scan": ("prefix_sum.cu", {
+        "committed": [],
+        "release_store": [("st.relaxed.gpu", "st.release.gpu")],
+        "tile_4096": [("kItems = 32;", "kItems = 16;")],
+        "no_cache_hints": [_LDCS, _STCS],
+        "tile_4096_release_no_hints": [
+            ("kItems = 32;", "kItems = 16;"),
+            ("st.relaxed.gpu", "st.release.gpu"), _LDCS, _STCS],
+        "threads_128": [("kThreads = 256;", "kThreads = 128;")],
+    }),
+    "merge": ("merge_runs.cu", {
+        "committed": [],
+        "threads_256": [("kThreads = 128;", "kThreads = 256;")],
+        "threads_512": [("kThreads = 128;", "kThreads = 512;")],
+        "items_16": [("kItems = 8;", "kItems = 16;")],
+        "min_blocks_12": [("__launch_bounds__(kThreads)\nmerge_tiles_kernel",
+                           "__launch_bounds__(kThreads, 12)\nmerge_tiles_kernel")],
+        "cache_hints": [
+            ("s[pad(p)] = p < ta ? a[p] : b[p - ta];",
+             "s[pad(p)] = p < ta ? __ldcs(a + p) : __ldcs(b + p - ta);"),
+            ("if (p < cnt) o[p] = s[pad(p)];",
+             "if (p < cnt) __stcs(o + p, s[pad(p)]);"),
+            ("o4[v] = q;", "__stcs(o4 + v, q);")],
+    }),
+}
+
+
+def variant_source(text: str, subs) -> str:
+    for old, new in subs:
+        if text.count(old) != 1:
+            raise ValueError(f"substitution does not match once: {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def build_variants(kernels, names):
+    """{(kernel, variant): bound library}, compiling all at once."""
+    out = kernels.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = [kernels._nvcc(), *kernels.NVCC_FLAGS]
+    jobs = {}
+    for src in kernels._SOURCES:
+        jobs[("base", src)] = ([str(kernels.CSRC / src)], out / f"{src}.o")
+    for kname in names:
+        src, variants = VARIANTS[kname]
+        text = (kernels.CSRC / src).read_text()
+        for v, subs in variants.items():
+            cu = out / f"{kname}_{v}.cu"
+            cu.write_text(variant_source(text, subs))
+            jobs[(kname, v)] = ([str(cu)], out / f"{kname}_{v}.o")
+    procs = {key: subprocess.Popen(
+        [*nvcc, "-c", "-o", str(obj), *srcs], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for key, (srcs, obj) in jobs.items()}
+    for key, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {key}:\n{log}")
+        regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
+                if "registers" in ln]
+        print(f"built {key[0]} {key[1]}: {regs}", flush=True)
+    libs = {}
+    for kname in names:
+        src, variants = VARIANTS[kname]
+        others = [str(jobs[("base", s)][1]) for s in kernels._SOURCES
+                  if s != src]
+        for v in variants:
+            so = out / f"lib_{kname}_{v}.so"
+            subprocess.run([kernels._nvcc(), "-shared", "-o", str(so),
+                            str(jobs[(kname, v)][1]), *others], check=True)
+            libs[(kname, v)] = kernels._bind(ctypes.CDLL(str(so)))
+    return libs
+
+
+def kernel_us_per_call(fn, calls: int = 3) -> dict:
+    """{CUDA kernel name: device us per call} of fn() under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "t.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    us = {}
+    for ev in trace["traceEvents"]:
+        if ev.get("cat") == "kernel" and "dur" in ev:
+            m = re.search(r"(\w+)(?:<[^>]*>)?\(", ev["name"])
+            name = m.group(1) if m else ev["name"]
+            us[name] = us.get(name, 0.0) + float(ev["dur"]) / calls
+    return us
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=("merge", "scan", "all"),
+                    default="all")
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("sweep_variants: no CUDA device", file=sys.stderr)
+        return 2
+    from chip_smoke import median_ms
+    from kmerind_tpu_torch.ops import kernels, sortops
+    from kmerind_tpu_torch.ops.keys import biased
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    names = ("merge", "scan") if args.kernel == "all" else (args.kernel,)
+    libs = build_variants(kernels, names)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def sorted_run(n):
+        words = torch.randint(-(2**31), 2**31 - 1, (n, 2), dtype=torch.int32,
+                              device=dev, generator=gen)
+        words[:, 1] &= 0x3FF
+        valid = torch.rand(n, device=dev, generator=gen) > 0.01
+        return sortops.sort_rows(words, (), valid, sentinel_ok=True,
+                                 as_cols=True)[0]
+
+    cases = []      # (kernel, case, call(), check(), bytes, yardsticks)
+    if "merge" in names:
+        for na, nb, npay in ((CHUNK, CHUNK, 0), (1 << 26, CHUNK, 0),
+                             (CHUNK, CHUNK, 1)):
+            a, b = sorted_run(na), sorted_run(nb)
+            pa = tuple(torch.randint(0, 100, (na,), dtype=torch.int32,
+                                     device=dev, generator=gen)
+                       for _ in range(npay))
+            pb = tuple(torch.randint(0, 100, (nb,), dtype=torch.int32,
+                                     device=dev, generator=gen)
+                       for _ in range(npay))
+            want = kernels.merge_runs_cols_plain(a, pa, b, pb)
+            cols = torch.cat([a, b], 1)
+            key = ((biased(cols[0]).to(torch.int64) << 32)
+                   | (cols[1].to(torch.int64) & 0xFFFFFFFF))
+
+            def call(a=a, pa=pa, b=b, pb=pb):
+                return kernels.merge_runs_cols(a, pa, b, pb)
+
+            def check(call=call, want=want):
+                k, p = call()
+                return torch.equal(k, want[0]) and all(
+                    torch.equal(x, y) for x, y in zip(p, want[1]))
+            nbytes = kernel_bytes("merge_runs_cols", na=na, nb=nb,
+                                  n_out=want[0].shape[1], w=2, npay=npay)
+            cases.append(("merge", f"{na}+{nb} w=2 payloads={npay}", call,
+                          check, nbytes, {"stable torch.sort": (
+                              lambda key=key: torch.sort(key, stable=True))}))
+    if "scan" in names:
+        x = torch.randint(0, 2, (1 << 28,), dtype=torch.int32, device=dev,
+                          generator=gen)
+        want = kernels.prefix_sum_i32_plain(x)
+        copy_out = torch.empty_like(x)
+        cases.append(("scan", "n=2^28 values 0..1",
+                      lambda: kernels.prefix_sum_i32(x),
+                      lambda: torch.equal(kernels.prefix_sum_i32(x), want),
+                      kernel_bytes("prefix_sum_i32", n=x.shape[0]),
+                      {"torch.cumsum": lambda: torch.cumsum(
+                          x, 0, dtype=torch.int32),
+                       "copy_ of the same bytes": lambda: copy_out.copy_(x)}))
+
+    package_lib = kernels._cuda_lib()
+    times = {}
+    try:
+        for rnd in range(args.rounds):
+            for kname, case, call, check, nbytes, yard in cases:
+                for v in VARIANTS[kname][1]:
+                    kernels._lib = libs[(kname, v)]
+                    if not check():
+                        raise AssertionError(f"{kname} {v} {case}: != plain")
+                    ms = median_ms(call, reps=10)
+                    times.setdefault(f"{kname} {v} | {case}", []).append(ms)
+                    print(f"round {rnd} {kname} {v} {case}: {ms:.4f} ms, "
+                          f"{100 * bound_ms(nbytes) / ms:.1f} % of bound "
+                          f"{bound_ms(nbytes):.4f} ms [{smi}]", flush=True)
+                    if rnd == 0:
+                        parts = kernel_us_per_call(call)
+                        print(f"  kernels (device us per call): " + ", ".join(
+                            f"{n} {us:.1f}" for n, us in parts.items()),
+                            flush=True)
+                for yname, fn in yard.items():
+                    ms = median_ms(fn, reps=10)
+                    times.setdefault(f"{kname} {yname} | {case}",
+                                     []).append(ms)
+                    print(f"round {rnd} {kname} {yname} {case}: {ms:.4f} ms "
+                          f"[{smi}]", flush=True)
+    finally:
+        kernels._lib = package_lib
+    print(json.dumps({"card": smi, "ms": times}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
