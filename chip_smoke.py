@@ -11,10 +11,16 @@ and power limit as nvidia-smi reports them):
       kmerind_tpu_torch/ops/csrc (one process each, all at once) into
       kmerind_tpu_torch/_build.
 * P2  every kernel against its plain PyTorch version on the card, at the
-      main paths' shapes; bitwise equality required; both timed with CUDA
-      events (median of 5).  Beside them: the kernel's bound (the bytes it
-      must move, `kernel_bytes`, over the HBM rate) and, where one PyTorch
-      call computes the same function, that call's time (K3:
+      main paths' shapes (K1 also on its 128-bit state, on the wide
+      kernel at k=127 and on a view 4 bytes into a larger tensor; K4 also
+      with key columns off 16 bytes); bitwise equality required.  Both
+      timed over many launches (`median_ms`: CUDA events around runs of
+      >= 20 back-to-back calls, median of 5 runs); beside the kernel one
+      call alone (`single_ms`), the host's enqueue time per call
+      (`host_ms`) and the profiler's device time per call (`device_ms`).
+      Beside them: the kernel's bound (the bytes it must move,
+      `kernel_bytes`, over the HBM rate) and, where one PyTorch call
+      computes the same function, that call's time the same way (K3:
       torch.cumsum; K2 / K2′: a stable torch.sort of the runs' packed int64
       keys — a sort, the nearest single call to a merge).  The port never
       calls those.  K2′ (the row-major merge entry, which no index calls)
@@ -49,7 +55,9 @@ contract JSON; the line before it lists the kernels.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -97,8 +105,37 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def median_ms(fn, reps: int = 5) -> float:
-    """Median CUDA-event time of fn() over reps runs, after one warm-up."""
+def median_ms(fn, reps: int = 5, calls: int = 20,
+              min_run_ms: float = 2.0) -> float:
+    """Milliseconds per call of fn(), timed over many launches: one warm-up
+    call; a first run of `calls` back-to-back calls between two CUDA
+    events, and if it took less than `min_run_ms`, enough calls to pass
+    it; then `reps` such runs, each run's time over its calls.  Returns
+    the median of the `reps` per-call times.  The host enqueues the calls
+    while the device runs earlier ones, so a call's dispatch lands inside a
+    run only where it is slower than the device work."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def run(m):
+        start.record()
+        for _ in range(m):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    fn()
+    first = run(calls)
+    if first < min_run_ms:
+        calls = math.ceil(calls * min_run_ms / max(first, 1e-3))
+    return statistics.median(run(calls) / calls for _ in range(reps))
+
+
+def single_ms(fn, reps: int = 5) -> float:
+    """Median CUDA-event time of ONE call of fn() over reps calls, after a
+    warm-up: the host's dispatch of the call lies inside the events."""
     import torch
     fn()
     times = []
@@ -111,6 +148,60 @@ def median_ms(fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_ms(fn, calls: int = 50) -> float:
+    """Host milliseconds per call of fn() while the calls are enqueued (the
+    device may still run them): where this exceeds the device time of a
+    call, `median_ms` measures the host."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
+def per_call_us(trace: dict, calls: int) -> dict:
+    """{CUDA kernel name: device us per call} from a chrome trace of
+    `calls` calls: each name's mean recorded launch times its launches per
+    call, so a launch record the profiler drops (seen now and then on an
+    H100) does not lower the time."""
+    durs = {}
+    for ev in trace["traceEvents"]:
+        if ev.get("cat") == "kernel" and "dur" in ev:
+            m = re.search(r"(\w+)(?:<[^>]*>)?\(", ev["name"])
+            name = m.group(1) if m else ev["name"]
+            durs.setdefault(name, []).append(float(ev["dur"]))
+    return {name: sum(d) / len(d) * max(1, round(len(d) / calls))
+            for name, d in durs.items()}
+
+
+def kernel_us_per_call(fn, calls: int = 3, attempts: int = 3) -> dict:
+    """{CUDA kernel name: device us per call} of fn() under torch.profiler
+    (the kernels' own time on the device, without the gaps between them;
+    memsets and copies are not kernels and do not count), `per_call_us` of
+    the trace.  A pass that records no kernel at all is run again, up to
+    `attempts` passes ({} if none records any)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    us = {}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = pathlib.Path(tmp) / "t.json"
+            prof.export_chrome_trace(str(path))
+            us = per_call_us(json.loads(path.read_text()), calls)
+        if us:
+            break
+    return us
 
 
 def make_reads(genome_len: int, n_reads: int, seed: int) -> np.ndarray:
@@ -230,40 +321,68 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
 
-    def record(kname, case, ms, plain_ms, err, nbytes, library_ms=None):
+    def record(kname, case, call, plain, err, nbytes, library=None):
+        """Check one P2 case and time it: the kernel's wrapper over many
+        launches (`median_ms`), one call alone (`single_ms`), the host's
+        enqueue time per call (`host_ms`) and under the profiler (its
+        kernels' device time per call); the plain version and the library
+        call the same way as the wrapper."""
+        if err != 0:
+            raise AssertionError(f"{kname} {case}: kernel != plain "
+                                 f"(max_abs_err {err})")
+        ms, one, host = median_ms(call), single_ms(call), host_ms(call)
+        device_ms = sum(kernel_us_per_call(call).values()) / 1e3
+        plain_ms = median_ms(plain)
+        library_ms = None if library is None else median_ms(library)
         bound = bound_ms(nbytes)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        log(f"P2 {kname} {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        log(f"P2 {kname} {case}: kernel {ms:.4f} ms, device_ms "
+            f"{device_ms:.4f}, single_ms {one:.4f}, host_ms {host:.4f}, "
+            f"plain {plain_ms:.4f} ms, "
             f"bound {bound:.4f} ms ({nbytes} bytes, {100 * bound / ms:.1f} %), "
             f"library {lib}, max_abs_err {err} [{smi}]")
-        if err != 0:
-            raise AssertionError(f"{kname} {case}: kernel != plain")
         results.setdefault(kname, {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms})
+            "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": library_ms})
 
     def err_of(a, b):
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
-    def sort_ms(a_cols, b_cols):
+    def packed_sort(a_cols, b_cols):
         """A stable torch.sort of the runs' packed int64 keys (w=2)."""
         cols = torch.cat([a_cols, b_cols], 1)
         key = ((biased(cols[0]).to(torch.int64) << 32)
                | (cols[1].to(torch.int64) & 0xFFFFFFFF))
-        return median_ms(lambda: torch.sort(key, stable=True))
+        return lambda: torch.sort(key, stable=True)
 
-    for spec in (KmerSpec(21, DNA), KmerSpec(63, DNA), KmerSpec(31, DNA16)):
-        codes = torch.randint(0, spec.alphabet.size, (CHUNK,),
-                              dtype=torch.uint8, device=dev, generator=gen)
+    def canonical(case, codes, spec):
         w, rc = kernels.extract_canonical(codes, spec)
         pw, prc = packing.extract_canonical(codes, spec)
-        nv = CHUNK - spec.k + 1
+        nv = codes.shape[0] - spec.k + 1
         err = max(err_of(w[:nv], pw[:nv]), err_of(rc[:nv], prc[:nv]))
-        record("extract_canonical", f"n={CHUNK} {spec}",
-               median_ms(lambda: kernels.extract_canonical(codes, spec)),
-               median_ms(lambda: packing.extract_canonical(codes, spec)), err,
-               kernel_bytes("extract_canonical", n=CHUNK, nwords=spec.nwords))
         del w, rc, pw, prc
+        record("extract_canonical", case,
+               lambda: kernels.extract_canonical(codes, spec),
+               lambda: packing.extract_canonical(codes, spec), err,
+               kernel_bytes("extract_canonical", n=codes.shape[0],
+                            nwords=spec.nwords))
+
+    # k=21: the main path; k=63 DNA, k=31 DNA16: 128-bit rolling state;
+    # k=127 DNA: the wide per-window kernel (k * bits > 128)
+    for spec in (KmerSpec(21, DNA), KmerSpec(63, DNA), KmerSpec(31, DNA16),
+                 KmerSpec(127, DNA)):
+        codes = torch.randint(0, spec.alphabet.size, (CHUNK,),
+                              dtype=torch.uint8, device=dev, generator=gen)
+        canonical(f"n={CHUNK} {spec} ({kernels.k1_kernel(spec)})", codes,
+                  spec)
+    # a view 4 bytes into a larger tensor, like shard 1 of a 4-shard sorted
+    # index (its start is not 16-byte aligned)
+    big = torch.randint(0, 4, (CHUNK + 64,), dtype=torch.uint8, device=dev,
+                        generator=gen)
+    canonical(f"n={CHUNK} k=21 DNA, view at byte offset 4", big[4:4 + CHUNK],
+              KmerSpec(21, DNA))
+    del codes, big
 
     def sorted_run(n):
         words = torch.randint(-(2**31), 2**31 - 1, (n, 2), dtype=torch.int32,
@@ -283,13 +402,15 @@ def main() -> int:
         gk, gp = kernels.merge_runs_cols(a, pa, b, pb)
         wk, wp = kernels.merge_runs_cols_plain(a, pa, b, pb)
         err = max([err_of(gk, wk)] + [err_of(x, y) for x, y in zip(gp, wp)])
+        n_out = gk.shape[1]
+        del gk, gp, wk, wp
         record("merge_runs_cols", f"{na}+{nb} w=2 payloads={npay}",
-               median_ms(lambda: kernels.merge_runs_cols(a, pa, b, pb)),
-               median_ms(lambda: kernels.merge_runs_cols_plain(a, pa, b, pb)),
+               lambda: kernels.merge_runs_cols(a, pa, b, pb),
+               lambda: kernels.merge_runs_cols_plain(a, pa, b, pb),
                err, kernel_bytes("merge_runs_cols", na=na, nb=nb,
-                                 n_out=gk.shape[1], w=2, npay=npay),
-               sort_ms(a, b))
-        del a, b, pa, pb, gk, gp, wk, wp
+                                 n_out=n_out, w=2, npay=npay),
+               packed_sort(a, b))
+        del a, b, pa, pb
 
     a, b = (sorted_run(CHUNK).t().contiguous() for _ in range(2))
     pa, pb = ((torch.randint(0, 100, (CHUNK,), dtype=torch.int32, device=dev,
@@ -297,25 +418,26 @@ def main() -> int:
     kernels.LAUNCHES["merge_sorted_runs"] = 0
     gk, gp = kernels.merge_sorted_runs(a, pa, b, pb)
     wk, wp = kernels.merge_sorted_runs_plain(a, pa, b, pb)
-    record("merge_sorted_runs", f"{CHUNK}+{CHUNK} rows w=2 payloads=1",
-           median_ms(lambda: kernels.merge_sorted_runs(a, pa, b, pb)),
-           median_ms(lambda: kernels.merge_sorted_runs_plain(a, pa, b, pb)),
-           max(err_of(gk, wk), err_of(gp[0], wp[0])),
-           kernel_bytes("merge_sorted_runs", na=CHUNK, nb=CHUNK,
-                        n_out=gk.shape[0], w=2, npay=1),
-           sort_ms(a.t(), b.t()))
     k2r_launches = kernels.LAUNCHES["merge_sorted_runs"]
-    del a, b, pa, pb, gk, gp, wk, wp
+    err, n_out = max(err_of(gk, wk), err_of(gp[0], wp[0])), gk.shape[0]
+    del gk, gp, wk, wp
+    record("merge_sorted_runs", f"{CHUNK}+{CHUNK} rows w=2 payloads=1",
+           lambda: kernels.merge_sorted_runs(a, pa, b, pb),
+           lambda: kernels.merge_sorted_runs_plain(a, pa, b, pb), err,
+           kernel_bytes("merge_sorted_runs", na=CHUNK, nb=CHUNK,
+                        n_out=n_out, w=2, npay=1),
+           packed_sort(a.t(), b.t()))
+    del a, b, pa, pb
 
     for hi in (2, 101):
         x = torch.randint(0, hi, (1 << 28,), dtype=torch.int32, device=dev,
                           generator=gen)
         err = err_of(kernels.prefix_sum_i32(x), kernels.prefix_sum_i32_plain(x))
         record("prefix_sum_i32", f"n=2^28 values 0..{hi - 1}",
-               median_ms(lambda: kernels.prefix_sum_i32(x)),
-               median_ms(lambda: kernels.prefix_sum_i32_plain(x)), err,
+               lambda: kernels.prefix_sum_i32(x),
+               lambda: kernels.prefix_sum_i32_plain(x), err,
                kernel_bytes("prefix_sum_i32", n=x.shape[0]),
-               median_ms(lambda: torch.cumsum(x, 0, dtype=torch.int32)))
+               lambda: torch.cumsum(x, 0, dtype=torch.int32))
         del x
 
     def run_lengths(case, kcols, tv):
@@ -325,8 +447,8 @@ def main() -> int:
             raise AssertionError(f"run_length_weights {case}: weights do not "
                                  "sum to total_valid")
         record("run_length_weights", case,
-               median_ms(lambda: kernels.run_length_weights(kcols, tv)),
-               median_ms(lambda: kernels.run_length_weights_plain(kcols, tv)),
+               lambda: kernels.run_length_weights(kcols, tv),
+               lambda: kernels.run_length_weights_plain(kcols, tv),
                err_of(got, want), kernel_bytes(
                    "run_length_weights", n=kcols.shape[1], w=kcols.shape[0]))
 
@@ -339,8 +461,12 @@ def main() -> int:
     kcols, _, s_valid = sortops.sort_rows(
         words, (), torch.arange(CHUNK, device=dev) <= CHUNK - K,
         is_stable=False, sentinel_ok=True, as_cols=True)
+    tv_reads = s_valid.sum(dtype=torch.int32)
     run_lengths(f"n={CHUNK} sorted canonical 21-mers of reads", kcols,
-                s_valid.sum(dtype=torch.int32))
+                tv_reads)
+    # the same rows, n % 4 == 3: key word columns 1 start off 16 bytes
+    run_lengths(f"n={CHUNK - 1} the same, column 1 not 16-byte aligned",
+                kcols[:, :CHUNK - 1].contiguous(), tv_reads)
     # ~1000 distinct keys in 2^27 rows: runs of ~134k rows span many tiles
     table = sortops.sort_rows(torch.randint(
         -(2**31), 2**31 - 1, (1000, 2), dtype=torch.int32, device=dev,

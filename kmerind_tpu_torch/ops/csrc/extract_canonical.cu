@@ -4,53 +4,353 @@
 // (:189; kernel body _make_kernel :103, complement _complement_expr :61).
 // Same contract as ops/packing.py::extract_canonical (the plain version):
 // at every window start i, the k-mer codes[i:i+k] packed big-endian into
-// nwords 32-bit words (kmer.py layout), its reverse complement under the
-// alphabet's complement table, the lexicographically smaller of the two,
-// and was_rc.  Rows past n-k are garbage.
+// nwords 32-bit words (kmer.py layout: cpw = 32 / bits chars a word, the
+// last word right-aligned), its reverse complement under the alphabet's
+// complement table, the lexicographically smaller of the two, and was_rc
+// (ties: the forward strand).  Output words are column-major [nwords, n].
+// Rows past n-k are garbage; no code past codes[n-1] is read.
 //
 // What bounds it on the H100: bytes moved.  It reads n code bytes and
-// writes n * (4 * nwords + 1) bytes (k=21 DNA: 9 bytes per window); the
-// arithmetic is O(k) shared-memory reads per window, far below what the
-// SMs can issue.  Design for that:
-//  * one CTA stages its tile of codes plus the (k-1) halo in shared memory
-//    once, so every code byte is read from device memory once per tile;
-//  * one thread per window; the strand choice compares the forward and
-//    reverse-complement CHARACTER sequences up to the first difference
-//    (word order equals character order, and most windows differ at the
-//    first character), then packs only the chosen strand;
-//  * words are written column-major ([nwords, n]): consecutive threads
-//    write consecutive addresses of each word column (coalesced);
-//  * the complement is a 256-entry table passed by value (kernel
-//    parameter space), copied to shared memory: one code path for every
-//    alphabet (DNA/RNA, DNA5/6, RNA5/6, DNA16, DNA_IUPAC, ASCII) instead of
-//    the Pallas kernel's per-alphabet arithmetic.
-// Unlike the TPU kernel, there is no [rows, 128] lane layout and no
-// doubling pipeline: a CTA has no sequential grid to amortise, and a
-// thread's O(k) loop over shared memory is cheaper than log2(k) passes.
+// writes n * (4 * nwords + 1) bytes: n * (1 + 4 * nwords + 1) in all (k=21
+// DNA, n = 8,388,628: 83,886,280 bytes, 0.0250 ms at 3.35 TB/s).  The
+// arithmetic is a few integer operations per window.  Design:
+//  * rolling state (extract_rolling_kernel): when k * bits <= 128 a k-mer
+//    is one integer V of k * bits bits and its reverse complement another,
+//    R; "lexicographically smaller" on equal-width character strings is
+//    R < V as integers.  One step right is V = ((V << bits) | c) & mask,
+//    R = (R >> bits) | (comp[c] << bits * (k - 1)), and word w of the
+//    output is a bit field of min(V, R).  The state is one uint64_t for
+//    k * bits <= 64 (DNA k <= 32) and a pair of them up to 128 bits (DNA
+//    k <= 64, DNA5/6 k <= 42, DNA16 k <= 32, ASCII k <= 16).  Each thread
+//    owns kItems consecutive windows: it rolls in the k - 1 codes before
+//    its first window four at a time (one shift of 4 * bits per step), then
+//    one code per window, so a window costs about (k - 1) / (4 * kItems)
+//    + 1 steps instead of the 2k shared-memory loads of a window packed
+//    from scratch.  Codes are read from shared memory four at a time
+//    (32-bit words, funnel-shifted to the thread's byte offset);
+//  * wide tiles: a CTA stages kTile = kThreads * kItems windows' codes
+//    plus the k - 1 halo in shared memory with 16-byte loads of the aligned
+//    16-byte chunks that lie inside the codes (byte loads for the partial
+//    chunks at either end, so an unaligned view, like a shard of the sorted
+//    index, is read in place);
+//  * wide, coalesced stores: each thread writes its windows' words four
+//    windows at a time (one 16-byte chunk per word column) into shared
+//    memory, XOR-swizzled so that these writes and the striped reads after
+//    them are free of bank conflicts, then the CTA writes every word column
+//    and was_rc with 16-byte stores (4-byte stores for a column whose start
+//    w * n * 4 is not 16-byte aligned, and on the last, partial tile).
+// tools/sweep_variants.py chose the shape (PERF.md §6; device time per
+// call on an H100): 128 threads of 16 windows, one CTA per tile.  A
+// grid-stride loop over tiles on as many CTAs as fit (the complement table
+// staged once per CTA) measured up to 13 % slower, 256- and 512-thread
+// tiles 3-53 % slower on the 128-bit state, 8, 20 and 32 windows a thread
+// 3-40 % slower; streaming cache hints and cp.async staging moved it by
+// 2 % or less; storing each thread's chunks straight from registers was
+// 2.4x slower than the staged stores.
+//  * wider k-mers (extract_wide_kernel, k * bits > 128): one thread per
+//    window over a 256-window tile plus halo in shared memory; the strand
+//    choice compares forward and reverse-complement characters up to the
+//    first difference, then packs only the chosen strand.
+// The wrapper (ops/kernels.py::extract_canonical) picks the kernel by
+// k * bits alone.  The complement is a 256-entry table passed by value
+// (kernel parameter space) and staged in shared memory: one code path for
+// every alphabet (DNA/RNA, DNA5/6, RNA5/6, DNA16, DNA_IUPAC, ASCII).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;   // windows per CTA
-constexpr int kMaxK = 512;      // same bound as the Pallas kernel
+constexpr int kThreads = 128;
+constexpr int kItems = 16;                  // windows per thread
+constexpr int kTile = kThreads * kItems;    // windows per tile
+constexpr int kQuads = kItems / 4;          // 16-byte chunks per thread and column
+constexpr int kChunks = kTile / 4;          // 16-byte chunks per column and tile
+constexpr int kMaxHalo = 63;                // k - 1 of a 128-bit state (bits >= 2)
+constexpr int kFront = 16;                  // zero bytes before the tile's codes
+// codes: kFront, then the 16-byte chunks from the one holding the tile's
+// first code (offset a = its address % 16) to the one holding its last,
+// then one more chunk the per-thread 32-bit reads may touch
+constexpr int kCodeBytes = kFront + ((15 + kTile + kMaxHalo + 15) / 16) * 16 + 16;
+constexpr int kMaxWords64 = 3;              // nwords of a 64-bit state (DNA5 k=21)
+constexpr int kMaxWords128 = 5;             // of a 128-bit state (DNA5 k=42)
+constexpr int kWideThreads = 256;           // windows per CTA, wide kernel
+constexpr int kMaxK = 512;                  // same bound as the Pallas kernel
+
+static_assert(kItems % 4 == 0, "a thread writes whole 16-byte chunks");
+static_assert(kTile % 16 == 0, "tiles keep 16-byte alignment");
 
 struct CompLut {
   uint8_t v[256];
 };
 
+// 16-byte chunk c of a staged word column: XOR inside each aligned group of
+// 8 chunks (128 bytes), so both the per-thread chunk writes (c = tid *
+// kQuads + q) and the striped reads (c = v * kThreads + tid) of 8
+// neighbouring threads fall in 8 distinct bank groups
+__device__ __forceinline__ int swz(int c) { return c ^ ((c >> 3) & 7); }
+
+// ----------------------------------------------------------- state types
+struct U64State {
+  uint64_t v;
+};
+
+struct U128State {
+  uint64_t hi, lo;
+};
+
+template <typename S>
+struct Roll;
+
+template <>
+struct Roll<U64State> {
+  static constexpr int kMaxWords = kMaxWords64;
+  uint64_t mask;   // k * bits low bits
+  int bits, rshift, kb;
+  __device__ Roll(int kb_, int b)
+      : mask(kb_ >= 64 ? ~0ull : (1ull << kb_) - 1), bits(b),
+        rshift(kb_ - b), kb(kb_) {}
+  __device__ __forceinline__ void step(U64State& f, U64State& r, uint32_t c,
+                                       uint32_t cc) const {
+    f.v = ((f.v << bits) | c) & mask;
+    r.v = (r.v >> bits) | (static_cast<uint64_t>(cc) << rshift);
+  }
+  // four steps at once: f4 packs the four codes (first most significant),
+  // r4 their complements (first least significant), 4 * bits <= 32
+  __device__ __forceinline__ void step4(U64State& f, U64State& r, uint32_t f4,
+                                        uint32_t r4) const {
+    const int s = 4 * bits;
+    f.v = ((f.v << s) | f4) & mask;
+    r.v = (r.v >> s) | (kb >= s ? static_cast<uint64_t>(r4) << (kb - s)
+                                : static_cast<uint64_t>(r4 >> (s - kb)));
+  }
+  __device__ __forceinline__ static bool less(const U64State& a,
+                                              const U64State& b) {
+    return a.v < b.v;
+  }
+  // bits [sh, sh + 32) of x
+  __device__ __forceinline__ static uint32_t field(const U64State& x, int sh) {
+    return static_cast<uint32_t>(x.v >> sh);
+  }
+};
+
+template <>
+struct Roll<U128State> {
+  static constexpr int kMaxWords = kMaxWords128;
+  uint64_t mhi, mlo;
+  int bits, kb;
+  __device__ Roll(int kb_, int b)
+      : mhi(kb_ >= 128 ? ~0ull : kb_ > 64 ? (1ull << (kb_ - 64)) - 1 : 0ull),
+        mlo(kb_ >= 64 ? ~0ull : (1ull << kb_) - 1),
+        bits(b),
+        kb(kb_) {}
+  // s / bits codes in one step: both strands move by s bits (0 < s <= 32),
+  // x enters f's low bits and y r's bits [kb - s, kb)
+  __device__ __forceinline__ void shift_in(U128State& f, U128State& r, int s,
+                                           uint32_t x, uint32_t y) const {
+    f.hi = ((f.hi << s) | (f.lo >> (64 - s))) & mhi;
+    f.lo = ((f.lo << s) | x) & mlo;
+    r.lo = (r.lo >> s) | (r.hi << (64 - s));
+    r.hi >>= s;
+    const uint64_t v = y;
+    const int at = kb - s;
+    if (at >= 64) {
+      r.hi |= v << (at - 64);
+    } else if (at > 0) {
+      r.lo |= v << at;
+      r.hi |= v >> (64 - at);
+    } else {
+      r.lo |= v >> -at;
+    }
+  }
+  __device__ __forceinline__ void step(U128State& f, U128State& r, uint32_t c,
+                                       uint32_t cc) const {
+    shift_in(f, r, bits, c, cc);
+  }
+  // four steps at once, as Roll<U64State>::step4
+  __device__ __forceinline__ void step4(U128State& f, U128State& r,
+                                        uint32_t f4, uint32_t r4) const {
+    shift_in(f, r, 4 * bits, f4, r4);
+  }
+  __device__ __forceinline__ static bool less(const U128State& a,
+                                              const U128State& b) {
+    return a.hi < b.hi || (a.hi == b.hi && a.lo < b.lo);
+  }
+  __device__ __forceinline__ static uint32_t field(const U128State& x,
+                                                   int sh) {
+    if (sh >= 64) return static_cast<uint32_t>(x.hi >> (sh - 64));
+    if (sh == 0) return static_cast<uint32_t>(x.lo);
+    return static_cast<uint32_t>((x.lo >> sh) | (x.hi << (64 - sh)));
+  }
+};
+
+// ----------------------------------------------------- rolling kernel
+template <typename S>
 __global__ void __launch_bounds__(kThreads)
-extract_canonical_kernel(const uint8_t* __restrict__ codes, int64_t n,
-                         CompLut lut_in, int k, int bits, int cpw,
-                         int nwords, uint32_t* __restrict__ words,
-                         bool* __restrict__ was_rc) {
-  __shared__ uint8_t tile[kThreads + kMaxK - 1];
+extract_rolling_kernel(const uint8_t* __restrict__ codes, int64_t n,
+                       CompLut lut_in, int k, int bits, int cpw, int nwords,
+                       uint32_t* __restrict__ words, bool* __restrict__ was_rc) {
+  using R = Roll<S>;
+  constexpr int kMaxWords = R::kMaxWords;
+  extern __shared__ uint4 smem[];
+  // layout: staged word columns [nwords][kChunks], was_rc [kTile] bytes,
+  // codes [kCodeBytes], complement table [256]
+  uint4* sw = smem;
+  uint8_t* src = reinterpret_cast<uint8_t*>(smem + nwords * kChunks);
+  uint8_t* scodes = src + kTile;
+  uint8_t* lut = scodes + kCodeBytes;
+  const uint32_t* scodes32 = reinterpret_cast<const uint32_t*>(scodes);
+  const int tid = threadIdx.x;
+
+  for (int t = tid; t < 256; t += kThreads) lut[t] = lut_in.v[t];
+  if (tid < kFront / 4) reinterpret_cast<uint32_t*>(scodes)[tid] = 0u;
+
+  const R roll(k * bits, bits);
+  // field shifts and masks of the output words
+  int wsh[kMaxWords];
+  uint32_t wmask[kMaxWords];
+#pragma unroll
+  for (int w = 0; w < kMaxWords; ++w) {
+    const int last = k - (nwords - 1) * cpw;
+    const int nch = w < nwords - 1 ? cpw : last;
+    wsh[w] = w < nwords - 1 ? bits * (k - (w + 1) * cpw) : 0;
+    wmask[w] = nch * bits >= 32 ? 0xFFFFFFFFu : (1u << (nch * bits)) - 1u;
+  }
+  const uintptr_t cp = reinterpret_cast<uintptr_t>(codes);
+  const int a = static_cast<int>(cp & 15);           // codes[0] in its chunk
+  const uint4* aligned = reinterpret_cast<const uint4*>(cp - a);
+  const int span = kTile + k - 1;                    // codes a tile reads
+  const int nchunks = (a + span + 15) / 16;
+  // the thread's first code read: `warm` >= k - 1 codes (a multiple of 4)
+  // before its first window's last code; reads start on the same byte
+  // offset of a 32-bit word in every thread (kItems % 4 == 0).  Codes
+  // rolled in before the window's first are shifted out of both strands.
+  const int warm = (k - 1 + 3) & ~3;
+  const int first = kFront + a + tid * kItems + (k - 1) - warm;
+  const int off8 = (first & 3) * 8;
+  const int word0 = first >> 2;
+
+  const int64_t g0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  // stage codes[g0 - a, g0 - a + 16 * nchunks): chunk m of the tile is
+  // aligned chunk (a + g0) / 16 + m of the code stream
+  for (int m = tid; m < nchunks; m += kThreads) {
+    const int64_t c0 = g0 + 16 * m - a;            // its first code index
+    uint4* dst = reinterpret_cast<uint4*>(scodes + kFront) + m;
+    if (c0 >= 0 && c0 + 16 <= n) {
+      *dst = __ldg(aligned + (g0 / 16 + m));
+    } else {
+      uint8_t* d = reinterpret_cast<uint8_t*>(dst);
+#pragma unroll
+      for (int b = 0; b < 16; ++b) {
+        const int64_t g = c0 + b;
+        d[b] = g >= 0 && g < n ? codes[g] : 0;
+      }
+    }
+  }
+  __syncthreads();
+
+  // roll in the warm-up codes, then one code per window
+  S f{}, r{};
+  uint32_t lo = scodes32[word0];
+  int wi = word0 + 1;
+  for (int j = 0; j < warm; j += 4) {
+    const uint32_t hi = scodes32[wi++];
+    const uint32_t g = __funnelshift_r(lo, hi, off8);
+    lo = hi;
+    uint32_t f4 = 0, r4 = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const uint32_t c = (g >> (8 * b)) & 0xFFu;
+      f4 = (f4 << bits) | c;
+      r4 |= static_cast<uint32_t>(lut[c]) << (bits * b);
+    }
+    roll.step4(f, r, f4, r4);
+  }
+  uint32_t rc_flags[kQuads];
+#pragma unroll
+  for (int q = 0; q < kQuads; ++q) {
+    const uint32_t hi = scodes32[wi++];
+    const uint32_t g = __funnelshift_r(lo, hi, off8);
+    lo = hi;
+    uint32_t out[kMaxWords][4];
+    uint32_t flags = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const uint32_t c = (g >> (8 * b)) & 0xFFu;
+      roll.step(f, r, c, lut[c]);
+      const bool use_rc = R::less(r, f);
+      const S x = use_rc ? r : f;
+#pragma unroll
+      for (int w = 0; w < kMaxWords; ++w)
+        out[w][b] = R::field(x, wsh[w]) & wmask[w];
+      flags |= static_cast<uint32_t>(use_rc) << (8 * b);
+    }
+    rc_flags[q] = flags;
+    const int chunk = swz(tid * kQuads + q);
+#pragma unroll
+    for (int w = 0; w < kMaxWords; ++w)
+      if (w < nwords)
+        sw[w * kChunks + chunk] =
+            make_uint4(out[w][0], out[w][1], out[w][2], out[w][3]);
+  }
+  if constexpr (kQuads % 4 == 0) {
+#pragma unroll
+    for (int v = 0; v < kQuads / 4; ++v)
+      reinterpret_cast<uint4*>(src)[tid * (kQuads / 4) + v] = make_uint4(
+          rc_flags[4 * v], rc_flags[4 * v + 1], rc_flags[4 * v + 2],
+          rc_flags[4 * v + 3]);
+  } else if constexpr (kQuads % 2 == 0) {
+#pragma unroll
+    for (int v = 0; v < kQuads / 2; ++v)
+      reinterpret_cast<uint2*>(src)[tid * (kQuads / 2) + v] =
+          make_uint2(rc_flags[2 * v], rc_flags[2 * v + 1]);
+  } else {
+#pragma unroll
+    for (int v = 0; v < kQuads; ++v)
+      reinterpret_cast<uint32_t*>(src)[tid * kQuads + v] = rc_flags[v];
+  }
+  __syncthreads();
+
+  // write the tile: 16-byte stores where the column is aligned and the
+  // chunk lies inside [0, n), 4-byte (still coalesced) stores elsewhere
+  const bool full = g0 + kTile <= n;
+  for (int w = 0; w < nwords; ++w) {
+    uint32_t* col = words + static_cast<int64_t>(w) * n + g0;
+    const uint4* sc = sw + w * kChunks;
+    if (full && (reinterpret_cast<uintptr_t>(col) & 15) == 0) {
+#pragma unroll
+      for (int v = 0; v < kQuads; ++v) {
+        const int c = v * kThreads + tid;
+        reinterpret_cast<uint4*>(col)[c] = sc[swz(c)];
+      }
+    } else {
+      const uint32_t* s32 = reinterpret_cast<const uint32_t*>(sc);
+      for (int e = tid; e < kTile; e += kThreads) {
+        if (g0 + e < n) col[e] = s32[swz(e >> 2) * 4 + (e & 3)];
+      }
+    }
+  }
+  bool* rc_out = was_rc + g0;
+  if (full && (reinterpret_cast<uintptr_t>(rc_out) & 15) == 0) {
+    for (int c = tid; c < kTile / 16; c += kThreads)
+      reinterpret_cast<uint4*>(rc_out)[c] = reinterpret_cast<const uint4*>(src)[c];
+  } else {
+    for (int e = tid; e < kTile; e += kThreads)
+      if (g0 + e < n) rc_out[e] = src[e] != 0;
+  }
+}
+
+// ------------------------------------------------------- wide kernel
+__global__ void __launch_bounds__(kWideThreads)
+extract_wide_kernel(const uint8_t* __restrict__ codes, int64_t n,
+                    CompLut lut_in, int k, int bits, int cpw, int nwords,
+                    uint32_t* __restrict__ words, bool* __restrict__ was_rc) {
+  __shared__ uint8_t tile[kWideThreads + kMaxK - 1];
   __shared__ uint8_t lut[256];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads;
-  for (int t = threadIdx.x; t < 256; t += kThreads) lut[t] = lut_in.v[t];
-  const int span = kThreads + k - 1;
-  for (int t = threadIdx.x; t < span; t += kThreads) {
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kWideThreads;
+  for (int t = threadIdx.x; t < 256; t += kWideThreads) lut[t] = lut_in.v[t];
+  const int span = kWideThreads + k - 1;
+  for (int t = threadIdx.x; t < span; t += kWideThreads) {
     const int64_t g = base + t;
     tile[t] = g < n ? codes[g] : 0;  // zero past the end, like the TPU pad
   }
@@ -83,19 +383,70 @@ extract_canonical_kernel(const uint8_t* __restrict__ codes, int64_t n,
   was_rc[i] = use_rc;
 }
 
+size_t rolling_smem(int nwords) {
+  return static_cast<size_t>(nwords) * kChunks * sizeof(uint4) + kTile +
+         kCodeBytes + 256;
+}
+
+// launch the rolling kernel, one CTA per tile
+template <typename S>
+cudaError_t launch_rolling(const uint8_t* codes, int64_t n,
+                           const CompLut& lut, int k, int bits, int cpw,
+                           int nwords, uint32_t* words, bool* was_rc,
+                           cudaStream_t stream) {
+  constexpr int kMaxWords = Roll<S>::kMaxWords;
+  if (nwords > kMaxWords) return cudaErrorInvalidValue;
+  // above 48 KB, dynamic shared memory needs the kernel's leave, once per
+  // device
+  static bool raised[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(extract_rolling_kernel<S>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(rolling_smem(kMaxWords)));
+    if (err != cudaSuccess) return err;
+    raised[dev] = true;
+  }
+  const int64_t tiles = (n + kTile - 1) / kTile;
+  extract_rolling_kernel<S><<<static_cast<unsigned>(tiles), kThreads,
+                              rolling_smem(nwords), stream>>>(
+      codes, n, lut, k, bits, cpw, nwords, words, was_rc);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// windows per tile of the rolling kernels (the tests size their cases by it)
+extern "C" int kmerind_extract_canonical_tile() { return kTile; }
+
+// kernel: 0 = rolling 64-bit state (k * bits <= 64), 1 = rolling 128-bit
+// state (k * bits <= 128), 2 = wide (k <= 512); ops/kernels.py::k1_kernel
+// picks it from the spec's width
 extern "C" int kmerind_extract_canonical(const uint8_t* codes, int64_t n,
                                          const uint8_t* comp_lut_host,
                                          int k, int bits, int cpw,
-                                         int nwords, uint32_t* words,
-                                         bool* was_rc, void* stream) {
-  if (k < 1 || k > kMaxK || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                         int nwords, int kernel,
+                                         uint32_t* words, bool* was_rc,
+                                         void* stream) {
+  const int kb = k * bits;
+  const bool ok = n > 0 && k >= 1 && bits >= 2 && bits <= 8 &&
+                  ((kernel == 0 && kb <= 64) ||
+                   (kernel == 1 && kb <= 128) || (kernel == 2 && k <= kMaxK));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   CompLut lut;
   for (int t = 0; t < 256; ++t) lut.v[t] = comp_lut_host[t];
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  extract_canonical_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == 0)
+    return static_cast<int>(launch_rolling<U64State>(
+        codes, n, lut, k, bits, cpw, nwords, words, was_rc, s));
+  if (kernel == 1)
+    return static_cast<int>(launch_rolling<U128State>(
+        codes, n, lut, k, bits, cpw, nwords, words, was_rc, s));
+  const int64_t blocks = (n + kWideThreads - 1) / kWideThreads;
+  extract_wide_kernel<<<static_cast<unsigned>(blocks), kWideThreads, 0, s>>>(
       codes, n, lut, k, bits, cpw, nwords, words, was_rc);
   return static_cast<int>(cudaGetLastError());
 }

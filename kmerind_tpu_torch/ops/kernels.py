@@ -47,7 +47,8 @@ from . import packing
 from .keys import SENTINEL, biased, lex_argsort
 
 __all__ = ["LAUNCHES", "KERNELS", "build", "reset_launches",
-           "extract_canonical", "merge_runs_cols", "merge_runs_cols_plain",
+           "extract_canonical", "k1_kernel",
+           "merge_runs_cols", "merge_runs_cols_plain",
            "merge_sorted_runs", "merge_sorted_runs_plain",
            "prefix_sum_i32", "prefix_sum_i32_plain",
            "run_length_weights", "run_length_weights_plain"]
@@ -114,7 +115,9 @@ def _lib_path() -> pathlib.Path:
 def _bind(lib):
     """Set the C signatures of the kernel library's entries; returns lib."""
     lib.kmerind_extract_canonical.argtypes = [
-        _vp, _i64, _vp, _int, _int, _int, _int, _vp, _vp, _vp]
+        _vp, _i64, _vp, _int, _int, _int, _int, _int, _vp, _vp, _vp]
+    lib.kmerind_extract_canonical_tile.argtypes = []
+    lib.kmerind_extract_canonical_tile.restype = _int
     lib.kmerind_merge_runs.argtypes = [
         _vp, _i64, _vp, _i64, _int, _vp, _vp, _vp, _vp, _vp, _vp,
         _int, _vp, _vp, _vp, _vp, _i64, _vp, _vp]
@@ -196,7 +199,10 @@ def _launched(name: str, rc: int):
 
 
 def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw cudaStream_t of the current stream on `device` (the call
+    PyTorch's own generated kernels use: no Stream object is built, which
+    costs ~6 us a launch through torch.cuda.current_stream)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _ptr(t: torch.Tensor | None):
@@ -204,11 +210,36 @@ def _ptr(t: torch.Tensor | None):
 
 
 # ---------------------------------------------------------------- K1
-def _comp_lut256(spec: KmerSpec) -> np.ndarray:
-    lut = np.arange(256, dtype=np.uint8)
-    comp = spec.alphabet.to_complement
-    lut[: comp.shape[0]] = comp
-    return lut
+#: the K1 kernels, in the order of the C entry's `kernel` argument: a
+#: k-mer of k * bits <= 64 (128) bits rolls in one 64-bit (128-bit)
+#: integer; a wider one takes the per-window kernel
+_K1_KERNELS = ("rolling64", "rolling128", "wide")
+#: spec -> (complement table, its address, k, bits, cpw, nwords, kernel):
+#: the launch arguments of K1 that depend on the spec alone
+_k1_args: dict = {}
+
+
+def k1_kernel(spec: KmerSpec) -> str:
+    """The K1 kernel the wrapper launches for `spec`, by the k-mer's width
+    alone: "rolling64", "rolling128" or, above 128 bits, "wide"."""
+    kb = spec.k * spec.bits_per_char
+    return _K1_KERNELS[0 if kb <= 64 else 1 if kb <= 128 else 2]
+
+
+def _k1_launch_args(spec: KmerSpec) -> tuple:
+    """K1's spec-dependent launch arguments, built once per spec: first the
+    alphabet's complement as a 256-entry uint8 table (identity past the
+    alphabet), kept referenced here while the kernel reads its address."""
+    args = _k1_args.get(spec)
+    if args is None:
+        lut = np.arange(256, dtype=np.uint8)
+        comp = spec.alphabet.to_complement
+        lut[: comp.shape[0]] = comp
+        args = _k1_args[spec] = (
+            lut, lut.ctypes.data, spec.k, spec.bits_per_char,
+            spec.chars_per_word, spec.nwords,
+            _K1_KERNELS.index(k1_kernel(spec)))
+    return args
 
 
 def extract_canonical(codes: torch.Tensor, spec: KmerSpec):
@@ -226,10 +257,8 @@ def extract_canonical(codes: torch.Tensor, spec: KmerSpec):
                         device=codes.device)
     was_rc = torch.empty(n, dtype=torch.bool, device=codes.device)
     if n:
-        lut = _comp_lut256(spec)
         rc = _cuda_lib().kmerind_extract_canonical(
-            codes.data_ptr(), n, lut.ctypes.data, spec.k, spec.bits_per_char,
-            spec.chars_per_word, spec.nwords, words.data_ptr(),
+            codes.data_ptr(), n, *_k1_launch_args(spec)[1:], words.data_ptr(),
             was_rc.data_ptr(), _stream(codes.device))
         _launched("extract_canonical", rc)
     return words.t(), was_rc

@@ -1,5 +1,6 @@
 """The byte counts behind chip_smoke.py's kernel bounds: each input read
-once and each output written once, from the shapes of P2's cases."""
+once and each output written once, from the shapes of P2's cases; and its
+reduction of a profiler trace to device time per call."""
 
 import pathlib
 import sys
@@ -52,3 +53,28 @@ def test_kernel_bytes_covers_every_kernel_and_no_other():
         assert chip_smoke.kernel_bytes(kname, **shape) > 0
     with pytest.raises(KeyError):
         chip_smoke.kernel_bytes("sort", **shape)
+
+
+def test_per_call_us_from_a_trace():
+    """Device us per call from a chrome trace of 3 calls: templated and
+    namespaced names reduce to the kernel's name, two launches a call
+    count twice, and a dropped launch record does not lower the time."""
+    def kernel(name, dur):
+        return {"cat": "kernel", "name": name, "dur": dur}
+    trace = {"traceEvents": [
+        kernel("void (anonymous namespace)::extract_rolling_kernel<(anonymous "
+               "namespace)::U64State>(unsigned char const*, long)", 30.0),
+        kernel("void (anonymous namespace)::extract_rolling_kernel<(anonymous "
+               "namespace)::U64State>(unsigned char const*, long)", 36.0),
+        kernel("(anonymous namespace)::rl_tiles(unsigned int const*, int)",
+               40.0),
+        kernel("rl_tiles(unsigned int const*, int)", 44.0),
+        kernel("rl_tiles(unsigned int const*, int)", 42.0),
+        kernel("merge_partition_kernel<2>(Cols, long)", 10.0),
+        *[kernel("merge_partition_kernel<2>(Cols, long)", 12.0)] * 5,
+        {"cat": "gpu_memset", "name": "Memset", "dur": 5.0},
+        {"cat": "kernel", "name": "no_duration"},
+    ]}
+    got = chip_smoke.per_call_us(trace, calls=3)
+    assert got == {"extract_rolling_kernel": 33.0, "rl_tiles": 42.0,
+                   "merge_partition_kernel": pytest.approx(70 / 6 * 2)}

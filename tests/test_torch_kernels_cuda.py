@@ -1,9 +1,13 @@
 """The CUDA kernels against their plain versions on the card, at small and
 edge-case shapes (empty runs, one row, 5 key words with 3 payloads, k up
-to 512, sums that wrap, runs crossing every tile, no valid rows; for the
-K2 merge ties across every tile boundary, lopsided, disjoint and sentinel
-runs, totals around the tile size; for the K3 scan sizes around its tile,
-look-back over many tiles, repeated calls, unaligned views), and the
+to 512, sums that wrap, runs crossing every tile, no valid rows; for K1
+every alphabet on both sides of the 64- and 128-bit rolling states, sizes
+around its tile and a thread's segment, n < k, all-palindrome input,
+unaligned views, repeated calls; for the K2 merge ties across every tile
+boundary, lopsided, disjoint and sentinel runs, totals around the tile
+size; for the K3 scan sizes around its tile, look-back over many tiles,
+repeated calls, unaligned views; for K4 a run over 10,000 tiles, tv at a
+tile boundary, unaligned views, repeated calls), and the
 port's CountIndex and SortedCountIndex on the card against the same index
 on the CPU.  Exact equality throughout: everything is integer,
 and the K2 merge keeps ties in the plain version's (stable) order.
@@ -35,25 +39,104 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("name,k", [
-    ("DNA", 1), ("DNA", 21), ("DNA", 32), ("DNA", 63), ("RNA", 16),
-    ("DNA5", 11), ("RNA6", 31), ("DNA16", 9), ("DNA_IUPAC", 15),
-    ("ASCII", 5), ("DNA", 512)])
-@pytest.mark.parametrize("n", [1, 300, 70001])
-def test_extract_canonical_kernel(dev, name, k, n):
-    spec = kp.KmerSpec(k, kp.alphabets.by_name(name))
-    codes = np.random.default_rng(n + k).integers(
-        0, spec.alphabet.size, n).astype(np.uint8)
-    t = torch.from_numpy(codes)
+K1_TILE = 2048     # windows per tile of the rolling K1 kernels (kTile)
+K1_ITEMS = 16      # windows per thread (kItems)
+
+
+def _k1_check(dev, codes, spec, launches=1):
+    """K1 on a uint8 CUDA tensor `codes`: shapes, `launches` launches
+    counted, words and was_rc of every whole window bitwise equal to the
+    plain version on the CPU."""
     before = kernels.LAUNCHES["extract_canonical"]
-    w, rc = kernels.extract_canonical(t.to(dev), spec)
+    w, rc = kernels.extract_canonical(codes, spec)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["extract_canonical"] == before + 1
-    assert w.shape == (n, spec.nwords)
-    pw, prc = packing.extract_canonical(t, spec)
-    nv = max(n - k + 1, 0)
+    assert kernels.LAUNCHES["extract_canonical"] == before + launches
+    n = codes.shape[0]
+    assert w.shape == (n, spec.nwords) and rc.shape == (n,)
+    pw, prc = packing.extract_canonical(codes.cpu(), spec)
+    nv = max(n - spec.k + 1, 0)
     assert torch.equal(w[:nv].cpu(), pw[:nv])
     assert torch.equal(rc[:nv].cpu(), prc[:nv])
+    return rc[:nv]
+
+
+# every alphabet on both sides of the 64- and 128-bit rolling states (DNA
+# 32/33, 64/65; DNA5/6 21/22, 42/43; DNA16 16/17, 32/33; ASCII 8/9,
+# 16/17), the widest word counts (DNA5 k=21: 3 words, k=42: 5), and the
+# wide kernel up to k=512
+@pytest.mark.parametrize("name,k", [
+    ("DNA", 1), ("DNA", 21), ("DNA", 32), ("DNA", 33), ("DNA", 63),
+    ("DNA", 64), ("DNA", 65), ("RNA", 16), ("DNA5", 11), ("DNA5", 21),
+    ("DNA5", 42), ("DNA6", 21), ("DNA6", 22), ("DNA6", 42), ("DNA6", 43),
+    ("RNA6", 31), ("DNA16", 9), ("DNA16", 16), ("DNA16", 17),
+    ("DNA16", 32), ("DNA16", 33), ("DNA_IUPAC", 15), ("ASCII", 5),
+    ("ASCII", 8), ("ASCII", 9), ("ASCII", 16), ("ASCII", 17),
+    ("DNA", 512)])
+@pytest.mark.parametrize("n", [1, 300, 70001, "T-1", "T", "T+1", "T+k-1",
+                               "S*m-1", "S*m+1"])
+def test_extract_canonical_kernel(dev, name, k, n):
+    """Sizes around the tile (T), a tile plus the halo, and a thread's
+    segment (S); n % 4 != 0 puts word columns 1.. off 16 bytes."""
+    spec = kp.KmerSpec(k, kp.alphabets.by_name(name))
+    if isinstance(n, str):
+        n = {"T-1": K1_TILE - 1, "T": K1_TILE, "T+1": K1_TILE + 1,
+             "T+k-1": K1_TILE + k - 1, "S*m-1": K1_ITEMS * 37 - 1,
+             "S*m+1": K1_ITEMS * 37 + 1}[n]
+    codes = np.random.default_rng(n + k).integers(
+        0, spec.alphabet.size, n).astype(np.uint8)
+    _k1_check(dev, torch.from_numpy(codes).to(dev), spec)
+
+
+def test_k1_tile_matches_the_source(dev):
+    assert kernels._cuda_lib().kmerind_extract_canonical_tile() == K1_TILE
+
+
+@pytest.mark.parametrize("name,k,n", [
+    ("DNA", 21, 5), ("DNA", 64, 63), ("DNA16", 33, 1), ("DNA", 127, 100)])
+def test_extract_canonical_shorter_than_k(dev, name, k, n):
+    """n < k: no whole window; the kernel runs and reads no code past the
+    end (the rows are garbage, the shapes are right)."""
+    spec = kp.KmerSpec(k, kp.alphabets.by_name(name))
+    codes = torch.randint(0, spec.alphabet.size, (n,), dtype=torch.uint8)
+    _k1_check(dev, codes.to(dev), spec)
+
+
+@pytest.mark.parametrize("name,k", [("DNA", 2), ("DNA", 20), ("DNA", 32),
+                                    ("DNA", 64), ("DNA", 100),
+                                    ("DNA16", 30)])
+def test_extract_canonical_all_palindromes(dev, name, k):
+    """A T A T ... (DNA16: the same letters): every window of even k is its
+    own reverse complement, so every was_rc is False (ties take the
+    forward strand)."""
+    alpha = kp.alphabets.by_name(name)
+    codes = np.resize(alpha.encode("AT"), 3 * K1_TILE + 5)
+    spec = kp.KmerSpec(k, alpha)
+    rc = _k1_check(dev, torch.from_numpy(codes).to(dev), spec)
+    assert not rc.any()
+
+
+@pytest.mark.parametrize("offset", range(1, 16))
+@pytest.mark.parametrize("name,k", [("DNA", 21), ("DNA", 63),
+                                    ("ASCII", 16)])
+def test_extract_canonical_unaligned_views(dev, offset, name, k):
+    """Codes that start `offset` bytes into a larger tensor (a shard of the
+    sorted index starts at s * L bytes), n % 4 == 3."""
+    spec = kp.KmerSpec(k, kp.alphabets.by_name(name))
+    n = 2 * K1_TILE + 3
+    big = torch.randint(0, spec.alphabet.size, (n + 32,), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(offset))
+    _k1_check(dev, big.to(dev)[offset:offset + n], spec)
+
+
+def test_extract_canonical_repeated_calls(dev):
+    """Calls in a row, the same shapes, other codes: each equals the plain
+    version."""
+    spec = kp.KmerSpec(21, kp.DNA)
+    gen = torch.Generator().manual_seed(7)
+    for _ in range(3):
+        codes = torch.randint(0, 4, (5 * K1_TILE + 17,), dtype=torch.uint8,
+                              generator=gen)
+        _k1_check(dev, codes.to(dev), spec)
 
 
 @pytest.mark.parametrize("w,npay,na,nb", [
@@ -267,15 +350,21 @@ def _rl_case(rng, n, w, nkeys, tv):
     return rows.T
 
 
+RL_TILE = 2048      # rows per tile of run_length_weights.cu (kTile)
+
+
 @pytest.mark.parametrize("n,w,nkeys,tv", [
     (1, 1, 1, 1), (1, 2, 1, 0), (2047, 2, 3, 2047), (2048, 1, 1, 2048),
     (2049, 3, 2, 0), (2049, 4, 2, 1), (70001, 5, 9, 69999),
     (300_000, 2, 7, 270_000), (1 << 20, 2, 1000, 1 << 20),
-    (5_000_001, 1, 1, 5_000_001)])
+    (5_000_001, 1, 1, 5_000_001),
+    (5 * RL_TILE, 2, 4, 3 * RL_TILE - 1), (5 * RL_TILE, 2, 4, 3 * RL_TILE),
+    (5 * RL_TILE, 3, 4, 3 * RL_TILE + 1)])
 def test_run_length_weights_kernel(dev, n, w, nkeys, tv):
-    """K4 at tv = 0, 1, n and in between; one run covering everything;
-    few keys, so runs cross every 2048-row tile; w = 1..5; n not a multiple
-    of the tile."""
+    """K4 at tv = 0, 1, n, at a tile boundary +-1 and in between; one run
+    covering everything; few keys, so runs cross every 2048-row tile;
+    w = 1..5; n not a multiple of the tile (and n % 4 != 0: key columns
+    1.. start off 16 bytes)."""
     cols = words_t(_rl_case(np.random.default_rng(n + w), n, w, nkeys, tv))
     tvt = torch.tensor(tv, dtype=torch.int32)
     want = kernels.run_length_weights_plain(cols, tvt)
@@ -301,6 +390,47 @@ def test_run_length_weights_every_tile_boundary(dev):
         cols.to(dev), torch.tensor(tv, dtype=torch.int32, device=dev))
     assert torch.equal(got.cpu(), want)
     assert int(want.sum()) == tv and int(want[tv - 1]) > 0
+
+
+def test_run_length_weights_run_over_10000_tiles(dev):
+    """One run of 10,000 tiles and a bit, then short runs: every tile in
+    the long run has no head, and the run's end needs the start 10,000
+    tiles back."""
+    n = 10_003 * RL_TILE
+    keys = torch.zeros((2, n), dtype=torch.int32, device=dev)
+    tail = torch.arange(n - (10_000 * RL_TILE + 77), device=dev)
+    keys[1, 10_000 * RL_TILE + 77:] = (tail // 5 + 1).to(torch.int32)
+    tv = torch.tensor(n - 9, dtype=torch.int32, device=dev)
+    got = kernels.run_length_weights(keys, tv)
+    assert torch.equal(got, kernels.run_length_weights_plain(keys, tv))
+    assert int(got[10_000 * RL_TILE + 76]) == 10_000 * RL_TILE + 77
+
+
+def test_run_length_weights_unaligned_view(dev):
+    """Key columns in a contiguous view that starts 4 bytes into a larger
+    tensor: every column start is off 16 bytes."""
+    rng = np.random.default_rng(11)
+    n, w = 3 * RL_TILE + 5, 3
+    cols = words_t(_rl_case(rng, n, w, 40, n - 2))
+    big = torch.zeros(w * n + 1, dtype=torch.int32, device=dev)
+    view = big[1:].view(w, n)
+    view.copy_(cols.to(dev))
+    tv = torch.tensor(n - 2, dtype=torch.int32, device=dev)
+    assert torch.equal(kernels.run_length_weights(view, tv).cpu(),
+                       kernels.run_length_weights_plain(cols, n - 2))
+
+
+def test_run_length_weights_repeated_calls(dev):
+    """Calls in a row with the same shapes and other keys: each equals the
+    plain version (nothing carries from one call to the next)."""
+    rng = np.random.default_rng(12)
+    before = kernels.LAUNCHES["run_length_weights"]
+    for nkeys in (3, 300, 1):
+        cols = words_t(_rl_case(rng, 9 * RL_TILE + 1, 2, nkeys, 9 * RL_TILE))
+        tv = torch.tensor(9 * RL_TILE, dtype=torch.int32)
+        got = kernels.run_length_weights(cols.to(dev), tv.to(dev))
+        assert torch.equal(got.cpu(), kernels.run_length_weights_plain(cols, tv))
+    assert kernels.LAUNCHES["run_length_weights"] == before + 3
 
 
 def test_wrappers_reject_bad_input(dev):

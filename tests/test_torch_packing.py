@@ -34,6 +34,47 @@ def _codes(alpha, k, n=1500):
 @pytest.mark.parametrize("k", KS)
 @pytest.mark.parametrize("name", ALPHABETS)
 def test_extract_canonical_matches_jax(name, k):
+    _check_canonical_against_jax(name, k)
+
+
+# where the K1 wrapper switches kernels (k * bits: 64 | 65..128 | > 128),
+# beyond the KS grid above
+@pytest.mark.parametrize("name,k", [("DNA", 64), ("DNA", 65), ("DNA16", 33),
+                                    ("ASCII", 17)])
+def test_extract_canonical_matches_jax_at_state_limits(name, k):
+    _check_canonical_against_jax(name, k)
+
+
+@pytest.mark.parametrize("name,k,want", [
+    ("DNA", 1, "rolling64"), ("DNA", 32, "rolling64"),
+    ("DNA", 33, "rolling128"), ("DNA", 64, "rolling128"),
+    ("DNA", 65, "wide"), ("DNA", 512, "wide"),
+    ("DNA6", 21, "rolling64"), ("DNA6", 22, "rolling128"),
+    ("DNA6", 42, "rolling128"), ("DNA6", 43, "wide"),
+    ("DNA16", 16, "rolling64"), ("DNA16", 17, "rolling128"),
+    ("DNA16", 32, "rolling128"), ("DNA16", 33, "wide"),
+    ("ASCII", 8, "rolling64"), ("ASCII", 9, "rolling128"),
+    ("ASCII", 16, "rolling128"), ("ASCII", 17, "wide")])
+def test_k1_kernel_by_width(name, k, want):
+    """The K1 wrapper's kernel follows k * bits alone."""
+    assert kernels.k1_kernel(TSpec(k, tal.by_name(name))) == want
+
+
+def test_k1_launch_args_built_once():
+    """The complement table and launch arguments are built once per spec
+    and hold the alphabet's complement (identity past the alphabet)."""
+    spec = TSpec(21, tal.by_name("DNA6"))
+    args = kernels._k1_launch_args(spec)
+    assert kernels._k1_launch_args(TSpec(21, tal.by_name("DNA6"))) is args
+    lut, addr, k, bits, cpw, nwords, kernel = args
+    assert addr == lut.ctypes.data
+    assert (k, bits, cpw, nwords) == (21, 3, 10, 3)
+    assert kernel == 0
+    np.testing.assert_array_equal(lut[:8], spec.alphabet.to_complement)
+    np.testing.assert_array_equal(lut[8:], np.arange(8, 256))
+
+
+def _check_canonical_against_jax(name, k):
     jspec = JSpec(k, jal.by_name(name))
     tspec = TSpec(k, tal.by_name(name))
     codes = _codes(tspec.alphabet, k)

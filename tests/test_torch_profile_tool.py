@@ -1,6 +1,8 @@
 """The device-busy measure of tools/profile_p4.py: device work that overlaps
-counts once, and only device items inside the phase's range count."""
+counts once, and only device items inside the phase's range count; its P4
+and P5 runs name their phases."""
 
+import json
 import pathlib
 import sys
 
@@ -48,7 +50,57 @@ def test_port_kernel_ms_sums_each_kernels_launches():
         "void at::native::merge_tiles_kernel_other(int)": 7.0,
         "void cub::DeviceRadixSortOnesweepKernel<int>(int)": 3000.0,
         "rl_tiles": 2.0,
+        "void (anonymous namespace)::extract_rolling_kernel<(anonymous "
+        "namespace)::U64State>(unsigned char const*, long)": 150.0,
+        "(anonymous namespace)::extract_wide_kernel(unsigned char const*)":
+            50.0,
+        "void other::extract_rolling_kernel_v2(int)": 9.0,
     }
     got = profile_p4.port_kernel_ms(by_name)
-    assert got == {"extract_canonical": 0.0, "merge_runs_cols": 1.0,
+    assert got == {"extract_canonical": 0.2, "merge_runs_cols": 1.0,
                    "prefix_sum_i32": 0.5, "run_length_weights": 0.002}
+
+
+def test_phases_of_both_runs():
+    """P4 (hash index) and P5 (sorted index: build, then the flush) each
+    name a step for every phase they report."""
+    steps = {run: profile_p4.phase_steps(run, _FakeIndex(), "p.fastq", "q")
+             for run in profile_p4.PHASES}
+    assert profile_p4.PHASES["p5"] == ("build", "flush", "count1", "count2")
+    for run, fns in steps.items():
+        assert tuple(fns) == profile_p4.PHASES[run]
+    calls = [fn() for fn in steps["p5"].values()]
+    assert calls == [("build", "p.fastq"), ("size",), ("count", "q"),
+                     ("count", "q")]
+
+
+class _FakeIndex:
+    """Records which index method a phase calls."""
+
+    def build(self, path):
+        return ("build", path)
+
+    def count(self, queries):
+        return ("count", queries)
+
+    def size(self):
+        return ("size",)
+
+    def items(self):
+        return ("items",)
+
+    def compact(self):
+        return ("compact",)
+
+
+def test_p5_dry_run_on_the_cpu(capsys):
+    """--run p5 on the CPU (no device time): the sorted index's phases, in
+    their own table and JSON record, and no P4 run."""
+    assert profile_p4.main(["--run", "p5", "--device", "cpu", "--genome",
+                            "20000", "--coverage", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "P5 [cpu]" in out and "P4 [cpu]" not in out
+    record = json.loads(out.strip().splitlines()[-1])
+    assert list(record["runs"]) == ["p5"]
+    assert list(record["runs"]["p5"]) == ["build", "flush", "count1",
+                                          "count2"]

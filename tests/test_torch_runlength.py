@@ -88,6 +88,23 @@ def test_run_spanning_pallas_block_boundary():
     np.testing.assert_array_equal(got, np.asarray(ref_w))
 
 
+def test_run_over_many_tiles_with_invalid_tail():
+    """One run covering many of the CUDA kernel's 2048-row tiles, then short
+    runs, tv < n with the first invalid row equal to the last valid one:
+    the same weights as the Pallas kernel in interpret mode."""
+    n, tv = 1 << 16, 61_000
+    swords = np.zeros((n, 2), np.uint32)
+    swords[:100] = 3
+    swords[100:60_000] = 4                       # ~29 tiles of one run
+    swords[60_000:, 1] = 5 + (np.arange(n - 60_000) // 7)
+    swords[tv] = swords[tv - 1]
+    got = _port(swords, tv)
+    ref = run_length_weights_pallas(jnp.asarray(swords), jnp.int32(tv),
+                                    interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(ref))
+    assert got[59_999] == 59_900 and got.sum() == tv
+
+
 def test_first_invalid_row_equal_to_last_valid():
     """Weights sum to total_valid even when the first invalid row
     bit-equals the last valid row (the j == tv-1 end)."""

@@ -28,3 +28,19 @@ def test_substitution_must_match_once():
         sweep_variants.variant_source("a a", [("a", "b")])
     with pytest.raises(ValueError):
         sweep_variants.variant_source("a", [("c", "b")])
+
+
+@pytest.mark.parametrize("kernel", ["extract", "runlength", "merge", "scan",
+                                    "all"])
+def test_kernel_argument_without_a_gpu(kernel, monkeypatch):
+    """Every kernel name (and all) parses, with --variant; without a GPU the
+    tool stops before building anything."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert sweep_variants.main(["--kernel", kernel, "--variant",
+                                "committed"]) == 2
+
+
+def test_unknown_kernel_is_refused():
+    with pytest.raises(SystemExit):
+        sweep_variants.main(["--kernel", "sort"])

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Device-busy profile of the smoke's full-size run (chip_smoke.py P4).
+"""Device-busy profile of the smoke's full-size runs (chip_smoke.py P4, P5).
 
-    python3 tools/profile_p4.py [--coverage 30] [--genome 4641652]
-                                [--trace trace.json]
+    python3 tools/profile_p4.py [--run p4|p5|all] [--coverage 30]
+                                [--genome 4641652] [--trace trace.json]
 
 Makes the P4 data of chip_smoke.py (150 bp reads at 30x coverage of a
 random genome of E. coli K-12 length, seed 0, and 1M queries), then runs
-the P4 phases twice, each time on a fresh CountIndex: build (the streaming
-path above 64 MB), count() of the 1M queries twice, items(), compact().
-The first pass runs without the profiler and gives each phase's wall
-seconds; it also warms the native parser, the kernels and the allocator.
-The second pass runs under torch.profiler, each phase in a record_function
-range that ends in torch.cuda.synchronize().
+each run's phases twice, each time on a fresh index.  P4, the hash
+CountIndex: build (the streaming path above 64 MB), count() of the 1M
+queries twice, items(), compact().  P5, the sorted SortedCountIndex on one
+shard: build, flush (the first size(), which runs the samplesort flush),
+count() twice.  The first pass runs without the profiler and gives each
+phase's wall seconds; it also warms the native parser, the kernels and the
+allocator.  The second pass runs under torch.profiler, each phase in a
+record_function range that ends in torch.cuda.synchronize().
 
 Device busy for a phase is the union of the kernel, memcpy and memset
 intervals of the trace that fall inside the phase's range, over the
@@ -20,7 +22,8 @@ cannot exceed 100 %.  Per phase the script prints the wall seconds of
 both passes, busy seconds and share, the device items that take the
 most time and the device milliseconds of each of the port's kernels; then the PhaseTimer report of the profiled pass; and last one
 JSON object with all of it.  Every timing line carries the card's name
-and power limit as nvidia-smi reports them.
+and power limit as nvidia-smi reports them.  With --trace, each run's
+chrome trace goes to the path with the run's name before the suffix.
 """
 
 from __future__ import annotations
@@ -44,14 +47,30 @@ from chip_smoke import (COVERAGE, GENOME_LEN, K, READ_LEN,  # noqa: E402
                         make_reads, pack_rows, write_fastq)
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-PHASES = ("build", "count1", "count2", "items", "compact")
+#: run -> its phases, in order
+PHASES = {"p4": ("build", "count1", "count2", "items", "compact"),
+          "p5": ("build", "flush", "count1", "count2")}
 #: the port's kernels -> the CUDA kernel names (ops/csrc) of their launches
 PORT_KERNELS = {
-    "extract_canonical": ("extract_canonical_kernel",),
+    "extract_canonical": ("extract_rolling_kernel", "extract_wide_kernel"),
     "merge_runs_cols": ("merge_partition_kernel", "merge_tiles_kernel"),
     "prefix_sum_i32": ("prefix_scan_kernel",),
     "run_length_weights": ("rl_tiles", "rl_carry"),
 }
+
+
+def phase_steps(run: str, idx, path, queries) -> dict:
+    """{phase: call} of one run on a fresh index `idx`."""
+    if run == "p4":
+        return {"build": lambda: idx.build(path),
+                "count1": lambda: idx.count(queries),
+                "count2": lambda: idx.count(queries),
+                "items": idx.items,
+                "compact": idx.compact}
+    return {"build": lambda: idx.build(path),
+            "flush": idx.size,
+            "count1": lambda: idx.count(queries),
+            "count2": lambda: idx.count(queries)}
 
 
 def union_length(intervals) -> float:
@@ -99,21 +118,53 @@ def make_queries(codes: np.ndarray) -> np.ndarray:
     return pack_rows(qcodes)
 
 
+def report(run: str, trace: dict, wall: dict, smi: str) -> dict:
+    """Print one run's table of phases; returns its JSON record."""
+    tag = f"{run}:"
+    ranges = {ev["name"][len(tag):]: (float(ev["ts"]),
+                                     float(ev["ts"] + ev["dur"]))
+              for ev in trace["traceEvents"]
+              if ev.get("cat") == "user_annotation"
+              and str(ev.get("name", "")).startswith(tag)}
+    out = {}
+    print(f"{run.upper()} [{smi}]")
+    print("| phase | wall s | profiled wall s | device busy s | busy % "
+          "| top device items (ms) | port kernels (ms) |")
+    print("| --- | --- | --- | --- | --- | --- | --- |")
+    for name in PHASES[run]:
+        lo, hi = ranges[name]
+        spans, by_name = phase_device_items(trace, lo, hi)
+        busy = union_length(spans) / 1e6
+        span = (hi - lo) / 1e6
+        top = [(n, us / 1e3) for n, us in by_name.most_common(5)]
+        ours = port_kernel_ms(by_name)
+        out[name] = {
+            "wall_s": wall[name], "profiled_wall_s": span,
+            "device_busy_s": busy, "busy_share": busy / span,
+            "device_items": len(spans), "top_ms": top, "port_kernel_ms": ours}
+        tops = "; ".join(f"{n[:48]} {ms:.3f}" for n, ms in top)
+        kms = "; ".join(f"{k} {ms:.3f}" for k, ms in ours.items() if ms)
+        print(f"| {name} | {wall[name]:.6f} | {span:.6f} | {busy:.6f} | "
+              f"{100 * busy / span:.2f} | {tops} | {kms} |")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--run", choices=(*PHASES, "all"), default="all")
     ap.add_argument("--coverage", type=int, default=COVERAGE)
     ap.add_argument("--genome", type=int, default=GENOME_LEN)
     ap.add_argument("--device", default="cuda",
                     help="torch device; cpu runs the script at no device "
                          "time (a dry run of the script itself)")
-    ap.add_argument("--trace", help="also write the profiled pass's chrome "
-                                    "trace to this path")
+    ap.add_argument("--trace", help="also write each run's chrome trace to "
+                                    "this path, the run's name added")
     args = ap.parse_args(argv)
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from kmerind_tpu_torch import DNA, CountIndex, KmerSpec
+    from kmerind_tpu_torch import DNA, CountIndex, KmerSpec, SortedCountIndex
     from kmerind_tpu_torch.io import native
 
     dev = torch.device(args.device)
@@ -131,6 +182,12 @@ def main(argv=None) -> int:
         smi, sync = "cpu", (lambda: None)
     native.require()
     spec = KmerSpec(K, DNA)
+    runs = tuple(PHASES) if args.run == "all" else (args.run,)
+    make_index = {"p4": lambda: CountIndex(spec, device=dev),
+                  "p5": lambda: SortedCountIndex(spec, device=dev)}
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if on_gpu else [])
+    out = {"card": smi, "runs": {}}
 
     with tempfile.TemporaryDirectory() as tmp:
         n_reads = args.genome * args.coverage // READ_LEN
@@ -142,59 +199,36 @@ def main(argv=None) -> int:
               f"{path.stat().st_size} bytes FASTQ [{smi}]", flush=True)
         del codes
 
-        def steps(idx):
-            return {"build": lambda: idx.build(path),
-                    "count1": lambda: idx.count(queries),
-                    "count2": lambda: idx.count(queries),
-                    "items": idx.items,
-                    "compact": idx.compact}
+        for run in runs:
+            wall = {}
+            fns = phase_steps(run, make_index[run](), path, queries)
+            for name in PHASES[run]:
+                t0 = time.perf_counter()
+                fns[name]()
+                sync()
+                wall[name] = time.perf_counter() - t0
+            del fns
 
-        wall = {}
-        fns = steps(CountIndex(spec, device=dev))
-        for name in PHASES:
-            t0 = time.perf_counter()
-            fns[name]()
-            sync()
-            wall[name] = time.perf_counter() - t0
-
-        idx = CountIndex(spec, device=dev)
-        fns = steps(idx)
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                         if on_gpu else [])
-        with profile(activities=acts) as prof:
-            for name in PHASES:
-                with record_function(f"p4:{name}"):
-                    fns[name]()
-                    sync()
-        trace_path = pathlib.Path(args.trace or pathlib.Path(tmp) / "t.json")
-        prof.export_chrome_trace(str(trace_path))
-        trace = json.loads(trace_path.read_text())
-
-    ranges = {ev["name"][3:]: (float(ev["ts"]), float(ev["ts"] + ev["dur"]))
-              for ev in trace["traceEvents"]
-              if ev.get("cat") == "user_annotation"
-              and str(ev.get("name", "")).startswith("p4:")}
-    out = {"card": smi, "phases": {}}
-    print("| phase | wall s | profiled wall s | device busy s | busy % "
-          "| top device items (ms) | port kernels (ms) |")
-    print("| --- | --- | --- | --- | --- | --- | --- |")
-    for name in PHASES:
-        lo, hi = ranges[name]
-        spans, by_name = phase_device_items(trace, lo, hi)
-        busy = union_length(spans) / 1e6
-        span = (hi - lo) / 1e6
-        top = [(n, us / 1e3) for n, us in by_name.most_common(5)]
-        ours = port_kernel_ms(by_name)
-        out["phases"][name] = {
-            "wall_s": wall[name], "profiled_wall_s": span,
-            "device_busy_s": busy, "busy_share": busy / span,
-            "device_items": len(spans), "top_ms": top, "port_kernel_ms": ours}
-        tops = "; ".join(f"{n[:48]} {ms:.3f}" for n, ms in top)
-        kms = "; ".join(f"{k} {ms:.3f}" for k, ms in ours.items() if ms)
-        print(f"| {name} | {wall[name]:.6f} | {span:.6f} | {busy:.6f} | "
-              f"{100 * busy / span:.2f} | {tops} | {kms} |")
+            idx = make_index[run]()
+            fns = phase_steps(run, idx, path, queries)
+            with profile(activities=acts) as prof:
+                for name in PHASES[run]:
+                    with record_function(f"{run}:{name}"):
+                        fns[name]()
+                        sync()
+            if args.trace:
+                tp = pathlib.Path(args.trace)
+                trace_path = tp.with_name(f"{tp.stem}_{run}{tp.suffix}")
+            else:
+                trace_path = pathlib.Path(tmp) / f"{run}.json"
+            prof.export_chrome_trace(str(trace_path))
+            trace = json.loads(trace_path.read_text())
+            out["runs"][run] = report(run, trace, wall, smi)
+            print(idx.timer.report(f"{run} profiled"))
+            del fns, idx, prof, trace
+            if on_gpu:
+                torch.cuda.empty_cache()
     print(f"card: {smi}")
-    print(idx.timer.report("profiled"))
     print(json.dumps(out))
     return 0
 

@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
-"""Time design variants of the port's K2 and K3 CUDA kernels on one GPU.
+"""Time design variants of the port's CUDA kernels on one GPU.
 
-    python3 tools/sweep_variants.py [--kernel merge|scan|all] [--rounds 2]
+    python3 tools/sweep_variants.py [--kernel extract|merge|scan|runlength|all]
+                                    [--variant NAME ...] [--rounds 2]
 
 A variant is a committed source of kmerind_tpu_torch/ops/csrc with a few
-text substitutions (`VARIANTS`: tile shape, ordering of the look-back's
-status stores, cache hints); "committed" is the source as it is.  All
-variants are compiled at once (one nvcc each, sm_90a, the package's flags)
-and linked with the other committed sources into one library each under
+text substitutions (`VARIANTS`: tile shape, per-thread work, ordering of the
+look-back's status stores, cache hints, load path); "committed" is the
+source as it is.  `--variant` keeps only the named variants.  All variants
+are compiled at once (one nvcc each, sm_90a, the package's flags) and
+linked with the other committed sources into one library each under
 kmerind_tpu_torch/_build/variants.  In turn, each library is bound in place
 of the package's and called through the port's own wrapper
-(kernels.merge_runs_cols / kernels.prefix_sum_i32) at chip_smoke.py P2's
-shapes: checked bitwise against the plain version, then timed with CUDA
-events (median of 10 single calls, after a warm-up); in the first round
-also 3 calls under torch.profiler, for each CUDA kernel's mean device time
-per call (a kernel's own launches, without the gaps between them).
-Beside them, in the same rounds: the library yardstick of P2 (a stable
-torch.sort of the runs' packed int64 keys; torch.cumsum) and, for the scan,
-a device copy of the same bytes.  The rounds alternate over the variants, so drift shows as a
-spread.  Prints one line per variant and case, each with the card's name
+(kernels.extract_canonical / merge_runs_cols / prefix_sum_i32 /
+run_length_weights) at chip_smoke.py P2's shapes: checked bitwise against
+the plain version, then timed with CUDA events over many launches
+(chip_smoke.median_ms); in the first round also under torch.profiler, for
+each CUDA kernel's mean device time per call (chip_smoke.kernel_us_per_call:
+a kernel's own launches, without the gaps between them).  Beside them, in
+the same rounds: the library yardstick of P2 (a stable torch.sort of the
+runs' packed int64 keys; torch.cumsum) and, for the scan, a device copy of
+the same bytes.  The rounds alternate over the variants, so drift shows as
+a spread.  Prints one line per variant and case, each with the card's name
 and power limit, then one JSON object of all the times.
 """
 
@@ -28,15 +31,14 @@ import argparse
 import ctypes
 import json
 import pathlib
-import re
 import subprocess
 import sys
-import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import CHUNK, bound_ms, kernel_bytes  # noqa: E402
+from chip_smoke import (CHUNK, GENOME_LEN, K, READ_LEN,  # noqa: E402
+                        bound_ms, kernel_bytes, make_reads)
 
 _LDCS = ("buf[swz(c)] = __ldcs(x4 + c);", "buf[swz(c)] = x4[c];")
 _STCS = ("__stcs(o4 + c, buf[swz(c)]);", "o4[c] = buf[swz(c)];")
@@ -52,6 +54,34 @@ VARIANTS = {
             ("kItems = 32;", "kItems = 16;"),
             ("st.relaxed.gpu", "st.release.gpu"), _LDCS, _STCS],
         "threads_128": [("kThreads = 256;", "kThreads = 128;")],
+    }),
+    "extract": ("extract_canonical.cu", {
+        "committed": [],
+        "items_8": [("kItems = 16;", "kItems = 8;")],
+        "items_20": [("kItems = 16;", "kItems = 20;")],
+        "items_32": [("kItems = 16;", "kItems = 32;")],
+        "threads_256": [("kThreads = 128;", "kThreads = 256;")],
+        "threads_512": [("kThreads = 128;", "kThreads = 512;")],
+        "cache_hints": [
+            ("*dst = __ldg(aligned + (g0 / 16 + m));",
+             "*dst = __ldcs(aligned + (g0 / 16 + m));"),
+            ("reinterpret_cast<uint4*>(col)[c] = sc[swz(c)];",
+             "__stcs(reinterpret_cast<uint4*>(col) + c, sc[swz(c)]);")],
+        "cp_async": [
+            ("*dst = __ldg(aligned + (g0 / 16 + m));",
+             'asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" '
+             ':: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),'
+             ' "l"(aligned + (g0 / 16 + m)) : "memory");'),
+            ("  __syncthreads();\n\n  // roll in the warm-up codes",
+             '  asm volatile("cp.async.wait_all;" ::: "memory");\n'
+             "  __syncthreads();\n\n  // roll in the warm-up codes")],
+    }),
+    "runlength": ("run_length_weights.cu", {
+        "committed": [],
+        "items_4": [("kItems = 8;", "kItems = 4;")],
+        "items_16": [("kItems = 8;", "kItems = 16;")],
+        "threads_128": [("kThreads = 256;", "kThreads = 128;")],
+        "threads_512": [("kThreads = 256;", "kThreads = 512;")],
     }),
     "merge": ("merge_runs.cu", {
         "committed": [],
@@ -78,8 +108,9 @@ def variant_source(text: str, subs) -> str:
     return text
 
 
-def build_variants(kernels, names):
-    """{(kernel, variant): bound library}, compiling all at once."""
+def build_variants(kernels, names, keep=()):
+    """{(kernel, variant): bound library}, compiling all at once; only the
+    variants named in `keep` when it is not empty."""
     out = kernels.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = [kernels._nvcc(), *kernels.NVCC_FLAGS]
@@ -90,6 +121,8 @@ def build_variants(kernels, names):
         src, variants = VARIANTS[kname]
         text = (kernels.CSRC / src).read_text()
         for v, subs in variants.items():
+            if keep and v not in keep:
+                continue
             cu = out / f"{kname}_{v}.cu"
             cu.write_text(variant_source(text, subs))
             jobs[(kname, v)] = ([str(cu)], out / f"{kname}_{v}.o")
@@ -110,6 +143,8 @@ def build_variants(kernels, names):
         others = [str(jobs[("base", s)][1]) for s in kernels._SOURCES
                   if s != src]
         for v in variants:
+            if (kname, v) not in jobs:
+                continue
             so = out / f"lib_{kname}_{v}.so"
             subprocess.run([kernels._nvcc(), "-shared", "-o", str(so),
                             str(jobs[(kname, v)][1]), *others], check=True)
@@ -117,31 +152,11 @@ def build_variants(kernels, names):
     return libs
 
 
-def kernel_us_per_call(fn, calls: int = 3) -> dict:
-    """{CUDA kernel name: device us per call} of fn() under torch.profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = pathlib.Path(tmp) / "t.json"
-        prof.export_chrome_trace(str(path))
-        trace = json.loads(path.read_text())
-    us = {}
-    for ev in trace["traceEvents"]:
-        if ev.get("cat") == "kernel" and "dur" in ev:
-            m = re.search(r"(\w+)(?:<[^>]*>)?\(", ev["name"])
-            name = m.group(1) if m else ev["name"]
-            us[name] = us.get(name, 0.0) + float(ev["dur"]) / calls
-    return us
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("merge", "scan", "all"),
-                    default="all")
+    ap.add_argument("--kernel", choices=(*VARIANTS, "all"), default="all")
+    ap.add_argument("--variant", action="append",
+                    help="time only this variant (repeatable)")
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args(argv)
 
@@ -149,16 +164,18 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("sweep_variants: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import median_ms
-    from kmerind_tpu_torch.ops import kernels, sortops
+    from chip_smoke import kernel_us_per_call, median_ms
+    from kmerind_tpu_torch import DNA, DNA16, KmerSpec
+    from kmerind_tpu_torch.ops import kernels, packing, sortops
     from kmerind_tpu_torch.ops.keys import biased
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    names = ("merge", "scan") if args.kernel == "all" else (args.kernel,)
-    libs = build_variants(kernels, names)
+    names = tuple(VARIANTS) if args.kernel == "all" else (args.kernel,)
+    keep = set(args.variant or ())
+    libs = build_variants(kernels, names, keep)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -170,7 +187,61 @@ def main(argv=None) -> int:
         return sortops.sort_rows(words, (), valid, sentinel_ok=True,
                                  as_cols=True)[0]
 
+    def copy_of(nbytes):
+        """Yardstick: a device copy that reads and writes nbytes in all."""
+        src = torch.zeros(nbytes // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        return {"copy_ of the same bytes": lambda: dst.copy_(src)}
+
     cases = []      # (kernel, case, call(), check(), bytes, yardsticks)
+    if "extract" in names:
+        for spec in (KmerSpec(21, DNA), KmerSpec(63, DNA),
+                     KmerSpec(31, DNA16)):
+            codes = torch.randint(0, spec.alphabet.size, (CHUNK,),
+                                  dtype=torch.uint8, device=dev,
+                                  generator=gen)
+            nv = CHUNK - spec.k + 1
+            pw, prc = packing.extract_canonical(codes, spec)
+
+            def check(codes=codes, spec=spec, nv=nv, pw=pw, prc=prc):
+                w, rc = kernels.extract_canonical(codes, spec)
+                return (torch.equal(w[:nv], pw[:nv])
+                        and torch.equal(rc[:nv], prc[:nv]))
+            nbytes = kernel_bytes("extract_canonical", n=CHUNK,
+                                  nwords=spec.nwords)
+            cases.append(("extract", f"n={CHUNK} {spec}",
+                          lambda codes=codes, spec=spec:
+                          kernels.extract_canonical(codes, spec), check,
+                          nbytes, copy_of(nbytes)))
+    if "runlength" in names:
+        rcodes = make_reads(GENOME_LEN, CHUNK // READ_LEN + 1, seed=5)
+        rcodes = rcodes.reshape(-1)[:CHUNK].copy()
+        rcodes[rcodes == 4] = 0
+        words, _ = kernels.extract_canonical(
+            torch.from_numpy(rcodes).to(dev), KmerSpec(K, DNA))
+        kcols, _, s_valid = sortops.sort_rows(
+            words, (), torch.arange(CHUNK, device=dev) <= CHUNK - K,
+            is_stable=False, sentinel_ok=True, as_cols=True)
+        table = sortops.sort_rows(torch.randint(
+            -(2**31), 2**31 - 1, (1000, 2), dtype=torch.int32, device=dev,
+            generator=gen), ())[0]
+        pick = torch.sort(torch.randint(0, 1000, (1 << 27,), device=dev,
+                                        generator=gen)).values
+        for case, kc, tv in (
+                (f"n={CHUNK} sorted canonical 21-mers of reads", kcols,
+                 s_valid.sum(dtype=torch.int32)),
+                ("n=2^27 w=2 ~1000 keys", table[pick].t().contiguous(),
+                 torch.tensor(1 << 27, dtype=torch.int32, device=dev))):
+            want = kernels.run_length_weights_plain(kc, tv)
+            nbytes = kernel_bytes("run_length_weights", n=kc.shape[1],
+                                  w=kc.shape[0])
+            cases.append(("runlength", case,
+                          lambda kc=kc, tv=tv:
+                          kernels.run_length_weights(kc, tv),
+                          lambda kc=kc, tv=tv, want=want: torch.equal(
+                              kernels.run_length_weights(kc, tv), want),
+                          nbytes, copy_of(nbytes)))
+        del words, table, pick
     if "merge" in names:
         for na, nb, npay in ((CHUNK, CHUNK, 0), (1 << 26, CHUNK, 0),
                              (CHUNK, CHUNK, 1)):
@@ -202,14 +273,14 @@ def main(argv=None) -> int:
         x = torch.randint(0, 2, (1 << 28,), dtype=torch.int32, device=dev,
                           generator=gen)
         want = kernels.prefix_sum_i32_plain(x)
-        copy_out = torch.empty_like(x)
         cases.append(("scan", "n=2^28 values 0..1",
                       lambda: kernels.prefix_sum_i32(x),
                       lambda: torch.equal(kernels.prefix_sum_i32(x), want),
                       kernel_bytes("prefix_sum_i32", n=x.shape[0]),
                       {"torch.cumsum": lambda: torch.cumsum(
                           x, 0, dtype=torch.int32),
-                       "copy_ of the same bytes": lambda: copy_out.copy_(x)}))
+                       **copy_of(kernel_bytes("prefix_sum_i32",
+                                              n=x.shape[0]))}))
 
     package_lib = kernels._cuda_lib()
     times = {}
@@ -217,10 +288,12 @@ def main(argv=None) -> int:
         for rnd in range(args.rounds):
             for kname, case, call, check, nbytes, yard in cases:
                 for v in VARIANTS[kname][1]:
+                    if (kname, v) not in libs:
+                        continue
                     kernels._lib = libs[(kname, v)]
                     if not check():
                         raise AssertionError(f"{kname} {v} {case}: != plain")
-                    ms = median_ms(call, reps=10)
+                    ms = median_ms(call)
                     times.setdefault(f"{kname} {v} | {case}", []).append(ms)
                     print(f"round {rnd} {kname} {v} {case}: {ms:.4f} ms, "
                           f"{100 * bound_ms(nbytes) / ms:.1f} % of bound "
@@ -231,7 +304,7 @@ def main(argv=None) -> int:
                             f"{n} {us:.1f}" for n, us in parts.items()),
                             flush=True)
                 for yname, fn in yard.items():
-                    ms = median_ms(fn, reps=10)
+                    ms = median_ms(fn)
                     times.setdefault(f"{kname} {yname} | {case}",
                                      []).append(ms)
                     print(f"round {rnd} {kname} {yname} {case}: {ms:.4f} ms "
