@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's count indexes on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's indexes on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -23,8 +23,11 @@ and power limit as nvidia-smi reports them):
       computes the same function, that call's time the same way (K3:
       torch.cumsum; K2 / K2′: a stable torch.sort of the runs' packed int64
       keys — a sort, the nearest single call to a merge).  The port never
-      calls those.  K2′ (the row-major merge entry, which no index calls)
-      runs only here.
+      calls those.  K2 also runs in the multimap flush's shapes: a store
+      of 2^26 rows merged with a batch of 2^24, 3 payloads (id halves and
+      quality bits), with 2 key words and with the flagged merge's 3 (a
+      liveness flag ahead of two full 32-bit words).  K2′ (the row-major
+      merge entry, which no index calls) runs only here.
 * P3  exact reference: ~12M bases of synthetic reads indexed through
       CountIndex.insert_batch in 2^20-base chunks with max_runs=2 (many K2
       merges), then compact(); to_dict() must equal an independent numpy
@@ -33,10 +36,19 @@ and power limit as nvidia-smi reports them):
       equals the numpy counter, the shards hold contiguous key ranges that
       obey the splitter owner rule, items_in_range() of a slice equals
       numpy, and erasing 1,000 keys erases 1,000 that then count 0.
+* P3p the same reads over 4 hash-partitioned shards: CountIndex with the
+      "murmur" and the "farm" owner hash, to_dict() equal to the numpy
+      counter and (murmur) every key on the shard an independent numpy
+      MurmurHash3_x86_32 names; PositionIndex at k=21 and k=32 (the flagged
+      merge) and SortedPositionQualityIndex at k=21, non-canonical, short
+      ids: their pairs (the to_dict content) equal one pair per window of
+      the reads, the ids derived from the fixed-width records, the
+      qualities a float64 numpy window quality at rtol 1e-5.
 * P4  full size, one bacterial sequencing run: reads at 30x coverage of a
       random genome of E. coli K-12 length (4,641,652 bp), 150 bp, half
       reverse-complemented, 0.5% substitutions, 0.1% N — about 139M bases,
-      ~290 MB of FASTQ — built through CountIndex.build (the streaming
+      ~290 MB of FASTQ (phred 2-41, mostly high, drawn from the seed;
+      `make_quals`) — built through CountIndex.build (the streaming
       path), 1M count() queries (900k read windows, 100k random k-mers)
       held exactly against a numpy count of all windows, items() (counts
       must sum to the window count), compact().  The kernel launch
@@ -46,10 +58,19 @@ and power limit as nvidia-smi reports them):
       queries return P4's numpy reference counts, size() equals P4's
       distinct count, the store's counts sum to the window count.  Counters
       zeroed just before, read just after: K1 and K4 ran once per chunk.
+* P6  the same FASTQ through PositionQualityIndex(canonical=True).build on
+      one shard (K1 extracts, K2 flushes with 3 payloads): size() equals
+      the window count, count() of the 1M queries P4's numpy counts, find
+      (with_quality) of 10,000 sampled queries the numpy set of window ids
+      per query with qualities at rtol 1e-4, and erasing 1,000 keys erases
+      exactly their pairs; find of all 1M queries is timed.  Counters
+      zeroed just before, read just after: K1 ran once per chunk, K2 at
+      least once per flush.
 
 Exits non-zero, printing no result, when there is no CUDA device, a build
 fails or any check fails.  The last line of standard output is the
-contract JSON; the line before it lists the kernels.
+contract JSON; the line before it lists the kernels with their launches
+in the main-path runs P4 + P5 + P6.
 """
 
 from __future__ import annotations
@@ -72,6 +93,8 @@ GENOME_LEN = 4_641_652             # E. coli K-12 MG1655
 READ_LEN = 150
 COVERAGE = 30
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA's data sheet
+SEQ_OFFSET = 10                    # "@r0000000\n" before each sequence
+RECORD_BYTES = SEQ_OFFSET + 2 * (READ_LEN + 1) + 2
 
 
 def kernel_bytes(kname: str, **shape) -> int:
@@ -99,6 +122,28 @@ def kernel_bytes(kname: str, **shape) -> int:
 def bound_ms(nbytes: int) -> float:
     """Least milliseconds to move `nbytes` at the HBM rate."""
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def murmur3_x86_32(rows: np.ndarray, seed: int = 42) -> np.ndarray:
+    """uint32[n] MurmurHash3_x86_32 of each row of uint32[n, w] key words,
+    each word one little-endian 4-byte block (4 * w bytes, no tail) —
+    written from the published algorithm in plain numpy uint32 arithmetic,
+    independent of the port, to check the owner of every stored key."""
+    with np.errstate(over="ignore"):
+        rows = np.asarray(rows, np.uint32)
+        h = np.full(rows.shape[0], seed, np.uint32)
+        def rotl(x, r):
+            return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+        for j in range(rows.shape[1]):
+            k1 = rows[:, j] * np.uint32(0xCC9E2D51)
+            k1 = rotl(k1, 15) * np.uint32(0x1B873593)
+            h = rotl(h ^ k1, 13) * np.uint32(5) + np.uint32(0xE6546B64)
+        h ^= np.uint32(4 * rows.shape[1])
+        h ^= h >> np.uint32(16)
+        h *= np.uint32(0x85EBCA6B)
+        h ^= h >> np.uint32(13)
+        h *= np.uint32(0xC2B2AE35)
+        return h ^ (h >> np.uint32(16))
 
 
 def log(msg: str):
@@ -221,10 +266,40 @@ def make_reads(genome_len: int, n_reads: int, seed: int) -> np.ndarray:
     return codes
 
 
-def write_fastq(codes: np.ndarray, path: pathlib.Path):
-    """Fixed-width FASTQ records, written in one vectorized pass."""
+def make_quals(codes: np.ndarray, seed: int) -> np.ndarray:
+    """uint8[n_reads, READ_LEN] phred scores for the reads `codes`, drawn
+    from the seed after the reads (which they do not change): 2-41, mostly
+    high, 2 ('#') on every N, and 0 ('!', a base the codec reads as
+    incorrect, whose windows have quality exactly 0) at a rate of 0.05 %."""
+    rng = np.random.default_rng(seed + 1000)
+    q = 41 - np.minimum(rng.geometric(0.15, codes.shape) - 1, 39)
+    q[codes == 4] = 2
+    q[rng.random(codes.shape) < 0.0005] = 0
+    return q.astype(np.uint8)
+
+
+def window_quality(quals: np.ndarray, k: int = K) -> np.ndarray:
+    """float64[n_reads, READ_LEN - k + 1] quality of every k-window of the
+    phred scores `quals`: the product of its bases' probabilities of being
+    right, 1 - 10^(-q/10), or 0 where a base has phred 0 — from float64
+    prefix sums of the log2 probabilities, independent of the port's
+    tables and float32 sums."""
+    with np.errstate(divide="ignore"):
+        logp = np.where(quals == 0, 0.0, np.log2(
+            1.0 - 10.0 ** (-quals.astype(np.float64) / 10.0)))
+    nwin = quals.shape[1] - k + 1
+    pad = ((0, 0), (1, 0))
+    cs = np.pad(np.cumsum(logp, axis=1), pad)
+    zeros = np.pad(np.cumsum(quals == 0, axis=1), pad)
+    bad = zeros[:, k:k + nwin] > zeros[:, :nwin]
+    return np.where(bad, 0.0, np.exp2(cs[:, k:k + nwin] - cs[:, :nwin]))
+
+
+def write_fastq(codes: np.ndarray, quals: np.ndarray, path: pathlib.Path):
+    """Fixed-width FASTQ records (RECORD_BYTES each, the sequence at byte
+    SEQ_OFFSET of its record), written in one vectorized pass."""
     n = codes.shape[0]
-    width = 10 + (READ_LEN + 1) + 2 + (READ_LEN + 1)
+    width = RECORD_BYTES
     rec = np.empty((n, width), np.uint8)
     rec[:, 0], rec[:, 1] = ord("@"), ord("r")
     ids = np.arange(n)
@@ -234,8 +309,17 @@ def write_fastq(codes: np.ndarray, path: pathlib.Path):
     rec[:, 9] = rec[:, s] = rec[:, s + 2] = rec[:, width - 1] = 10
     rec[:, 10:s] = np.frombuffer(b"ACGTN", np.uint8)[codes]
     rec[:, s + 1] = ord("+")
-    rec[:, s + 3:width - 1] = ord("I")
+    rec[:, s + 3:width - 1] = 33 + quals
     rec.tofile(path)
+
+
+def short_ids(starts: np.ndarray) -> np.ndarray:
+    """uint64 position id (the short-read id: record start << 16 | offset
+    in the record) of the windows at (read, offset) rows `starts` of a
+    `write_fastq` file."""
+    rec = starts[:, 0].astype(np.uint64) * np.uint64(RECORD_BYTES)
+    return (rec << np.uint64(16)) | (starts[:, 1].astype(np.uint64)
+                                     + np.uint64(SEQ_OFFSET))
 
 
 def canonical_codes(codes: np.ndarray):
@@ -253,19 +337,37 @@ def canonical_codes(codes: np.ndarray):
     return np.minimum(fwd, rc).astype(np.uint64), has_n
 
 
-def expected_counts(codes: np.ndarray, qcodes: np.ndarray) -> np.ndarray:
-    """Exact count of each query k-mer (rows of codes, canonicalised) among
-    all windows of the reads, N read as A like the DNA alphabet does:
-    numpy sort of every canonical window code + searchsorted."""
-    blocks = []
+def window_codes(codes: np.ndarray, k: int = K,
+                 canonical: bool = True) -> np.ndarray:
+    """uint64[n_reads, READ_LEN - k + 1] 2-bit codes of every k-window of
+    the reads, N read as A (the DNA alphabet's encoding): canonical (the
+    smaller of the window and its reverse complement) or forward.  Blocks
+    of 100,000 reads keep the temporaries small."""
+    out = []
+    two = np.uint64(2)
     for lo in range(0, codes.shape[0], 100_000):
-        blk = codes[lo:lo + 100_000].copy()
-        blk[blk == 4] = 0
-        blocks.append(canonical_codes(blk)[0].reshape(-1))
-    allc = np.sort(np.concatenate(blocks))
-    q = canonical_codes(qcodes)[0][:, 0]
-    return (np.searchsorted(allc, q, "right")
-            - np.searchsorted(allc, q, "left"))
+        c = codes[lo:lo + 100_000].astype(np.uint64)
+        c[c == 4] = 0
+        nwin = c.shape[1] - k + 1
+        fwd = np.zeros((c.shape[0], nwin), np.uint64)
+        for j in range(k):
+            fwd = (fwd << two) | c[:, j:j + nwin]
+        if canonical:
+            rc = np.zeros_like(fwd)
+            for j in range(k - 1, -1, -1):
+                rc = (rc << two) | (np.uint64(3) - c[:, j:j + nwin])
+            fwd = np.minimum(fwd, rc)
+        out.append(fwd)
+    return np.concatenate(out)
+
+
+def expected_counts(sorted_codes: np.ndarray, qcodes: np.ndarray
+                    ) -> np.ndarray:
+    """Exact count of each query k-mer (rows of codes, canonicalised) among
+    the sorted canonical codes of all windows (`window_codes`)."""
+    q = window_codes(qcodes)[:, 0]
+    return (np.searchsorted(sorted_codes, q, "right")
+            - np.searchsorted(sorted_codes, q, "left"))
 
 
 def pack_rows(codes: np.ndarray) -> np.ndarray:
@@ -280,6 +382,205 @@ def pack_rows(codes: np.ndarray) -> np.ndarray:
     return np.stack([w0, w1], axis=1).astype(np.uint32)
 
 
+def sync(dev):
+    """Wait for the device's queued work (nothing to wait for on the CPU)."""
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def peak_bytes(dev) -> int | None:
+    """Peak bytes allocated on the device since the last reset (None on the
+    CPU)."""
+    import torch
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+
+
+def phase_p3p(dev, codes, quals, path, batch, want, smi):
+    """P3p: P3's reads through 4 hash-partitioned shards and the multimaps
+    (the module docstring); raises on any difference from numpy."""
+    from kmerind_tpu_torch import (DNA, CountIndex, KmerSpec, PositionIndex,
+                                   SortedPositionQualityIndex)
+    from kmerind_tpu_torch.io import read_file
+    spec = KmerSpec(K, DNA)
+    t0 = time.perf_counter()
+    for hash_name in ("murmur", "farm"):
+        hidx = CountIndex(spec, device=dev, nparts=4, max_runs=2,
+                          hash_name=hash_name)
+        hidx.insert_batch(batch, chunk_bases=1 << 20)
+        if hidx.to_dict() != want:
+            raise AssertionError(f"P3p CountIndex(nparts=4, {hash_name}):"
+                                 " to_dict != numpy counter")
+        sizes = hidx.local_sizes()
+        if hash_name == "murmur":
+            # p = 4: the owner is the hash's top 2 bits
+            rows, _ = hidx.items()
+            owner = murmur3_x86_32(rows) >> np.uint32(30)
+            if not np.array_equal(owner, np.repeat(np.arange(4), sizes)):
+                raise AssertionError("P3p: a key lies off the shard its "
+                                     "numpy murmur3 owner names")
+        log(f"P3p CountIndex(nparts=4, hash_name={hash_name!r}): shard "
+            f"sizes {sizes} == numpy counter"
+            + (", every key on its numpy murmur3 owner"
+               if hash_name == "murmur" else "") + f" [{smi}]")
+        del hidx
+
+    def same_pairs(tag, got, keys, quals=None):
+        """The index's pairs (kmer ints, ids, qualities) == one pair
+        per window of the P3 reads: the to_dict content, compared as
+        arrays in id order (every window has its own id)."""
+        gk, gi, gq = got
+        nw = keys.shape[1]
+        r, o = np.divmod(np.arange(keys.size), nw)
+        order = np.argsort(gi)
+        if not (np.array_equal(gi[order], short_ids(np.stack([r, o], 1)))
+                and np.array_equal(gk[order].astype(np.uint64),
+                                   keys.ravel())):
+            raise AssertionError(f"P3p {tag}: pairs != numpy multimap")
+        if quals is None:
+            return ""
+        gq, wq = gq[order], quals.ravel()
+        if not (np.array_equal(gq == 0, wq == 0)
+                and np.allclose(gq, wq, rtol=1e-5, atol=0)):
+            raise AssertionError(f"P3p {tag}: qualities off by more "
+                                 "than rtol 1e-5")
+        live = wq > 0
+        return (f", {int((~live).sum())} exact zeros, qualities max rel "
+                f"err {np.max(np.abs(gq[live] - wq[live]) / wq[live]):.3e}")
+
+    plain = read_file(path, DNA)      # N read as A: every window valid
+    for k, cls in ((21, PositionIndex), (32, PositionIndex),
+                   (21, SortedPositionQualityIndex)):
+        pidx = cls(KmerSpec(k, DNA), device=dev, nparts=4,
+                   canonical=False)
+        pidx.insert_batch(plain, chunk_bases=1 << 20)
+        tag = f"{cls.__name__}(nparts=4) k={k}"
+        extra = same_pairs(tag, pidx.pairs(),
+                           window_codes(codes, k, canonical=False),
+                           window_quality(quals, k)
+                           if pidx.with_quality else None)
+        log(f"P3p {tag}: {pidx.size()} pairs == numpy multimap of every "
+            f"window (short ids){extra} [{smi}]")
+        del pidx
+    del plain
+    log(f"P3p seconds {time.perf_counter() - t0:.2f} [{smi}]")
+
+
+def phase_p6(dev, path, quals, qcodes, queries, canon_all, want_counts, smi,
+             n_sample: int = 10_000, n_erase: int = 1000) -> dict:
+    """P6: P4's FASTQ through PositionQualityIndex (the module docstring):
+    `n_sample` finds are checked against numpy and `n_erase` keys erased.
+    Returns the kernel launches of its run; raises on any difference from
+    numpy."""
+    import torch
+    from kmerind_tpu_torch import DNA, KmerSpec, PositionQualityIndex
+    from kmerind_tpu_torch.ops import kernels
+    spec = KmerSpec(K, DNA)
+    n_windows = canon_all.size
+    # the numpy reference first: every window with the canonical key of one
+    # of the sampled queries (all read windows: the first 90 %), its id and
+    # quality
+    rng = np.random.default_rng(6)
+    sample = rng.choice(queries.shape[0] * 9 // 10, n_sample, replace=False)
+    uq, inv = np.unique(window_codes(qcodes[sample])[:, 0],
+                        return_inverse=True)
+    flat = canon_all.reshape(-1)
+    pos = np.searchsorted(uq, flat).clip(max=uq.size - 1)
+    widx = np.flatnonzero(uq[pos] == flat)
+    nwin = READ_LEN - K + 1
+    w_key = pos[widx]
+    w_id = short_ids(np.stack(np.divmod(widx, nwin), 1))
+    w_q = window_quality(quals).reshape(-1)[widx]
+    order = np.lexsort((w_id, w_key))
+    w_key, w_id, w_q = w_key[order], w_id[order], w_q[order]
+    bounds = np.searchsorted(w_key, np.arange(uq.size + 1))
+    del flat, pos, widx, order
+
+    pq = PositionQualityIndex(spec, canonical=True, device=dev)
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pq.build(path)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    chunks = pq.timer.count("insert")
+    t0 = time.perf_counter()
+    size = pq.size()
+    flush_s = time.perf_counter() - t0
+    merges = pq.timer.count("merge")
+    build_peak = peak_bytes(dev)
+    if size != n_windows:
+        raise AssertionError(f"P6: size {size} != {n_windows} windows")
+    t0 = time.perf_counter()
+    counts = pq.count(queries)
+    count_s = time.perf_counter() - t0
+    if not np.array_equal(counts, want_counts):
+        raise AssertionError(
+            f"P6: {int((counts != want_counts).sum())} of {counts.size} "
+            "counts differ from the numpy reference")
+    f_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        f_ids, f_q, f_mask = pq.find(queries, with_quality=True)
+        f_s.append(time.perf_counter() - t0)
+    width = f_ids.shape[1]
+    del f_ids, f_q, f_mask
+    f_ids, f_q, f_mask = pq.find(queries[sample], with_quality=True)
+    worst = 0.0
+    for i in range(sample.size):
+        lo, hi = bounds[inv[i]], bounds[inv[i] + 1]
+        got_ids, got_q = f_ids[i][f_mask[i]], f_q[i][f_mask[i]]
+        o = np.argsort(got_ids)
+        got_ids, got_q = got_ids[o], got_q[o].astype(np.float64)
+        if not np.array_equal(got_ids, w_id[lo:hi]):
+            raise AssertionError(f"P6: find of sampled query {i}: ids != "
+                                 "the numpy window ids")
+        want_q = w_q[lo:hi]
+        if not (np.array_equal(got_q == 0, want_q == 0) and np.allclose(
+                got_q, want_q, rtol=1e-4, atol=0)):
+            raise AssertionError(f"P6: find of sampled query {i}: "
+                                 "qualities off by more than rtol 1e-4")
+        live = want_q > 0
+        if live.any():
+            worst = max(worst, float(np.max(
+                np.abs(got_q[live] - want_q[live]) / want_q[live])))
+    # erase n_erase distinct sampled keys: exactly their pairs go
+    first = np.unique(inv, return_index=True)[1][:n_erase]
+    gone_pairs = int(np.diff(bounds)[inv[first]].sum())
+    t0 = time.perf_counter()
+    erased = pq.erase(queries[sample[first]])
+    erase_s = time.perf_counter() - t0
+    if (erased != gone_pairs or pq.count(queries[sample[first]]).any()
+            or pq.size() != n_windows - gone_pairs):
+        raise AssertionError(f"P6: erase of {first.size} keys took {erased} "
+                             f"pairs, not their {gone_pairs}")
+    p6 = dict(kernels.LAUNCHES)
+    peak = peak_bytes(dev)
+    nq = queries.shape[0]
+    log(f"P6 PositionQualityIndex, canonical, 1 shard: build "
+        f"{build_s:.3f} s = {n_windows / build_s:.0f} k-mers/s, {chunks} "
+        f"chunks, {merges} flushes (the first size(), flushing what was "
+        f"left pending, {flush_s:.3f} s), size {size} == windows; peak "
+        f"device memory "
+        f"{build_peak} bytes after the build, {peak} in all [{smi}]")
+    log(f"P6 queries: count {nq} {count_s:.3f} s = {nq / count_s:.0f} "
+        f"q/s == P4 numpy counts; find(with_quality) of {nq}, width "
+        f"{width}: first {f_s[0]:.3f} s = {nq / f_s[0]:.0f} q/s, second "
+        f"{f_s[1]:.3f} s = {nq / f_s[1]:.0f} q/s; {sample.size} sampled "
+        f"finds == numpy id sets ({bounds[-1]} pairs), qualities max rel "
+        f"err {worst:.3e} (rtol 1e-4); erase of {first.size} keys took "
+        f"their {erased} pairs in {erase_s:.3f} s [{smi}]")
+    log("P6 phases:\n" + pq.timer.report("P6"))
+    log(f"P6 launches: {p6}")
+    if p6["extract_canonical"] != chunks:
+        raise AssertionError(f"P6: K1 launches != {chunks} chunks")
+    if p6["merge_runs_cols"] < merges or not merges:
+        raise AssertionError(f"P6: K2 launches < {merges} flushes")
+    return p6
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -287,7 +588,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
     from kmerind_tpu_torch import (DNA, DNA16, CountIndex, KmerSpec,
-                                   SortedCountIndex)
+                                   PositionIndex, PositionQualityIndex,
+                                   SortedCountIndex,
+                                   SortedPositionQualityIndex)
     from kmerind_tpu_torch.io import native, read_file, split_records_at_invalid
     from kmerind_tpu_torch.ops import kernels, packing, sortops
     from kmerind_tpu_torch.ops.keys import biased, to_numpy_u32
@@ -384,13 +687,21 @@ def main() -> int:
               KmerSpec(21, DNA))
     del codes, big
 
-    def sorted_run(n):
+    def sorted_run(n, flagged=False):
+        """[2, n] sorted k=21 key columns, 1 % sentinel rows at the tail;
+        flagged: k=32 full words behind a liveness flag column (0 live, 1
+        dead), the flagged multimap flush's [3, n] keys."""
         words = torch.randint(-(2**31), 2**31 - 1, (n, 2), dtype=torch.int32,
                               device=dev, generator=gen)
-        words[:, 1] &= 0x3FF                  # k=21: 10-bit last word
+        if not flagged:
+            words[:, 1] &= 0x3FF              # k=21: 10-bit last word
         valid = torch.rand(n, device=dev, generator=gen) > 0.01
-        return sortops.sort_rows(words, (), valid, sentinel_ok=True,
-                                 as_cols=True)[0]
+        cols, _, s_valid = sortops.sort_rows(words, (), valid,
+                                             sentinel_ok=not flagged,
+                                             as_cols=True)
+        if flagged:
+            cols = torch.cat([(~s_valid).to(torch.int32)[None], cols])
+        return cols
 
     for na, nb, npay in ((CHUNK, CHUNK, 0), (1 << 26, CHUNK, 0),
                          (CHUNK, CHUNK, 1)):
@@ -411,6 +722,33 @@ def main() -> int:
                                  n_out=n_out, w=2, npay=npay),
                packed_sort(a, b))
         del a, b, pa, pb
+
+    # the multimap flushes: a store of 2^26 rows merged with a batch of
+    # 2^24, the id halves and the quality bits riding as 3 payloads; and
+    # the flagged flush (k = 32: a flag column ahead of the 2 key words).
+    # Library call: the stable sort of the 2 key words packed in int64.
+    for flagged in (False, True):
+        na, nb, npay = 1 << 26, 1 << 24, 3
+        a, b = sorted_run(na, flagged), sorted_run(nb, flagged)
+        pa, pb = (tuple(torch.randint(-(2**31), 2**31 - 1, (n,),
+                                      dtype=torch.int32, device=dev,
+                                      generator=gen) for _ in range(npay))
+                  for n in (na, nb))
+        gk, gp = kernels.merge_runs_cols(a, pa, b, pb)
+        wk, wp = kernels.merge_runs_cols_plain(a, pa, b, pb)
+        err = max([err_of(gk, wk)] + [err_of(x, y) for x, y in zip(gp, wp)])
+        w, n_out = gk.shape
+        del gk, gp, wk, wp
+        shape = "flagged flush, w=3 (flag + 2 words)" if flagged else \
+            "multimap flush, w=2"
+        record("merge_runs_cols", f"{na}+{nb} {shape} payloads={npay}",
+               lambda: kernels.merge_runs_cols(a, pa, b, pb),
+               lambda: kernels.merge_runs_cols_plain(a, pa, b, pb),
+               err, kernel_bytes("merge_runs_cols", na=na, nb=nb,
+                                 n_out=n_out, w=w, npay=npay),
+               packed_sort(a[w - 2:], b[w - 2:]))
+        del a, b, pa, pb
+    torch.cuda.empty_cache()
 
     a, b = (sorted_run(CHUNK).t().contiguous() for _ in range(2))
     pa, pb = ((torch.randint(0, 100, (CHUNK,), dtype=torch.int32, device=dev,
@@ -495,8 +833,9 @@ def main() -> int:
         # ------------------------------------------------------------ P3
         t0 = time.perf_counter()
         codes = make_reads(1_000_000, 80_000, seed=1)
+        quals = make_quals(codes, seed=1)
         path = tmp / "p3.fastq"
-        write_fastq(codes, path)
+        write_fastq(codes, quals, path)
         idx = CountIndex(spec, device=dev, max_runs=2)
         batch = split_records_at_invalid(
             read_file(path, DNA), np.fromfile(path, np.uint8), DNA)
@@ -546,14 +885,19 @@ def main() -> int:
             f"chunks, shard sizes {sizes.tolist()} == numpy counter, range "
             f"partitioned by splitters, items_in_range 5000 keys, erase 1000; "
             f"seconds {time.perf_counter() - t0:.2f} [{smi}]")
-        del sidx, batch, want, uniq, keys
+        del sidx, keys
+
+        # ----------------------------------------------------------- P3p
+        phase_p3p(dev, codes, quals, path, batch, want, smi)
+        del batch, want, uniq
 
         # ------------------------------------------------------------ P4
         t0 = time.perf_counter()
         n_reads = GENOME_LEN * COVERAGE // READ_LEN
         codes = make_reads(GENOME_LEN, n_reads, seed=0)
+        quals = make_quals(codes, seed=0)
         path = tmp / "p4.fastq"
-        write_fastq(codes, path)
+        write_fastq(codes, quals, path)
         n_windows = n_reads * (READ_LEN - K + 1)
         log(f"P4 data: {n_reads} reads, {codes.size} bases, "
             f"{path.stat().st_size} bytes FASTQ, {n_windows} windows; "
@@ -567,7 +911,9 @@ def main() -> int:
         qcodes[qcodes == 4] = 0               # DNA encodes N as A
         queries = pack_rows(qcodes)
         t0 = time.perf_counter()
-        want_counts = expected_counts(codes, qcodes)
+        canon_all = window_codes(codes)
+        sorted_codes = np.sort(canon_all, axis=None)
+        want_counts = expected_counts(sorted_codes, qcodes)
         log(f"P4 numpy reference counts: "
             f"{time.perf_counter() - t0:.2f} s [{smi}]")
 
@@ -670,16 +1016,24 @@ def main() -> int:
         if not p5["extract_canonical"] == p5["run_length_weights"] == chunks:
             raise AssertionError(f"P5: K1 / K4 launches != {chunks} chunks")
         del sidx
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------------------ P6
+        launches["P6"] = phase_p6(dev, path, quals, qcodes, queries,
+                                  canon_all, want_counts, smi)
+        del canon_all, sorted_codes
 
     log(f"total seconds {time.perf_counter() - t_all:.2f} [{smi}]")
     entries = []
     for kname, (src, replaces) in kernels.KERNELS.items():
-        # main-path launches (P4 + P5); K2′ is on no index's path: P2's
+        # main-path launches (P4 + P5 + P6, and per run); K2′ is on no
+        # index's path: P2's
+        by_run = {r: launches[r][kname] for r in ("P4", "P5", "P6")}
         n = (k2r_launches if kname == "merge_sorted_runs"
-             else launches["P4"][kname] + launches["P5"][kname])
+             else sum(by_run.values()))
         entries.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
-                        **results[kname]})
+                        "launches_by_run": by_run, **results[kname]})
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

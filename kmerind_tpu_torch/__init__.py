@@ -9,18 +9,25 @@ Hopper (``ops/csrc``).  It mirrors the JAX package's module layout:
 * ``ops``      — k-mer extraction, sort/merge/search, the CUDA kernels;
 * ``parallel`` — owner exchange and sample sort over p shards stacked on
   one device;
-* ``index``    — count stores and the `CountIndex` (hash, one shard) and
-  `SortedCountIndex` (range-partitioned, p shards) APIs.
+* ``index``    — count and multimap stores and the indexes: `CountIndex`,
+  `PositionIndex`, `PositionQualityIndex` (hash-partitioned) and
+  `SortedCountIndex`, `SortedPositionIndex`, `SortedPositionQualityIndex`
+  (range-partitioned), each over p shards stacked on one device;
+* ``quality``  — the phred codec and windowed k-mer quality.
 
-Every tensor function runs on the device its inputs live on; the index
-takes an explicit ``device``.  Nothing here imports JAX.
+Every tensor function runs on the device its inputs live on; an index
+lives on ``device="cuda"`` unless the caller names another (the tests pass
+"cpu").  Nothing here imports JAX.
 """
 
 from . import alphabets
 from .alphabets import ASCII, DNA, DNA5, DNA6, DNA16, DNA_IUPAC, RNA, RNA5, RNA6
-from .index.api import CountIndex
-from .index.sorted_api import SortedCountIndex
+from .index.api import CountIndex, PositionIndex, PositionQualityIndex
+from .index.sorted_api import (SortedCountIndex, SortedPositionIndex,
+                               SortedPositionQualityIndex)
 from .kmer import KmerSpec
 
-__all__ = ["alphabets", "KmerSpec", "CountIndex", "SortedCountIndex", "DNA", "DNA5", "DNA6",
-           "DNA16", "DNA_IUPAC", "RNA", "RNA5", "RNA6", "ASCII"]
+__all__ = ["alphabets", "KmerSpec", "CountIndex", "PositionIndex",
+           "PositionQualityIndex", "SortedCountIndex", "SortedPositionIndex",
+           "SortedPositionQualityIndex", "DNA", "DNA5", "DNA6", "DNA16",
+           "DNA_IUPAC", "RNA", "RNA5", "RNA6", "ASCII"]

@@ -3,8 +3,8 @@ input path of every index.
 
 The port of ``kmerind_tpu.index.api`` (the reference's
 ``bliss::index::kmer::Index`` presets, src/index/kmer_index.hpp:98-411).
-An index lives on the one `device` the caller names (no auto-selection),
-as `nparts` shards stacked on it; `CountIndex` has one shard so far.
+An index lives on one `device` ("cuda" unless the caller names another),
+as `nparts` hash-partitioned shards stacked on it.
 
 Host-side responsibilities (this file): parsing files, cutting the base
 stream into fixed-shape chunks with a k-1 halo and each chunk into one
@@ -17,6 +17,8 @@ Device work is in ``distributed.py`` / ``store.py``.
 from __future__ import annotations
 
 import concurrent.futures
+import math
+import sys
 
 import numpy as np
 import torch
@@ -27,12 +29,13 @@ from ..io.files import (file_size, read_fasta_block, read_fastq_block,
 from ..io.kmer_parsers import DeviceBases, transform_name
 from ..kmer import KmerSpec
 from ..ops import bitops, packing
+from ..quality import ILLUMINA18
 from ..ops.keys import from_numpy_u32, to_numpy_u32
 from ..utils.timers import PhaseTimer
 from . import distributed as dx
 from . import store as st
 
-__all__ = ["CountIndex"]
+__all__ = ["CountIndex", "PositionIndex", "PositionQualityIndex"]
 
 
 def _next_pow2(n: int) -> int:
@@ -47,8 +50,19 @@ class _IndexBase:
     default_chunk_bases = 1 << 23
     #: files above this size build by streaming byte blocks (build_stream)
     stream_threshold_bytes = 64 << 20
+    #: exchange bucket headroom over an even split: the reference's
+    #: all2allv ships exact per-destination counts
+    #: (incremental_mxx.hpp:1087-1098); the dense exchange sizes buckets
+    #: ~n/p and retries larger on overflow
+    fill_factor = 1.6
+    #: position-id kind the marshal adds to each chunk ("short" / "long"),
+    #: None for indexes that store no ids
+    id_kind = None
+    #: the index stores each window's quality: the marshal copies the
+    #: phred bytes to the device
+    with_quality = False
 
-    def __init__(self, spec: KmerSpec, device, canonical=True,
+    def __init__(self, spec: KmerSpec, device="cuda", canonical=True,
                  nparts: int = 1, timer: PhaseTimer | None = None):
         if nparts < 1:
             raise ValueError(f"nparts must be >= 1, got {nparts}")
@@ -59,6 +73,7 @@ class _IndexBase:
         transform_name(canonical)  # rejects transforms not ported yet
         self.timer = timer if timer is not None else PhaseTimer()
         self._marshal_pool: dict = {}
+        self._ids_pool: dict = {}
 
     # -- input marshalling -------------------------------------------------
     def _to_words(self, kmers) -> np.ndarray:
@@ -102,15 +117,86 @@ class _IndexBase:
 
         return [put(a) for a in (rows, *extra)], valid.reshape(p, mq), m
 
-    def _marshal_bufs(self, pad_to: int) -> dict:
+    def _bucket_capacity(self, n_per_shard: int) -> int:
+        """Exchange bucket capacity per (source, destination) shard pair
+        for n_per_shard routed rows."""
+        return _next_pow2(int(math.ceil(n_per_shard / self.nparts
+                                        * self.fill_factor)))
+
+    def _route_rows(self, step, words: torch.Tensor, extra=()):
+        """Deal query rows over the shards and run step(row tensors...,
+        valid, capacity) -> (*outputs, overflow), doubling the bucket
+        capacity until no bucket overflows.  Returns (outputs, m)."""
+        shards, vsh, m = self._shard_rows(words, extra)
+        cap = self._bucket_capacity(shards[0].shape[1])
+        while True:
+            *out, ovf = step(*shards, vsh, cap)
+            if ovf == 0:
+                return out, m
+            cap *= 2
+
+    def _marshal_sources(self, batch: ReadBatch) -> list:
+        """(name, per-base source column, pad fill) of each column this
+        index copies to the device: ids and phred bytes only where the
+        index stores them."""
+        srcs = [("codes", batch.codes, 0), ("valid", batch.valid, False),
+                ("seg_id", batch.seg_id, -1), ("owned", batch.owned, False)]
+        if self.id_kind is not None:
+            ids = self._pooled_ids(batch)
+            if sys.byteorder == "little":
+                # zero-copy u64 -> (hi, lo) int32 halves
+                halves = ids.view(np.int32).reshape(-1, 2)
+                hi, lo = halves[:, 1], halves[:, 0]
+            else:
+                hi = (ids >> np.uint64(32)).astype(np.uint32).view(np.int32)
+                lo = ids.astype(np.uint32).view(np.int32)
+            srcs += [("id_hi", hi, 0), ("id_lo", lo, 0)]
+        if self.with_quality:
+            srcs.append(("qual", batch.qual, 0))
+        return srcs
+
+    def _pooled_ids(self, batch: ReadBatch) -> np.ndarray:
+        """uint64[n] position ids of the batch (`ReadBatch.ids`) computed in
+        place into a pooled buffer: the JAX package measured the fresh
+        temporaries of `ReadBatch.ids` at ~30x the in-place cost."""
+        n = batch.num_bases
+        bufs = self._ids_pool.get(n)
+        if bufs is None:
+            bufs = self._ids_pool[n] = (np.empty(n, np.uint64),
+                                        np.empty(n, np.uint64))
+        out, tmp = bufs
+        if batch.num_records == 0:
+            out[:] = 0
+            return out
+        pos40 = np.uint64((1 << 40) - 1)
+        if self.id_kind == "short":
+            # fid << 56 | (record_start & POS40) << 16 | offset16
+            np.take(batch.record_start, batch.seg_id, out=out)
+            out &= pos40
+            out <<= np.uint64(16)
+            np.copyto(tmp, batch.offset_in_record, casting="unsafe")
+            tmp &= np.uint64(0xFFFF)
+            out |= tmp
+        else:
+            # long: fid << 56 | seq_index << 40 | (global_pos & POS40)
+            np.copyto(out, batch.global_pos)
+            out &= pos40
+            np.take(batch.seq_index.astype(np.uint64), batch.seg_id, out=tmp)
+            tmp <<= np.uint64(40)
+            out |= tmp
+        np.take(batch.file_id.astype(np.uint64), batch.seg_id, out=tmp)
+        tmp <<= np.uint64(56)
+        out |= tmp
+        return out
+
+    def _marshal_bufs(self, pad_to: int, layout: tuple) -> dict:
         """Pooled host buffers [p, pad_to] for one chunk's per-base columns,
         alternating between two generations: the worker fills one while
         the main thread copies the other to the device."""
-        gens = self._marshal_pool.get(pad_to)
+        key = (pad_to, layout)
+        gens = self._marshal_pool.get(key)
         if gens is None:
-            layout = (("codes", np.uint8), ("valid", bool), ("owned", bool),
-                      ("seg_id", np.int32))
-            gens = self._marshal_pool[pad_to] = [
+            gens = self._marshal_pool[key] = [
                 [{nm: np.empty((self.nparts, pad_to), dt)
                   for nm, dt in layout} for _ in range(2)], 0]
         gens[1] ^= 1
@@ -128,13 +214,15 @@ class _IndexBase:
             p, n = self.nparts, batch.num_bases
             halo = self.spec.k - 1
             owned = -(-n // p)
-            bufs = self._marshal_bufs(owned + (halo if p > 1 else 0))
+            srcs = self._marshal_sources(batch)
+            bufs = self._marshal_bufs(
+                owned + (halo if p > 1 else 0),
+                tuple((nm, a.dtype) for nm, a, _ in srcs))
             for s in range(p):
                 lo = min(s * owned, n)
                 ln = min(lo + owned + halo, n) - lo
-                for nm, fill in (("codes", 0), ("valid", False),
-                                 ("seg_id", -1), ("owned", False)):
-                    bufs[nm][s, :ln] = getattr(batch, nm)[lo:lo + ln]
+                for nm, src, fill in srcs:
+                    bufs[nm][s, :ln] = src[lo:lo + ln]
                     bufs[nm][s, ln:] = fill
                 bufs["owned"][s, owned:] = False
             return bufs
@@ -142,11 +230,11 @@ class _IndexBase:
     def _to_device(self, cols: dict) -> DeviceBases:
         """Synchronous host-to-device copies (main thread) of [p, L]
         columns: the pooled buffer is rewritten two chunks later, so the
-        copy must have read it by the time this returns."""
-        put = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
-        return DeviceBases(codes=put(cols["codes"]), valid=put(cols["valid"]),
-                           owned=put(cols["owned"]),
-                           seg_id=put(cols["seg_id"]))
+        copy must have read it by the time this returns — and must be a
+        copy on the CPU too, where the multimaps keep the id columns."""
+        return DeviceBases(**{nm: torch.from_numpy(a).to(self.device,
+                                                         copy=True)
+                              for nm, a in cols.items()})
 
     def _stream_chunks_iter(self, it, marshal, consume):
         """Double-buffered streaming over a lazy chunk iterator: the worker
@@ -242,19 +330,22 @@ class _IndexBase:
 
 class CountIndex(_IndexBase):
     """k-mer -> count index (CountIndex preset, kmer_index.hpp:409-411;
-    counting_densehash_map semantics) on one device.
+    counting_densehash_map semantics) over `nparts` hash-partitioned shards
+    stacked on one device: key q lives on shard
+    ``owner_from_hash(HASHES[hash_name](q), p)``.
 
-    The store is a SMALL LIST of sorted runs (`store.RunCountStore`) —
-    log-structured-merge discipline.  Each ingested chunk lands as one
-    sorted UNIT run; the index is queryable at once (count visits every run
-    and sums), and the two smallest runs merge (K2) whenever the list
-    exceeds `max_runs`.  size(), items() and compact() consolidate to one
-    run first; compaction (run_compact, whose prefix sum is K3) collapses
+    Each shard's store is a SMALL LIST of sorted runs
+    (`store.RunCountStore`, stacked [p, ...]) — log-structured-merge
+    discipline.  Each ingested chunk lands as one sorted UNIT run per
+    shard; the index is queryable at once (count visits every run and
+    sums), and the two smallest runs merge (K2) whenever the list exceeds
+    `max_runs`.  size(), items() and compact() consolidate to one run
+    first; compaction (run_compact, whose prefix sum is K3) collapses
     duplicate rows when they dominate.
 
     Example::
 
-        idx = CountIndex(KmerSpec(21, DNA), device="cuda")
+        idx = CountIndex(KmerSpec(21, DNA))       # on the CUDA device
         idx.build("reads.fastq")
         idx.count(["ACGTACGTACGTACGTACGTA"])
     """
@@ -262,19 +353,17 @@ class CountIndex(_IndexBase):
     #: weight budget before a pressure check: headroom under int32 max
     _I32_WEIGHT_GUARD = (1 << 31) - (1 << 26)
 
-    def __init__(self, spec: KmerSpec, device, canonical=True,
+    def __init__(self, spec: KmerSpec, device="cuda", canonical=True,
                  initial_capacity: int = 1 << 12, max_runs: int = 8,
-                 nparts: int = 1, timer: PhaseTimer | None = None):
-        if nparts != 1:
-            raise NotImplementedError(
-                "CountIndex with nparts > 1 needs owner hashing, not ported "
-                "yet: ROADMAP queue 1, item 4 (SortedCountIndex takes "
-                "nparts > 1)")
+                 nparts: int = 1, hash_name: str = "murmur",
+                 timer: PhaseTimer | None = None):
         super().__init__(spec, device, canonical, nparts, timer)
+        self.hash_name = hash_name
         self.initial_capacity = initial_capacity
         self.max_runs = max_runs
-        self.runs = [st.empty_run_count_store(initial_capacity, spec.nwords,
-                                              self.device)]
+        self.runs = [st.stack_run_stores(
+            [st.empty_run_count_store(initial_capacity, spec.nwords,
+                                      self.device)] * nparts)]
         #: per-run flag: every live row has weight 1 and sentinels mark
         #: exactly the dead tail (file-ingest output) — such pairs merge
         #: keys-only (st.run_merge_unit).  Only sentinel-safe specs.
@@ -283,22 +372,29 @@ class CountIndex(_IndexBase):
         self._virgin = True
         #: compact when capacity >= compact_factor * next_pow2(2*distinct)
         self.compact_factor = 4
-        #: upper bound on the raw weight total: the int32 prefix sums
-        #: would wrap past 2^31 (see _note_weight)
+        #: upper bound on any shard's raw weight total: the int32 prefix
+        #: sums would wrap past 2^31 (see _note_weight)
         self._ingested_weight = 0
         self._aux_cache: list = []
 
     # ------------------------------------------------------------------
     @property
     def capacity(self) -> int:
+        """Rows per shard over all runs."""
         return sum(r.capacity for r in self.runs)
 
-    def _distinct(self) -> int:
+    def _distinct(self) -> list[int]:
+        """Distinct live keys per shard (one consolidated run)."""
         assert len(self.runs) == 1
         return dx.run_stats_step(self.runs[0])
 
     def size(self) -> int:
         """Distinct-key count (dsc::map_base::size)."""
+        return sum(self.local_sizes())
+
+    def local_sizes(self) -> list[int]:
+        """Distinct keys per shard, in shard order (as `items` lists
+        them)."""
         self._consolidate()
         return self._distinct()
 
@@ -314,13 +410,19 @@ class CountIndex(_IndexBase):
         self._unit.append(ua and ub)
         self._drop_stale_aux()
 
+    def _shard_weight(self) -> int:
+        """The largest shard's raw weight total over all runs."""
+        return int(sum(r.csum[:, -1].to(torch.int64)
+                       for r in self.runs).max())
+
     def _note_weight(self, add: int):
         """Account `add` incoming weight against the int32 prefix-sum
-        budget; on pressure, tighten the bound from the true run totals and
-        raise before the sums can wrap (the reference's uint32 counts
-        overflow silently at 2^32)."""
+        budget of the fullest shard (the bound assumes every row may land
+        on one shard); on pressure, tighten the bound from the true run
+        totals and raise before the sums can wrap (the reference's uint32
+        counts overflow silently at 2^32)."""
         if self._ingested_weight + add > self._I32_WEIGHT_GUARD:
-            self._ingested_weight = sum(int(r.csum[-1]) for r in self.runs)
+            self._ingested_weight = self._shard_weight()
             if self._ingested_weight + add > (1 << 31) - 1:
                 raise OverflowError(
                     "count index raw weight total would overflow the int32 "
@@ -339,14 +441,14 @@ class CountIndex(_IndexBase):
             self._merge_two_smallest()
 
     def adopt_runs(self, runs: list):
-        """Replace the contents by already-built runs whose weights may be
-        anything (e.g. converted from another index, `convert.py`); the
-        LSM bound then applies."""
+        """Replace the contents by already-built stacked runs ([p, ...],
+        p = nparts) whose weights may be anything (e.g. converted from
+        another index, `convert.py`); the LSM bound then applies."""
         if not runs:
             return self
         self.runs, self._virgin = list(runs), False
         self._unit = [False] * len(self.runs)
-        self._ingested_weight = sum(int(r.csum[-1]) for r in self.runs)
+        self._ingested_weight = self._shard_weight()
         while len(self.runs) > self.max_runs:
             self._merge_two_smallest()
         return self
@@ -365,18 +467,18 @@ class CountIndex(_IndexBase):
         cap = self.capacity
         if len(self.runs) != 1 or cap <= (1 << 14):
             return
-        target = _next_pow2(max(2 * self._distinct(), 1 << 12))
+        target = _next_pow2(max(2 * max(self._distinct()), 1 << 12))
         if cap >= self.compact_factor * target:
             self.compact(target)
 
     def compact(self, new_cap: int | None = None):
         """Consolidate to one run, collapse every key's rows to one
-        (key, count) row, and shrink capacity to new_cap (default:
-        next_pow2(2 * distinct))."""
+        (key, count) row, and shrink each shard's capacity to new_cap
+        (default: next_pow2(2 * the largest shard's distinct count))."""
         while len(self.runs) > 1:
             self._merge_two_smallest()
         if new_cap is None:
-            new_cap = _next_pow2(max(2 * self._distinct(), 16))
+            new_cap = _next_pow2(max(2 * max(self._distinct()), 16))
         while True:
             with self.timer.phase("compact"):
                 new_store, ovf = dx.run_compact_step(self.runs[0], new_cap)
@@ -388,11 +490,17 @@ class CountIndex(_IndexBase):
 
     # ------------------------------------------------------------------
     def _insert_cols(self, cols: dict):
+        bases = self._to_device(cols)
+        cap = self._bucket_capacity(bases.codes.shape[1])
         with self.timer.phase("insert"):
-            bases = self._to_device(cols).shard(0)
-            rw, rwt = dx.run_ingest_step(bases, self.spec, self.canonical,
-                                         self.nparts)
-        # a chunk's weight is at most its window count
+            while True:
+                rw, rwt, ovf = dx.run_ingest_step(
+                    bases, self.spec, self.canonical, self.nparts, cap,
+                    self.hash_name)
+                if ovf == 0:
+                    break
+                cap = _next_pow2(cap + ovf)
+        # a shard's share of a chunk is at most the rows it received
         self._note_weight(rw.shape[-1])
         self._append_run(rw, rwt, unit=True)
         return self
@@ -405,8 +513,9 @@ class CountIndex(_IndexBase):
                            if any(r is x for x in self.runs)]
 
     def _ensure_aux(self) -> list:
-        """Per-run query-aux metadata cached by run IDENTITY: any mutation
-        replaces the run objects, so a stale entry cannot be hit."""
+        """Per-run, per-shard query-aux metadata cached by run IDENTITY:
+        any mutation replaces the run objects, so a stale entry cannot be
+        hit."""
         out = []
         for r in self.runs:
             hit = next((a for rr, a in self._aux_cache if rr is r), None)
@@ -420,17 +529,24 @@ class CountIndex(_IndexBase):
         words = self._query_words(kmers)
         aux = self._ensure_aux()
         with self.timer.phase("count"):
-            counts = dx.runs_count_query_step(words, aux, self.nparts)
-            return counts.cpu().numpy()
+            (counts,), m = self._route_rows(
+                lambda q, v, cap: dx.runs_count_query_step(
+                    q, v, aux, self.nparts, cap, self.hash_name), words)
+            return counts.reshape(-1)[:m].cpu().numpy()
 
     def items(self) -> tuple[np.ndarray, np.ndarray]:
-        """(words uint32[t, w], counts int64[t]) — every distinct live entry
-        in key order (to_vector analog, distributed_map_base.hpp:202-217)."""
+        """(words uint32[t, w], counts int64[t]) — every distinct live entry,
+        shard by shard, each shard in key order (to_vector analog,
+        distributed_map_base.hpp:202-217)."""
         self._consolidate()
-        _, is_last, total = st.run_totals(self.runs[0])
-        emit = is_last & (total > 0)
-        rows = to_numpy_u32(self.runs[0].keys[:, emit].t())
-        return rows, total[emit].cpu().numpy().astype(np.int64)
+        rows, cnts = [], []
+        for s in range(self.nparts):
+            run = self.runs[0].shard(s)
+            _, is_last, total = st.run_totals(run)
+            emit = is_last & (total > 0)
+            rows.append(to_numpy_u32(run.keys[:, emit].t()))
+            cnts.append(total[emit].cpu().numpy().astype(np.int64))
+        return np.concatenate(rows), np.concatenate(cnts)
 
     def to_dict(self) -> dict[int, int]:
         """Full contents as {kmer_int: count} (host-side; tests/tools)."""
@@ -438,3 +554,283 @@ class CountIndex(_IndexBase):
         if rows.shape[0] == 0:
             return {}
         return dict(zip(self.spec.to_ints(rows).tolist(), cnts.tolist()))
+
+
+# ------------------------------------------------------------------ multimaps
+def _not_ported(what: str, item: str):
+    def fn(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"the multimap's {what} is not ported yet: ROADMAP queue 1, "
+            f"item {item}")
+    return fn
+
+
+class _MultimapSurfaceMixin:
+    """The Index surface (kmer_index.hpp:142-201) of the multimaps, shared
+    by the hash-partitioned PositionIndex and the range-partitioned
+    SortedPositionIndex.  A class provides `store` (a stacked
+    `store.MultiStore`), `_flush`, `_insert_pairs` and `_owners` (the
+    shard that owns each key row: the hash, or the splitters)."""
+
+    def _init_multimap(self, id_kind: str, initial_capacity: int, codec):
+        if id_kind not in ("short", "long"):
+            raise ValueError(f"unknown id kind {id_kind!r}")
+        self.id_kind = id_kind
+        self.codec = codec if codec is not None else ILLUMINA18
+        self.store = st.stack_multi_stores(
+            [st.empty_multi_store(initial_capacity, self.spec.nwords,
+                                  self.device)] * self.nparts)
+        self._pending: list = []
+        self._pending_rows = 0
+        #: the store's val_q column is live: a quality index, or quals
+        #: given to insert() (kept; the JAX PositionIndex drops them at its
+        #: next flush, ROADMAP queue 3)
+        self._has_q = self.with_quality
+        self._aux_cache = None
+
+    @property
+    def capacity(self) -> int:
+        """Rows per shard."""
+        return self.store.capacity
+
+    def size(self) -> int:
+        """Total number of (k-mer, position) pairs."""
+        self._flush()
+        return int(self.store.size.sum())
+
+    def unique_size(self) -> int:
+        """Distinct keys (map_base::unique_size)."""
+        self._flush()
+        return dx.unique_size_step(self.store)
+
+    def insert(self, kmers, ids, quals=None):
+        """Insert explicit (k-mer, position id[, quality]) pairs — the
+        multimap insert of (key, T) tuples (densehash_multimap insert,
+        distributed_densehash_map.hpp:2067+; sorted_multimap,
+        distributed_sorted_map.hpp:2333+).  ids: uint64 position ids;
+        quals: float32 per pair (0 when None)."""
+        words = self._query_words(kmers)
+        ids = np.asarray(ids, dtype=np.uint64).reshape(-1)
+        if ids.shape[0] != words.shape[0]:
+            raise ValueError("kmers and ids length mismatch")
+        q = (np.zeros(ids.shape[0], np.float32) if quals is None
+             else np.asarray(quals, np.float32).reshape(-1))
+        self._has_q |= quals is not None
+        def put(a):
+            return torch.from_numpy(a).to(self.device)
+        halves = ((ids >> np.uint64(32)).astype(np.uint32),
+                  ids.astype(np.uint32))
+        return self._insert_pairs(words, *(put(h.view(np.int32))
+                                           for h in halves), put(q))
+
+    def _ensure_aux(self) -> list:
+        """Per-shard query-aux metadata (store.multi_query_aux), cached by
+        store IDENTITY: every mutation replaces the store object, so a
+        stale entry cannot be hit."""
+        if self._aux_cache is None or self._aux_cache[0] is not self.store:
+            self._aux_cache = (self.store, dx.multi_aux_step(self.store))
+        return self._aux_cache[1]
+
+    def count(self, kmers) -> np.ndarray:
+        """int32[m] multiplicity per query (get_multiplicity / count on the
+        multimap)."""
+        words = self._query_words(kmers)
+        self._flush()
+        aux = self._ensure_aux()
+        with self.timer.phase("count"):
+            (counts,), m = self._route_rows(
+                lambda w, v, cap: dx.multi_count_routed(
+                    self.store, aux, w, v, self._owners(w), self.nparts, cap),
+                words)
+            return counts.reshape(-1)[:m].to(torch.int32).cpu().numpy()
+
+    get_multiplicity = count
+
+    def find(self, kmers, max_per_query: int = 64,
+             with_quality: bool = False, grow_to_fit: bool = True):
+        """Per-query position-id lists: (ids uint64[m, width],
+        mask bool[m, width]), with float32 qualities [m, width] between
+        them when `with_quality`.
+
+        The gather width starts at max_per_query; with grow_to_fit (the
+        default) a query whose multiplicity exceeds it reruns at the next
+        power of two above the largest, so nothing is cut (the reference's
+        find returns every pair, distributed_densehash_map.hpp:328-420).
+        With grow_to_fit=False the lists are cut at max_per_query and the
+        true multiplicities int32[m] come last: counts[i] > mask[i].sum()
+        means query i lost pairs."""
+        words = self._query_words(kmers)
+        self._flush()
+        aux = self._ensure_aux()
+        while True:
+            with self.timer.phase("find"):
+                (hi, lo, q, mask, nfound), m = self._route_rows(
+                    lambda w, v, cap: dx.multi_find_routed(
+                        self.store, aux, w, v, self._owners(w), self.nparts,
+                        cap, max_per_query), words)
+                counts = nfound.reshape(-1)[:m].to(torch.int32).cpu().numpy()
+            worst = int(counts.max()) if m else 0
+            if grow_to_fit and worst > max_per_query:
+                max_per_query = _next_pow2(worst)
+                continue
+            rows = lambda t: t.reshape(-1, max_per_query)[:m]  # noqa: E731
+            ids = ((to_numpy_u32(rows(hi)).astype(np.uint64) << np.uint64(32))
+                   | to_numpy_u32(rows(lo)).astype(np.uint64))
+            out = (ids,) + ((rows(q).cpu().numpy(),) if with_quality else ())
+            out += (rows(mask).to(torch.bool).cpu().numpy(),)
+            return out if grow_to_fit else out + (counts,)
+
+    def erase(self, kmers) -> int:
+        """Remove ALL pairs whose key matches a query k-mer; returns the
+        number of erased pairs (Index::erase, kmer_index.hpp:148)."""
+        words = self._query_words(kmers)
+        self._flush()
+        aux = self._ensure_aux()
+        (store, nerased), _ = self._route_rows(
+            lambda w, v, cap: dx.multi_erase_routed(
+                self.store, aux, w, v, self._owners(w), self.nparts, cap),
+            words)
+        self.store = store
+        return nerased
+
+    def pairs(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(kmer ints, position ids uint64, qualities float32) of every
+        stored pair, shard by shard, each shard in key order — the
+        vectorized host export behind `to_dict`."""
+        self._flush()
+        keys, hi, lo = (to_numpy_u32(t) for t in (
+            self.store.keys, self.store.val_hi, self.store.val_lo))
+        q = self.store.val_q.cpu().numpy()
+        sizes = self.store.size.cpu().numpy().tolist()
+        rows = np.concatenate([keys[s][:, :n].T for s, n in enumerate(sizes)])
+        take = lambda a: np.concatenate(  # noqa: E731
+            [a[s, :n] for s, n in enumerate(sizes)])
+        ids = ((take(hi).astype(np.uint64) << np.uint64(32))
+               | take(lo).astype(np.uint64))
+        return self.spec.to_ints(rows), ids, take(q)
+
+    def to_dict(self) -> dict:
+        """Full contents: {kmer_int: sorted position ids}, or with quality
+        {kmer_int: sorted [(position id, quality), ...]} (tests/tools)."""
+        ints, ids, qs = self.pairs()
+        vals = (zip(ids.tolist(), qs.tolist()) if self.with_quality
+                else ids.tolist())
+        out: dict = {}
+        for v, val in zip(ints.tolist(), vals):
+            out.setdefault(v, []).append(val)
+        return {k: sorted(v) for k, v in out.items()}
+
+    erase_if = _not_ported("erase_if", "10 (predicates)")
+    filter = _not_ported("filter", "10 (predicates)")
+    count_if = _not_ported("count_if", "10 (predicates)")
+    find_if = _not_ported("find_if", "10 (predicates)")
+    save = _not_ported("save", "10 (checkpoint)")
+    load = classmethod(_not_ported("load", "10 (checkpoint)"))
+
+
+class PositionIndex(_MultimapSurfaceMixin, _IndexBase):
+    """k-mer -> position ids multimap (PositionIndex preset,
+    kmer_index.hpp:399-404; densehash_multimap semantics) over `nparts`
+    hash-partitioned shards stacked on one device.
+
+    Ingested chunks wait as pending owner-resident tuples; once
+    `flush_rows` rows wait, and before any query, `_flush` sorts them and
+    merges them into each shard's sorted store (K2, with the id halves —
+    and the quality — as payloads).
+
+    id_kind: "short" (FASTQ reads, ShortSequenceKmerId) or "long" (FASTA,
+    LongSequenceKmerId), as the reference's parser presets choose
+    (kmer_parser.hpp:304+).
+
+    Example::
+
+        idx = PositionIndex(KmerSpec(21, DNA))    # on the CUDA device
+        idx.build("reads.fastq")
+        ids, mask = idx.find(["ACGTACGTACGTACGTACGTA"])
+    """
+
+    def __init__(self, spec: KmerSpec, device="cuda", canonical=False,
+                 nparts: int = 1, hash_name: str = "murmur",
+                 id_kind: str = "short", initial_capacity: int = 1 << 12,
+                 codec=None, timer: PhaseTimer | None = None):
+        super().__init__(spec, device, canonical, nparts, timer)
+        self.hash_name = hash_name
+        self._init_multimap(id_kind, initial_capacity, codec)
+        #: pending rows that trigger a flush while building
+        self.flush_rows = 1 << 24
+
+    def _flush(self):
+        """Merge every pending tuple into the store, growing each shard's
+        capacity to fit (next power of two)."""
+        if not self._pending:
+            return
+        words, hi, lo, q, valid = dx.concat_pending(self._pending,
+                                                    self._has_q)
+        self._pending, self._pending_rows = [], 0
+        need = int((self.store.size + valid.sum(dim=1)).max())
+        if need > self.capacity:
+            self._grow(_next_pow2(need))
+        with self.timer.phase("merge"):
+            while True:
+                store, ovf = dx.multi_merge_step(
+                    self.store, words, hi, lo, q, valid,
+                    self.spec.sentinel_safe)
+                if ovf == 0:
+                    self.store = store
+                    return
+                self._grow(_next_pow2(self.capacity + ovf))
+
+    def _grow(self, new_cap: int):
+        self.store = st.multi_grow(self.store, new_cap)
+
+    def _insert_cols(self, cols: dict):
+        bases = self._to_device(cols)
+        cap = self._bucket_capacity(bases.codes.shape[1])
+        with self.timer.phase("insert"):
+            while True:
+                *tup, ovf = dx.multi_ingest_step(
+                    bases, self.spec, self.canonical, self.nparts, cap,
+                    self.hash_name, self.with_quality, self.codec)
+                if ovf == 0:
+                    break
+                cap = _next_pow2(cap + ovf)
+        self._pending.append(tuple(tup))
+        self._pending_rows += tup[0].shape[1]
+        if self._pending_rows >= self.flush_rows:
+            self._flush()
+        return self
+
+    def _insert_pairs(self, words, val_hi, val_lo, val_q):
+        """Insert explicit (key, id halves, quality) device rows through the
+        owner exchange and one sort per shard."""
+        self._flush()
+        need = -(-(self.size() + words.shape[0]) // self.nparts)
+        if need > self.capacity:
+            self._grow(_next_pow2(need))
+        (wsh, hsh, lsh, qsh), vsh, _ = self._shard_rows(
+            words, extra=(val_hi, val_lo, val_q))
+        cap = self._bucket_capacity(wsh.shape[1])
+        while True:
+            store, route_ovf, store_ovf = dx.multi_insert_step(
+                self.store, wsh, hsh, lsh, qsh, vsh, self.nparts, cap,
+                self.hash_name)
+            if route_ovf == 0 and store_ovf == 0:
+                self.store = store
+                return self
+            cap *= 2
+            if store_ovf:
+                self._grow(self.capacity * 2)
+
+    def _owners(self, words):
+        """Owner shard per key row (KeyToRank)."""
+        return dx.owners_for(words, self.nparts, self.hash_name)
+
+
+class PositionQualityIndex(PositionIndex):
+    """k-mer -> (position id, windowed quality) multimap — the
+    PositionQualityIndex preset (kmer_index.hpp:406;
+    KmerPositionQualityTupleParser, kmer_parser.hpp:578+).  Each window's
+    quality is `quality.window_quality` of its phred bytes under `codec`;
+    find(..., with_quality=True) returns (ids, qualities, mask)."""
+
+    with_quality = True

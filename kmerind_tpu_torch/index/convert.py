@@ -4,10 +4,16 @@
   its count index over a mesh: each run is a ``RunCountStore`` with a
   leading shard axis.  Sharding does not change counts (every key lives on
   one shard), so one port run per (JAX run, shard) holds the same rows and
-  answers the same queries on one device.
+  answers the same queries in one shard.
 * A JAX SortedCountIndex's store and splitters -> a port SortedCountIndex
   of as many shards, stacked on one device: the same rows on the same
   shards, routed by the same splitters.
+* A JAX PositionIndex / PositionQualityIndex / SortedPositionIndex state
+  -> the port's index of the same kind and as many shards: the same pairs
+  on the same shards, routed by the same owner hash (digest-equal, see
+  ``ops/hashing.py``) or the same splitters.
+
+Every function takes the state as numpy arrays.
 """
 
 from __future__ import annotations
@@ -17,16 +23,19 @@ import torch
 
 from ..kmer import KmerSpec
 from ..ops.keys import from_numpy_u32
-from .api import CountIndex
-from .sorted_api import SortedCountIndex
-from .store import CountStore, RunCountStore
+from .api import CountIndex, PositionIndex, PositionQualityIndex
+from .sorted_api import (SortedCountIndex, SortedPositionIndex,
+                         SortedPositionQualityIndex)
+from .store import CountStore, MultiStore, RunCountStore, stack_run_stores
 
-__all__ = ["count_index_from_runs", "sorted_count_index_from_state"]
+__all__ = ["count_index_from_runs", "sorted_count_index_from_state",
+           "position_index_from_state", "sorted_position_index_from_state"]
 
 
-def count_index_from_runs(runs, spec: KmerSpec, device, canonical=True,
-                          max_runs: int = 8) -> CountIndex:
-    """Port CountIndex holding the rows of a JAX count index's runs.
+def count_index_from_runs(runs, spec: KmerSpec, device="cuda",
+                          canonical=True, max_runs: int = 8) -> CountIndex:
+    """Port CountIndex (one shard) holding the rows of a JAX count index's
+    runs.
 
     runs: iterable of (keys uint32[p, w, cap], weights int32[p, cap],
     csum int32[p, cap + 1]) numpy arrays — ``np.asarray`` of each JAX
@@ -36,19 +45,20 @@ def count_index_from_runs(runs, spec: KmerSpec, device, canonical=True,
     for keys, weights, csum in runs:
         keys = np.asarray(keys, dtype=np.uint32)
         for s in range(keys.shape[0]):
-            stores.append(RunCountStore(
+            stores.append(stack_run_stores([RunCountStore(
                 keys=from_numpy_u32(keys[s], device),
                 weights=torch.from_numpy(
                     np.array(weights[s], np.int32)).to(device),
-                csum=torch.from_numpy(np.array(csum[s], np.int32)).to(device)))
+                csum=torch.from_numpy(
+                    np.array(csum[s], np.int32)).to(device))]))
     idx = CountIndex(spec, device=device, canonical=canonical,
                      max_runs=max_runs)
     return idx.adopt_runs(stores)
 
 
 def sorted_count_index_from_state(keys, counts, sizes, splitters,
-                                  spec: KmerSpec, device, canonical=True,
-                                  saturate: int | None = None
+                                  spec: KmerSpec, device="cuda",
+                                  canonical=True, saturate: int | None = None
                                   ) -> SortedCountIndex:
     """Port SortedCountIndex holding a flushed JAX SortedCountIndex's state:
     keys uint32[p, cap, w], counts int32[p, cap], sizes int32[p] (the
@@ -62,4 +72,59 @@ def sorted_count_index_from_state(keys, counts, sizes, splitters,
         counts=torch.from_numpy(np.array(counts, np.int32)).to(device),
         size=torch.from_numpy(np.array(sizes, np.int32)).to(device))
     idx.splitters = from_numpy_u32(np.asarray(splitters)[0], device)
+    return idx
+
+
+def _multi_store(keys, val_hi, val_lo, val_q, sizes, device) -> MultiStore:
+    """A stacked port MultiStore from a JAX MultiStore's fields (keys
+    uint32[p, cap, w] row-major -> [p, w, cap]); rows past each shard's
+    size become sentinels with zero payloads."""
+    keys = np.asarray(keys, dtype=np.uint32)
+    sizes = np.asarray(sizes, np.int32)
+    live = np.arange(keys.shape[1])[None, :] < sizes[:, None]
+    cols = np.where(live[:, None, :], keys.transpose(0, 2, 1), 0xFFFFFFFF)
+    put = lambda a, dt: torch.from_numpy(  # noqa: E731
+        np.where(live, np.asarray(a), 0).astype(dt)).to(device)
+    store = MultiStore(
+        keys=from_numpy_u32(cols, device),
+        val_hi=put(np.asarray(val_hi, np.uint32).view(np.int32), np.int32),
+        val_lo=put(np.asarray(val_lo, np.uint32).view(np.int32), np.int32),
+        val_q=put(val_q, np.float32),
+        size=torch.from_numpy(sizes.copy()).to(device))
+    return store
+
+
+def position_index_from_state(keys, val_hi, val_lo, val_q, sizes,
+                              spec: KmerSpec, device="cuda", canonical=False,
+                              with_quality: bool = False,
+                              hash_name: str = "murmur",
+                              id_kind: str = "short") -> PositionIndex:
+    """Port PositionIndex (PositionQualityIndex with `with_quality`) of p
+    shards holding a JAX PositionIndex's store: keys uint32[p, cap, w],
+    val_hi / val_lo uint32[p, cap], val_q float32[p, cap], sizes int32[p]
+    (``np.asarray`` of the ``store`` fields after a flush).  The JAX index
+    must use the same `hash_name`."""
+    cls = PositionQualityIndex if with_quality else PositionIndex
+    idx = cls(spec, device, canonical=canonical, nparts=len(sizes),
+              hash_name=hash_name, id_kind=id_kind)
+    idx.store = _multi_store(keys, val_hi, val_lo, val_q, sizes, idx.device)
+    idx._has_q = with_quality or bool(idx.store.val_q.any())
+    return idx
+
+
+def sorted_position_index_from_state(keys, val_hi, val_lo, val_q, sizes,
+                                     splitters, spec: KmerSpec,
+                                     device="cuda", canonical=False,
+                                     with_quality: bool = False,
+                                     id_kind: str = "short"
+                                     ) -> SortedPositionIndex:
+    """Port SortedPositionIndex (SortedPositionQualityIndex with
+    `with_quality`) holding a flushed JAX SortedPositionIndex's store (as
+    `position_index_from_state`) and splitters uint32[p, p-1, w]."""
+    cls = SortedPositionQualityIndex if with_quality else SortedPositionIndex
+    idx = cls(spec, device, canonical=canonical, nparts=len(sizes),
+              id_kind=id_kind)
+    idx.store = _multi_store(keys, val_hi, val_lo, val_q, sizes, idx.device)
+    idx._has_q = with_quality or bool(idx.store.val_q.any())
+    idx.splitters = from_numpy_u32(np.asarray(splitters)[0], idx.device)
     return idx

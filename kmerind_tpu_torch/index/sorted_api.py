@@ -14,15 +14,13 @@ key range, which makes range scans (`items_in_range`) local.
 
 Example::
 
-    idx = SortedCountIndex(KmerSpec(21, DNA), device="cuda", nparts=4)
+    idx = SortedCountIndex(KmerSpec(21, DNA), nparts=4)   # on CUDA
     idx.build("reads.fastq")
     idx.count(["ACGTACGTACGTACGTACGTA"])
     idx.items_in_range(lo_kmer, hi_kmer)
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
@@ -34,33 +32,35 @@ from ..ops.packing import lex_less
 from ..utils.timers import PhaseTimer
 from . import sorted_dist as sx
 from . import store as st
-from .api import _IndexBase, _next_pow2
+from . import distributed as dx
+from .api import _IndexBase, _MultimapSurfaceMixin
 
-__all__ = ["SortedCountIndex"]
+__all__ = ["SortedCountIndex", "SortedPositionIndex",
+           "SortedPositionQualityIndex"]
 
 
 class _SortedBase(_IndexBase):
-    """Splitter and exchange-capacity bookkeeping of the sorted indexes."""
+    """Splitter bookkeeping of the sorted indexes."""
 
-    #: bucket headroom over an even split: the reference's all2allv ships
-    #: exact per-destination counts (incremental_mxx.hpp:1087-1098); the
-    #: dense exchange sizes buckets ~n/p and retries larger on overflow
-    fill_factor = 1.6
-
-    def __init__(self, spec: KmerSpec, device, canonical=True,
+    def __init__(self, spec: KmerSpec, device="cuda", canonical=True,
                  nparts: int = 1, timer: PhaseTimer | None = None):
         super().__init__(spec, device, canonical, nparts, timer)
         #: int32[p-1, w] range boundaries; None until the first flush
         self.splitters = None
 
-    def _query_capacity(self, mq: int) -> int:
-        """Bucket capacity for mq rows per shard."""
-        return _next_pow2(int(math.ceil(mq / self.nparts * self.fill_factor)))
-
     def splitter_table(self) -> np.ndarray:
         """Host copy of the p-1 range boundaries (uint32[p-1, w])."""
         self._flush()
         return to_numpy_u32(self.splitters)
+
+    def _routed(self, step, words: torch.Tensor):
+        """Run a splitter-routed step(store, splitters, rows, valid, nparts,
+        capacity) -> (*outputs, overflow) over query rows, doubling the
+        bucket capacity until no bucket overflows.  Returns (outputs, m)."""
+        self._flush()
+        return self._route_rows(
+            lambda w, v, cap: step(self.store, self.splitters, w, v,
+                                   self.nparts, cap), words)
 
 
 class SortedCountIndex(_SortedBase):
@@ -69,7 +69,7 @@ class SortedCountIndex(_SortedBase):
 
     saturate: counts are clipped at this value on every flush."""
 
-    def __init__(self, spec: KmerSpec, device, canonical=True,
+    def __init__(self, spec: KmerSpec, device="cuda", canonical=True,
                  saturate: int | None = None,
                  initial_capacity: int = 1 << 12, nparts: int = 1,
                  timer: PhaseTimer | None = None):
@@ -133,7 +133,7 @@ class SortedCountIndex(_SortedBase):
                                  for i in range(3))
         self._pending = []
         del parts
-        cap = max(self._query_capacity(max(int(valid.sum()), 1)), 16)
+        cap = max(self._bucket_capacity(max(int(valid.sum()), 1)), 16)
         while True:
             with self.timer.phase("flush"):
                 store, splitters, ovf = sx.count_flush_step(
@@ -145,19 +145,6 @@ class SortedCountIndex(_SortedBase):
             cap *= 2
 
     # -- queries -------------------------------------------------------
-    def _routed(self, step, words: torch.Tensor):
-        """Run a splitter-routed step over query rows, doubling the bucket
-        capacity until no bucket overflows.  Returns (step outputs, m)."""
-        self._flush()
-        (wsh,), vsh, m = self._shard_rows(words)
-        cap = self._query_capacity(wsh.shape[1])
-        while True:
-            *out, ovf = step(self.store, self.splitters, wsh, vsh,
-                             self.nparts, cap)
-            if ovf == 0:
-                return out, m
-            cap *= 2
-
     def _count_words(self, words: torch.Tensor) -> np.ndarray:
         with self.timer.phase("count"):
             (counts,), m = self._routed(sx.count_query_step, words)
@@ -234,7 +221,7 @@ class SortedCountIndex(_SortedBase):
         return self
 
     @classmethod
-    def load(cls, path, device, nparts: int = 1):
+    def load(cls, path, device="cuda", nparts: int = 1):
         """An index of `nparts` shards holding a saved index's contents
         (saved at any shard count, by either package)."""
         z = np.load(path, allow_pickle=False)
@@ -250,3 +237,71 @@ class SortedCountIndex(_SortedBase):
                              torch.from_numpy(vals.astype(np.int32)).to(
                                  idx.device))
         return idx
+
+
+class SortedPositionIndex(_MultimapSurfaceMixin, _SortedBase):
+    """k-mer -> position ids multimap over `nparts` range-partitioned shards
+    stacked on one device (sorted_multimap, distributed_sorted_map.hpp:
+    2333): ingest appends shard-local tuples; the first query after an
+    insert re-sorts every pair across the shards by key range (samplesort)
+    and recomputes the splitters.  Same surface as `PositionIndex`."""
+
+    def __init__(self, spec: KmerSpec, device="cuda", canonical=False,
+                 nparts: int = 1, id_kind: str = "short",
+                 initial_capacity: int = 1 << 12, codec=None,
+                 timer: PhaseTimer | None = None):
+        super().__init__(spec, device, canonical, nparts, timer)
+        self._init_multimap(id_kind, initial_capacity, codec)
+
+    def _insert_cols(self, cols: dict):
+        """Shard-local extraction; the tuples stay on their shard until the
+        flush."""
+        with self.timer.phase("insert"):
+            tup = sx.multi_local_ingest_step(
+                self._to_device(cols), self.spec, self.canonical,
+                self.with_quality, self.codec)
+        self._pending.append(tup)
+        self._pending_rows += tup[0].shape[1]
+        return self
+
+    def _insert_pairs(self, words, val_hi, val_lo, val_q):
+        (wsh, hsh, lsh, qsh), vsh, _ = self._shard_rows(
+            words, extra=(val_hi, val_lo, val_q))
+        self._pending.append((wsh, hsh, lsh, qsh, vsh))
+        self._pending_rows += wsh.shape[1]
+        return self
+
+    def _flush(self):
+        """Re-sort the store's pairs and every pending tuple across the
+        shards, retrying with doubled bucket capacity on overflow."""
+        if self.splitters is not None and not self._pending:
+            return
+        s = self.store
+        live = (torch.arange(s.capacity, device=self.device)[None, :]
+                < s.size[:, None])
+        parts = [(s.keys.transpose(1, 2), s.val_hi, s.val_lo, s.val_q,
+                  live)] + self._pending
+        words, hi, lo, q, valid = dx.concat_pending(parts, self._has_q)
+        self._pending, self._pending_rows = [], 0
+        del parts, s
+        cap = max(self._bucket_capacity(max(int(valid.sum()), 1)), 16)
+        while True:
+            with self.timer.phase("merge"):
+                store, splitters, ovf = sx.multi_flush_step(
+                    words, hi, lo, q, valid, self.nparts, cap,
+                    self.spec.sentinel_safe)
+            if ovf == 0:
+                self.store, self.splitters = store, splitters
+                return
+            cap *= 2
+
+    def _owners(self, words):
+        """Owner shard per key row: its splitter range."""
+        return sx.owners_from_splitters(words, self.splitters, self.nparts)
+
+
+class SortedPositionQualityIndex(SortedPositionIndex):
+    """Range-partitioned k-mer -> (position id, windowed quality)
+    multimap."""
+
+    with_quality = True

@@ -15,6 +15,11 @@ distributed_sorted_map.hpp:2825).  Where the hash strategy owns keys by
   `CountStore` — the result is globally sorted;
 * **queries** route by splitter (:1568-1600) through the same exchange.
 
+The multimap (sorted_multimap, :2333) keeps every pair: its ingest only
+extracts, its flush sorts each shard's received pairs into a `MultiStore`,
+and its queries share the hash multimap's routed lookups
+(``distributed.py``) under the splitter owner map.
+
 Each JAX ``make_*_step`` factory returns a jitted ``shard_map`` program;
 here each step is a plain function over stacked [p, ...] shard tensors
 (``parallel/distribute.py``), looping over the shards between exchanges.
@@ -26,12 +31,15 @@ import torch
 
 from ..io.kmer_parsers import DeviceBases, extract_tuples
 from ..ops import sortops
+from ..ops.keys import SENTINEL
 from ..parallel import distribute as dist
 from ..parallel.sample_sort import global_splitters, owners_from_splitters
+from ..quality import ILLUMINA18
 from . import store as st
 
 __all__ = ["owners_from_splitters", "local_ingest_step", "count_flush_step",
-           "count_query_step", "count_erase_step", "count_select_step"]
+           "count_query_step", "count_erase_step", "count_select_step",
+           "multi_local_ingest_step", "multi_flush_step"]
 
 
 def local_ingest_step(bases: DeviceBases, spec, canonical):
@@ -127,3 +135,51 @@ def count_select_step(store: st.CountStore, pred):
         counts_out.append(sh.counts[order])
         n.append(emit.sum())
     return torch.stack(keys_out), torch.stack(counts_out), torch.stack(n)
+
+
+# ----------------------------------------------------------------- multimap
+def multi_local_ingest_step(bases: DeviceBases, spec, canonical,
+                            with_quality: bool = False, codec=ILLUMINA18):
+    """Shard-local multimap extraction, no exchange and no reduction:
+    bases [p, L] -> (words [p, L, w], id_hi, id_lo, qual float32 or None,
+    valid), each [p, L]."""
+    tups = [extract_tuples(bases.shard(s), spec, canonical=canonical,
+                           with_quality=with_quality, codec=codec)
+            for s in range(bases.codes.shape[0])]
+    get = lambda f: st.stack([getattr(t, f) for t in tups])  # noqa: E731
+    return (get("words"), get("id_hi"), get("id_lo"),
+            get("qual") if with_quality else None, get("valid"))
+
+
+def multi_flush_step(words, hi, lo, q, valid, nparts: int, capacity: int,
+                     sentinel_ok: bool = False, oversample: int = 64):
+    """The sorted multimap's rebuild (sorted_multimap's global sort,
+    distributed_sorted_map.hpp:2333+): (words [p, n, w], hi, lo, q float32
+    or None, valid [p, n]) -> (stacked store, splitters [p-1, w],
+    overflow).  Every valid pair survives; each shard's pairs come out
+    sorted by key (stable) with sentinel rows after, its capacity cut to
+    next_pow2 of the largest shard's size (at least 16).  q None: the
+    store's quality column is zero."""
+    splitters = global_splitters(words, valid, nparts, oversample,
+                                 sentinel_ok)
+    owner = owners_from_splitters(words, splitters, nparts)
+    cols = (words, hi, lo) + (() if q is None else (q,))
+    recv, rvalid, route = dist.distribute(cols, owner, valid, nparts,
+                                          capacity)
+    stores = []
+    for s in range(nparts):
+        pays = tuple(r[s] for r in recv[1:])
+        if q is None:
+            pays += (torch.zeros(rvalid.shape[1], dtype=torch.float32,
+                                 device=words.device),)
+        s_cols, (s_hi, s_lo, s_q), s_valid = sortops.sort_rows(
+            recv[0][s], pays, rvalid[s], as_cols=True)
+        stores.append(st.MultiStore(
+            torch.where(s_valid[None, :], s_cols, SENTINEL), s_hi, s_lo, s_q,
+            s_valid.sum(dtype=torch.int32)))
+    largest = max(int(x.size) for x in stores)
+    cap = min(stores[0].capacity, 1 << max(4, (largest - 1).bit_length()))
+    return (st.stack_multi_stores([st.MultiStore(
+        x.keys[:, :cap].contiguous(), x.val_hi[:cap], x.val_lo[:cap],
+        x.val_q[:cap], x.size) for x in stores]), splitters, route.overflow)
+

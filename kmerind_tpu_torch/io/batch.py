@@ -18,6 +18,8 @@ from ..alphabets import Alphabet
 
 __all__ = ["ReadBatch"]
 
+_POS40 = np.uint64((1 << 40) - 1)
+
 
 @dataclasses.dataclass
 class ReadBatch:
@@ -63,6 +65,34 @@ class ReadBatch:
     @property
     def num_records(self) -> int:
         return int(self.record_start.shape[0])
+
+    def short_ids(self) -> np.ndarray:
+        """uint64[n] ShortSequenceKmerId per base (sequence.hpp:152-156):
+        file id << 56 | record start (40 bits) << 16 | offset in the read
+        (16 bits, wrapping like the reference's uint16)."""
+        if self.num_records == 0:
+            return np.zeros(self.num_bases, dtype=np.uint64)
+        rs = self.record_start[self.seg_id] & _POS40
+        fid = self.file_id[self.seg_id].astype(np.uint64) << np.uint64(56)
+        off16 = self.offset_in_record.astype(np.uint64) & np.uint64(0xFFFF)
+        return fid | (rs << np.uint64(16)) | off16
+
+    def long_ids(self) -> np.ndarray:
+        """uint64[n] LongSequenceKmerId per base (sequence.hpp:253-257):
+        file id << 56 | sequence index << 40 | file position (40 bits)."""
+        if self.num_records == 0:
+            return np.zeros(self.num_bases, dtype=np.uint64)
+        fid = self.file_id[self.seg_id].astype(np.uint64) << np.uint64(56)
+        sid = self.seq_index[self.seg_id].astype(np.uint64) << np.uint64(40)
+        return fid | sid | (self.global_pos & _POS40)
+
+    def ids(self, kind: str) -> np.ndarray:
+        """Position ids of `kind` "short" (FASTQ reads) or "long" (FASTA)."""
+        if kind == "short":
+            return self.short_ids()
+        if kind == "long":
+            return self.long_ids()
+        raise ValueError(f"unknown id kind {kind!r}")
 
     # ------------------------------------------------------------------
     def pad_to(self, n: int) -> "ReadBatch":

@@ -1,9 +1,11 @@
 """Record -> tuple extraction: per-base tensors -> k-mer tensors.
 
-The port of ``kmerind_tpu.io.kmer_parsers.extract_tuples`` for the count
-index (the reference's KmerParser / KmerCountTupleParser,
-src/io/kmer_parser.hpp:86,910): one vectorized extraction over the whole
-base tensor, invalid windows masked.  Canonicalization on ingest (the
+The port of ``kmerind_tpu.io.kmer_parsers.extract_tuples`` (the
+reference's KmerParser, KmerPositionTupleParser, KmerPositionQualityTuple-
+Parser and KmerCountTupleParser, src/io/kmer_parser.hpp:86,304,578,910):
+one vectorized extraction over the whole base tensor, invalid windows
+masked, each window carrying its first base's 64-bit position id and, with
+`with_quality`, its windowed quality score.  Canonicalization on ingest (the
 ``lex_less`` InputTransform of the Canonical map presets,
 kmer_index.hpp:436-562) runs in the K1 kernel on the device
 (``ops/kernels.py::extract_canonical``).
@@ -17,6 +19,7 @@ import torch
 
 from ..kmer import KmerSpec
 from ..ops import kernels, packing
+from ..quality import ILLUMINA18, QualityCodec, window_quality
 
 __all__ = ["DeviceBases", "KmerTuples", "extract_tuples", "transform_name"]
 
@@ -24,17 +27,22 @@ __all__ = ["DeviceBases", "KmerTuples", "extract_tuples", "transform_name"]
 @dataclasses.dataclass
 class DeviceBases:
     """Per-base tensors of one shard, all shape [n] — or of p shards
-    stacked, [p, n]."""
+    stacked, [p, n].  The id and quality columns are None for indexes that
+    do not store them (the count indexes never copy them to the device)."""
 
     codes: torch.Tensor   # uint8
     valid: torch.Tensor   # bool
     owned: torch.Tensor   # bool
     seg_id: torch.Tensor  # int32
+    id_hi: torch.Tensor | None = None  # int32 (uint32 bits): id >> 32
+    id_lo: torch.Tensor | None = None  # int32 (uint32 bits): id & 2^32-1
+    qual: torch.Tensor | None = None   # uint8 phred byte
 
     def shard(self, s: int) -> "DeviceBases":
         """Shard s of stacked bases."""
-        return DeviceBases(self.codes[s], self.valid[s], self.owned[s],
-                           self.seg_id[s])
+        return DeviceBases(*(None if t is None else t[s] for t in (
+            self.codes, self.valid, self.owned, self.seg_id, self.id_hi,
+            self.id_lo, self.qual)))
 
 
 @dataclasses.dataclass
@@ -44,6 +52,9 @@ class KmerTuples:
     words: torch.Tensor   # int32[n, nwords] (uint32 bits)
     valid: torch.Tensor   # bool[n] — real, owned windows
     strand: torch.Tensor  # bool[n] — stored word is the reverse complement
+    id_hi: torch.Tensor | None = None  # position id of the window's first
+    id_lo: torch.Tensor | None = None  # base, as in DeviceBases
+    qual: torch.Tensor | None = None   # float32[n] windowed quality
 
 
 def transform_name(canonical) -> str:
@@ -58,10 +69,13 @@ def transform_name(canonical) -> str:
     return t
 
 
-def extract_tuples(bases: DeviceBases, spec: KmerSpec,
-                   canonical=True) -> KmerTuples:
+def extract_tuples(bases: DeviceBases, spec: KmerSpec, canonical=True,
+                   with_quality: bool = False,
+                   codec: QualityCodec = ILLUMINA18) -> KmerTuples:
     """All k-mer tuples of one shard (hot loops 1-2 of the reference build
-    stack): window pack, canonicalize, validity mask."""
+    stack): window pack, canonicalize, validity mask; the bases' id
+    columns ride along, and with `with_quality` each window's quality
+    (`quality.window_quality` of the phred bytes under `codec`)."""
     if transform_name(canonical) == "lex_less":
         words, strand = kernels.extract_canonical(bases.codes, spec)
     else:
@@ -70,4 +84,7 @@ def extract_tuples(bases: DeviceBases, spec: KmerSpec,
                              device=bases.codes.device)
     wvalid = packing.window_valid(bases.valid, bases.seg_id, spec.k) \
         & bases.owned
-    return KmerTuples(words=words, valid=wvalid, strand=strand)
+    qual = (window_quality(bases.qual, spec.k, codec) if with_quality
+            else None)
+    return KmerTuples(words=words, valid=wvalid, strand=strand,
+                      id_hi=bases.id_hi, id_lo=bases.id_lo, qual=qual)

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 import kmerind_tpu.io as jio
+import kmerind_tpu_torch as kp
 import kmerind_tpu_torch.io as tio
 from kmerind_tpu import DNA as J_DNA, DNA16 as J_DNA16
 from kmerind_tpu_torch import DNA as T_DNA, DNA16 as T_DNA16
@@ -71,3 +72,29 @@ def test_chunks_and_split_at_invalid_match_jax(corpus):
     for g, w in zip(got.iter_chunks(5000, 20), want.iter_chunks(5000, 20),
                     strict=True):
         assert_batches_equal(g, w)
+
+
+@pytest.mark.parametrize("fmt", ["fastq", "fasta"])
+def test_position_ids_match_jax(corpus, fmt):
+    """Short and long position ids per base equal the JAX package's, on the
+    whole file and on a block (absolute record starts); the multimaps'
+    pooled in-place ids equal `ReadBatch.ids` chunk after chunk (the pool
+    is reused)."""
+    want = jio.read_file(corpus[fmt], J_DNA)
+    got = tio.read_file(corpus[fmt], T_DNA)
+    for kind in ("short", "long"):
+        np.testing.assert_array_equal(got.ids(kind), want.ids(kind))
+    blk = tio.read_fastq_block(corpus[fmt], T_DNA, 1, 3) if fmt == "fastq" \
+        else tio.read_fasta_block(corpus[fmt], T_DNA, 1, 3, halo=20)
+    jblk = jio.read_fastq_block(corpus[fmt], J_DNA, 1, 3) if fmt == "fastq" \
+        else jio.read_fasta_block(corpus[fmt], J_DNA, 1, 3, halo=20)
+    np.testing.assert_array_equal(blk.short_ids(), jblk.short_ids())
+    np.testing.assert_array_equal(blk.long_ids(), jblk.long_ids())
+    for kind in ("short", "long"):
+        idx = kp.PositionIndex(kp.KmerSpec(21, T_DNA), device="cpu",
+                               id_kind=kind)
+        for chunk in got.iter_chunks(4000, 20):
+            np.testing.assert_array_equal(idx._pooled_ids(chunk),
+                                          chunk.ids(kind))
+    with pytest.raises(ValueError, match="id kind"):
+        got.ids("medium")

@@ -24,6 +24,12 @@ CHUNK = chip_smoke.CHUNK
                              npay=0), ((1 << 26) + CHUNK + (1 << 27)) * 8),
     ("merge_runs_cols", dict(na=CHUNK, nb=CHUNK, n_out=1 << 25, w=2, npay=1),
      201_327_072 + 402_653_184),
+    # the multimap flush: 2 key words + 3 payloads (id halves, quality)
+    ("merge_runs_cols", dict(na=1 << 26, nb=1 << 24, n_out=1 << 27, w=2,
+                             npay=3), ((1 << 26) + (1 << 24) + (1 << 27)) * 20),
+    # the flagged flush: a flag column + 2 key words + 3 payloads
+    ("merge_runs_cols", dict(na=1 << 26, nb=1 << 24, n_out=1 << 27, w=3,
+                             npay=3), ((1 << 26) + (1 << 24) + (1 << 27)) * 24),
     ("merge_sorted_runs", dict(na=3, nb=5, n_out=8, w=5, npay=3),
      (3 + 5 + 8) * 32),
     # K2 with an empty run: the sentinel rows are still written

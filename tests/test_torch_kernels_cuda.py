@@ -8,8 +8,9 @@ boundary, lopsided, disjoint and sentinel runs, totals around the tile
 size; for the K3 scan sizes around its tile, look-back over many tiles,
 repeated calls, unaligned views; for K4 a run over 10,000 tiles, tv at a
 tile boundary, unaligned views, repeated calls), and the
-port's CountIndex and SortedCountIndex on the card against the same index
-on the CPU.  Exact equality throughout: everything is integer,
+port's indexes on the card against the same index on the CPU: CountIndex
+(one shard and 4 hashed shards), SortedCountIndex and the multimaps.
+Exact equality throughout (qualities aside): everything else is integer,
 and the K2 merge keeps ties in the plain version's (stable) order.
 
 Needs an NVIDIA GPU and nvcc; skips otherwise.  Pure PyTorch (no JAX), so
@@ -494,3 +495,85 @@ def test_sorted_count_index_cuda_matches_cpu(dev, tmp_path):
                                   idx["cpu"].splitter_table())
     assert idx[dev].erase(q[:20]) == idx["cpu"].erase(q[:20])
     assert idx[dev].size() == idx["cpu"].size()
+
+
+@pytest.mark.parametrize("hash_name", ["murmur", "farm"])
+def test_count_index_shards_cuda_matches_cpu(dev, tmp_path, hash_name):
+    """4 hash-partitioned shards: owners, exchange and per-shard merges on
+    the card give the same shards as on the CPU."""
+    path = tmp_path / "reads.fastq"
+    reads = write_reads(path, 400, 150, 3000, seed=5, n_rate=0.002)
+    spec = kp.KmerSpec(21, kp.DNA)
+    idx = {}
+    for d in ("cpu", dev):
+        idx[d] = kp.CountIndex(spec, device=d, nparts=4, max_runs=2,
+                               hash_name=hash_name)
+        idx[d].insert_batch(read_file(path, kp.DNA), chunk_bases=7000)
+    q = [r[i:i + 21] for r in reads[:50] for i in (0, 40, 129)]
+    np.testing.assert_array_equal(idx[dev].count(q), idx["cpu"].count(q))
+    for got, want in zip(idx[dev].items(), idx["cpu"].items()):
+        np.testing.assert_array_equal(got, want)
+    assert idx[dev].local_sizes() == idx["cpu"].local_sizes()
+
+
+@pytest.mark.parametrize("cls,k,p", [("PositionQualityIndex", 21, 4),
+                                     ("PositionIndex", 32, 2),
+                                     ("SortedPositionQualityIndex", 21, 4)])
+def test_multimap_cuda_matches_cpu(dev, tmp_path, cls, k, p):
+    """The multimaps on the card against the same index on the CPU: the
+    hash family's flushes run K2 with 2-3 payloads (the flagged merge at
+    k=32), small `flush_rows` making several of them.  The same pairs
+    (qualities at rtol 1e-6: exp2 on the card and on the CPU may round
+    apart), counts, find id sets and erase."""
+    path = tmp_path / "reads.fastq"
+    reads = write_reads(path, 400, 150, 3000, seed=6, n_rate=0.002,
+                        varied_quality=True)
+    spec = kp.KmerSpec(k, kp.DNA)
+    idx = {}
+    for d in ("cpu", dev):
+        before = kernels.LAUNCHES["merge_runs_cols"]
+        idx[d] = getattr(kp, cls)(spec, device=d, nparts=p, canonical=True)
+        idx[d].flush_rows = 1 << 13
+        idx[d].insert_batch(read_file(path, kp.DNA), chunk_bases=7000)
+        idx[d].size()
+    if cls.startswith("Position"):
+        flushes = idx[dev].timer.count("merge")
+        assert kernels.LAUNCHES["merge_runs_cols"] - before >= flushes * p > p
+    (gk, gi, gq), (wk, wi, wq) = idx[dev].pairs(), idx["cpu"].pairs()
+    go, wo = np.argsort(gi), np.argsort(wi)
+    np.testing.assert_array_equal(gi[go], wi[wo])
+    np.testing.assert_array_equal(gk[go], wk[wo])
+    np.testing.assert_array_equal(gq[go] == 0, wq[wo] == 0)
+    np.testing.assert_allclose(gq[go], wq[wo], rtol=1e-6)
+    q = [r[i:i + k] for r in reads[:50] for i in (0, 40, 100)]
+    np.testing.assert_array_equal(idx[dev].count(q), idx["cpu"].count(q))
+    (gi, gm), (wi, wm) = (idx[d].find(q, max_per_query=4)
+                          for d in (dev, "cpu"))
+    for i in range(len(q)):
+        assert sorted(gi[i][gm[i]]) == sorted(wi[i][wm[i]])
+    assert idx[dev].erase(q[:20]) == idx["cpu"].erase(q[:20]) > 0
+    assert idx[dev].size() == idx["cpu"].size()
+
+
+@pytest.mark.parametrize("k", [64, 80, 81])
+def test_multimap_merge_width_on_card(dev, tmp_path, k):
+    """Every hash-multimap flush on the card goes through K2, which takes
+    at most 5 key columns, the flag column of the flagged merge included:
+    k = 64 (the flag plus 4 full words) merges and matches the CPU; k = 80
+    (the flag plus 5 words) and k = 81 (6 words) raise in K2's wrapper at
+    the first flush instead of sorting on the card."""
+    path = tmp_path / "reads.fastq"
+    write_reads(path, 200, 150, 3000, seed=7, n_rate=0.002)
+    spec = kp.KmerSpec(k, kp.DNA)
+    idx = {}
+    for d in ("cpu", dev):
+        idx[d] = kp.PositionIndex(spec, device=d, nparts=2)
+        idx[d].insert_batch(read_file(path, kp.DNA), chunk_bases=7000)
+    if k > 64:
+        with pytest.raises(ValueError, match="1-5 key words"):
+            idx[dev].size()
+        return
+    before = kernels.LAUNCHES["merge_runs_cols"]
+    assert idx[dev].size() == idx["cpu"].size() > 0
+    assert kernels.LAUNCHES["merge_runs_cols"] - before >= 2
+    assert idx[dev].to_dict() == idx["cpu"].to_dict()

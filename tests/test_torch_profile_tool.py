@@ -62,8 +62,9 @@ def test_port_kernel_ms_sums_each_kernels_launches():
 
 
 def test_phases_of_both_runs():
-    """P4 (hash index) and P5 (sorted index: build, then the flush) each
-    name a step for every phase they report."""
+    """P4 (hash index), P5 (sorted index: build, then the flush) and P6
+    (position+quality index: build, the last flush, two finds) each name
+    a step for every phase they report."""
     steps = {run: profile_p4.phase_steps(run, _FakeIndex(), "p.fastq", "q")
              for run in profile_p4.PHASES}
     assert profile_p4.PHASES["p5"] == ("build", "flush", "count1", "count2")
@@ -72,6 +73,9 @@ def test_phases_of_both_runs():
     calls = [fn() for fn in steps["p5"].values()]
     assert calls == [("build", "p.fastq"), ("size",), ("count", "q"),
                      ("count", "q")]
+    calls = [fn() for fn in steps["p6"].values()]
+    assert calls == [("build", "p.fastq"), ("size",), ("find", "q", True),
+                     ("find", "q", True)]
 
 
 class _FakeIndex:
@@ -82,6 +86,9 @@ class _FakeIndex:
 
     def count(self, queries):
         return ("count", queries)
+
+    def find(self, queries, with_quality=False):
+        return ("find", queries, with_quality)
 
     def size(self):
         return ("size",)
@@ -104,3 +111,13 @@ def test_p5_dry_run_on_the_cpu(capsys):
     assert list(record["runs"]) == ["p5"]
     assert list(record["runs"]["p5"]) == ["build", "flush", "count1",
                                           "count2"]
+
+
+def test_p6_dry_run_on_the_cpu(capsys):
+    """--run p6 on the CPU: the position+quality index's phases."""
+    assert profile_p4.main(["--run", "p6", "--device", "cpu", "--genome",
+                            "20000", "--coverage", "2"]) == 0
+    record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(record["runs"]) == ["p6"]
+    assert list(record["runs"]["p6"]) == ["insert", "merge", "find1",
+                                          "find2"]

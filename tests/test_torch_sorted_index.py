@@ -163,5 +163,12 @@ def test_not_ported_surfaces_raise():
                idx.histogram):
         with pytest.raises(NotImplementedError, match="item 10"):
             fn(lambda k, c: c > 1)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        kp.CountIndex(kp.KmerSpec(21, kp.DNA), device="cpu", nparts=2)
+    # the multimaps' predicate scans and checkpoint wait for item 10 too
+    for cls in (kp.PositionIndex, kp.SortedPositionQualityIndex):
+        midx = cls(kp.KmerSpec(21, kp.DNA), device="cpu", nparts=2)
+        for fn in (midx.erase_if, midx.filter, midx.count_if, midx.find_if,
+                   midx.save):
+            with pytest.raises(NotImplementedError, match="item 10"):
+                fn(lambda k, h, l, q: q > 0)
+        with pytest.raises(NotImplementedError, match="item 10"):
+            cls.load("index.npz")

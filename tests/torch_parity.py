@@ -48,12 +48,22 @@ def sorted_key_cols(rng, w: int, n: int, hi_values: int = 4,
     return keys
 
 
+def phred_line(rng, seq: np.ndarray) -> str:
+    """A FASTQ quality line for the sequence bytes `seq`: phred 2-41,
+    mostly high, '#' (phred 2, an "incorrect" base) on every N."""
+    q = 41 - np.minimum(rng.geometric(0.15, seq.shape[0]) - 1, 39)
+    q[seq == ord("N")] = 2
+    return bytes((q + 33).astype(np.uint8)).decode()
+
+
 def write_reads(path, n_reads: int, read_len: int, genome_len: int,
                 seed: int, fmt: str = "fastq", n_rate: float = 0.0,
-                line_width: int = 60):
+                line_width: int = 60, varied_quality: bool = False):
     """Reads sampled from a random genome (half reverse-complemented), so
     the same k-mers recur on both strands; 'N' at rate `n_rate`.  FASTA
-    records wrap at `line_width`.  Returns the read strings."""
+    records wrap at `line_width`.  FASTQ qualities are all 'I', or with
+    `varied_quality` drawn by `phred_line` after the sequences (which do
+    not change).  Returns the read strings."""
     rng = np.random.default_rng(seed)
     alpha = np.frombuffer(b"ACGT", np.uint8)
     genome = rng.integers(0, 4, genome_len)
@@ -67,7 +77,9 @@ def write_reads(path, n_reads: int, read_len: int, genome_len: int,
     with open(path, "w") as f:
         for i, r in enumerate(reads):
             if fmt == "fastq":
-                f.write(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n")
+                qual = (phred_line(rng, seqs[i]) if varied_quality
+                        else "I" * len(r))
+                f.write(f"@r{i}\n{r}\n+\n{qual}\n")
             else:
                 lines = "\n".join(r[j:j + line_width]
                                   for j in range(0, len(r), line_width))

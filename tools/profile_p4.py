@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Device-busy profile of the smoke's full-size runs (chip_smoke.py P4, P5).
+"""Device-busy profile of the smoke's full-size runs (chip_smoke.py P4-P6).
 
-    python3 tools/profile_p4.py [--run p4|p5|all] [--coverage 30]
+    python3 tools/profile_p4.py [--run p4|p5|p6|all] [--coverage 30]
                                 [--genome 4641652] [--trace trace.json]
 
 Makes the P4 data of chip_smoke.py (150 bp reads at 30x coverage of a
-random genome of E. coli K-12 length, seed 0, and 1M queries), then runs
+random genome of E. coli K-12 length, seed 0, with its qualities, and 1M
+queries), then runs
 each run's phases twice, each time on a fresh index.  P4, the hash
 CountIndex: build (the streaming path above 64 MB), count() of the 1M
 queries twice, items(), compact().  P5, the sorted SortedCountIndex on one
 shard: build, flush (the first size(), which runs the samplesort flush),
-count() twice.  The first pass runs without the profiler and gives each
+count() twice.  P6, the PositionQualityIndex (canonical, one shard):
+insert (the build, whose chunks flush into the store every 2^24 pending
+rows), merge (the first size(), which flushes the last pending rows),
+find(with_quality=True) of the 1M queries twice.  The first pass runs
+without the profiler and gives each
 phase's wall seconds; it also warms the native parser, the kernels and the
 allocator.  The second pass runs under torch.profiler, each phase in a
 record_function range that ends in torch.cuda.synchronize().
@@ -44,12 +49,13 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (COVERAGE, GENOME_LEN, K, READ_LEN,  # noqa: E402
-                        make_reads, pack_rows, write_fastq)
+                        make_quals, make_reads, pack_rows, write_fastq)
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: run -> its phases, in order
 PHASES = {"p4": ("build", "count1", "count2", "items", "compact"),
-          "p5": ("build", "flush", "count1", "count2")}
+          "p5": ("build", "flush", "count1", "count2"),
+          "p6": ("insert", "merge", "find1", "find2")}
 #: the port's kernels -> the CUDA kernel names (ops/csrc) of their launches
 PORT_KERNELS = {
     "extract_canonical": ("extract_rolling_kernel", "extract_wide_kernel"),
@@ -67,6 +73,11 @@ def phase_steps(run: str, idx, path, queries) -> dict:
                 "count2": lambda: idx.count(queries),
                 "items": idx.items,
                 "compact": idx.compact}
+    if run == "p6":
+        return {"insert": lambda: idx.build(path),
+                "merge": idx.size,
+                "find1": lambda: idx.find(queries, with_quality=True),
+                "find2": lambda: idx.find(queries, with_quality=True)}
     return {"build": lambda: idx.build(path),
             "flush": idx.size,
             "count1": lambda: idx.count(queries),
@@ -164,7 +175,8 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from kmerind_tpu_torch import DNA, CountIndex, KmerSpec, SortedCountIndex
+    from kmerind_tpu_torch import (DNA, CountIndex, KmerSpec,
+                                   PositionQualityIndex, SortedCountIndex)
     from kmerind_tpu_torch.io import native
 
     dev = torch.device(args.device)
@@ -184,7 +196,9 @@ def main(argv=None) -> int:
     spec = KmerSpec(K, DNA)
     runs = tuple(PHASES) if args.run == "all" else (args.run,)
     make_index = {"p4": lambda: CountIndex(spec, device=dev),
-                  "p5": lambda: SortedCountIndex(spec, device=dev)}
+                  "p5": lambda: SortedCountIndex(spec, device=dev),
+                  "p6": lambda: PositionQualityIndex(spec, device=dev,
+                                                     canonical=True)}
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if on_gpu else [])
     out = {"card": smi, "runs": {}}
@@ -193,7 +207,7 @@ def main(argv=None) -> int:
         n_reads = args.genome * args.coverage // READ_LEN
         codes = make_reads(args.genome, n_reads, seed=0)
         path = pathlib.Path(tmp) / "p4.fastq"
-        write_fastq(codes, path)
+        write_fastq(codes, make_quals(codes, seed=0), path)
         queries = make_queries(codes)
         print(f"data: {n_reads} reads, {codes.size} bases, "
               f"{path.stat().st_size} bytes FASTQ [{smi}]", flush=True)
