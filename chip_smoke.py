@@ -12,8 +12,9 @@ and power limit as nvidia-smi reports them):
       kmerind_tpu_torch/_build.
 * P2  every kernel against its plain PyTorch version on the card, at the
       main paths' shapes (K1 also on its 128-bit state, on the wide
-      kernel at k=127 and on a view 4 bytes into a larger tensor; K4 also
-      with key columns off 16 bytes); bitwise equality required.  Both
+      kernel at DNA k = 65, 127, 255, 512, 1024, DNA16 k = 64 and ASCII
+      k = 64, and on a view 4 bytes into a larger tensor; K4 also with key
+      columns off 16 bytes); bitwise equality required.  Both
       timed over many launches (`median_ms`: CUDA events around runs of
       >= 20 back-to-back calls, median of 5 runs); beside the kernel one
       call alone (`single_ms`), the host's enqueue time per call
@@ -26,8 +27,12 @@ and power limit as nvidia-smi reports them):
       calls those.  K2 also runs in the multimap flush's shapes: a store
       of 2^26 rows merged with a batch of 2^24, 3 payloads (id halves and
       quality bits), with 2 key words and with the flagged merge's 3 (a
-      liveness flag ahead of two full 32-bit words).  K2′ (the row-major
-      merge entry, which no index calls) runs only here.
+      liveness flag ahead of two full 32-bit words); and in P7's shapes:
+      8,388,628 + 8,388,628 rows of 8 key words (k = 127), 2^26 + 2^24
+      rows of 8 words with 3 payloads, and 2^22 + 2^22 rows of 33 (DNA k =
+      512 full words and the flag) with 4 payloads, past the key words
+      compared in registers.  K2′ (the row-major merge, which no index
+      calls) runs only here, at w = 2 and w = 8 with one payload.
 * P3  exact reference: ~12M bases of synthetic reads indexed through
       CountIndex.insert_batch in 2^20-base chunks with max_runs=2 (many K2
       merges), then compact(); to_dict() must equal an independent numpy
@@ -66,11 +71,23 @@ and power limit as nvidia-smi reports them):
       exactly their pairs; find of all 1M queries is timed.  Counters
       zeroed just before, read just after: K1 ran once per chunk, K2 at
       least once per flush.
+* P7  wide k-mers: the same FASTQ at k = 127 DNA (8 key words, K1's wide
+      kernel) on one shard.  CountIndex(max_runs=8).build: 1M count()
+      queries (900k read windows, 100k random 127-mers) equal an
+      independent numpy count of every canonical 127-mer window (4 uint64
+      limbs a window, looked up by a 64-bit hash and checked limb by
+      limb), items() counts sum to the window count;
+      PositionQualityIndex(canonical=True).build: size() equals the window
+      count, find(with_quality) of 10,000 sampled queries the numpy id
+      sets with qualities at rtol 1e-4.  Counters zeroed just before, read
+      just after: K1 ran once per chunk, all on the wide kernel; K2 at
+      least once per merge or flush (w = 8, no payloads; w = 8, 3
+      payloads).
 
 Exits non-zero, printing no result, when there is no CUDA device, a build
 fails or any check fails.  The last line of standard output is the
 contract JSON; the line before it lists the kernels with their launches
-in the main-path runs P4 + P5 + P6.
+in the main-path runs P4 + P5 + P6 + P7.
 """
 
 from __future__ import annotations
@@ -88,6 +105,7 @@ import time
 import numpy as np
 
 K = 21
+K_WIDE = 127                       # P7: DNA k-mers of 8 key words
 CHUNK = (1 << 23) + K - 1          # default_chunk_bases + the k-1 halo
 GENOME_LEN = 4_641_652             # E. coli K-12 MG1655
 READ_LEN = 150
@@ -102,9 +120,10 @@ def kernel_bytes(kname: str, **shape) -> int:
     output written once, from the call's shapes.
 
     extract_canonical(n, nwords): uint8 codes in; int32 [nwords, n] words
-    and bool [n] was_rc out.  merge_runs_cols / merge_sorted_runs(na, nb,
-    n_out, w, npay): w key words and npay payloads of int32 per row, na +
-    nb rows in, n_out out.  prefix_sum_i32(n): int32 in and out.
+    and bool [n] was_rc out.  merge_runs_cols(na, nb, n_out, w, npay): w
+    key words ([w, n] column-major) and npay payloads of int32 per row, na
+    + nb rows in, n_out out; merge_sorted_runs the same with row-major [n,
+    w] keys (the same bytes).  prefix_sum_i32(n): int32 in and out.
     run_length_weights(n, w): int32 [w, n] keys and the int32 valid count
     in, int32 [n] weights out."""
     if kname == "extract_canonical":
@@ -371,15 +390,101 @@ def expected_counts(sorted_codes: np.ndarray, qcodes: np.ndarray
 
 
 def pack_rows(codes: np.ndarray) -> np.ndarray:
-    """uint32[m, 2] k=21 DNA words (kmer.py layout) of [m, 21] codes."""
-    c = codes.astype(np.uint64)
-    w0 = np.zeros(codes.shape[0], np.uint64)
-    for j in range(16):
-        w0 = (w0 << np.uint64(2)) | c[:, j]
-    w1 = np.zeros(codes.shape[0], np.uint64)
-    for j in range(16, K):
-        w1 = (w1 << np.uint64(2)) | c[:, j]
-    return np.stack([w0, w1], axis=1).astype(np.uint32)
+    """uint32[m, ceil(k / 16)] DNA words (kmer.py layout: 16 bases a word,
+    the last word right-aligned) of [m, k] codes."""
+    c = codes.astype(np.uint32)
+    k = codes.shape[1]
+    words = []
+    for lo in range(0, k, 16):
+        w = np.zeros(codes.shape[0], np.uint32)
+        for j in range(lo, min(lo + 16, k)):
+            w = (w << np.uint32(2)) | c[:, j]
+        words.append(w)
+    return np.stack(words, axis=1)
+
+
+def canonical_limbs(codes: np.ndarray, k: int = K_WIDE) -> np.ndarray:
+    """uint64[n_reads * (READ_LEN - k + 1), 4] canonical k-mer (96 < k <=
+    128) of every k-window of the reads, N read as A: the smaller of the
+    window and its reverse complement as a number of 2k bits, in 4 limbs,
+    most significant first (their lexicographic order is the bases' order).
+    Each read's first window is packed base by base, the next ones rolled
+    in one base at a time (both strands, carries across the limbs); blocks
+    of 100,000 reads keep the temporaries small."""
+    assert 96 < k <= 128
+    u = np.uint64
+    top = 2 * (k - 1) - 192                  # bit of base 0 in limb 0
+    mask0 = u((1 << (2 * k - 192)) - 1)
+    out = []
+    for lo in range(0, codes.shape[0], 100_000):
+        c = codes[lo:lo + 100_000].astype(np.uint64)
+        c[c == 4] = 0
+        nwin = c.shape[1] - k + 1
+        f = [np.zeros(c.shape[0], np.uint64) for _ in range(4)]
+        r = [np.zeros(c.shape[0], np.uint64) for _ in range(4)]
+        # the first window; base j of its reverse complement is 3 - base
+        # k-1-j
+        for j in range(k):
+            t = 3 - (k - 1 - j) // 32          # the limb base j falls in
+            f[t] = (f[t] << u(2)) | c[:, j]
+            r[t] = (r[t] << u(2)) | (u(3) - c[:, k - 1 - j])
+        win = np.empty((c.shape[0], nwin, 4), np.uint64)
+        for o in range(nwin):
+            if o:
+                x = c[:, o + k - 1]
+                f[0] = ((f[0] << u(2)) | (f[1] >> u(62))) & mask0
+                f[1] = (f[1] << u(2)) | (f[2] >> u(62))
+                f[2] = (f[2] << u(2)) | (f[3] >> u(62))
+                f[3] = (f[3] << u(2)) | x
+                r[3] = (r[3] >> u(2)) | ((r[2] & u(3)) << u(62))
+                r[2] = (r[2] >> u(2)) | ((r[1] & u(3)) << u(62))
+                r[1] = (r[1] >> u(2)) | ((r[0] & u(3)) << u(62))
+                r[0] = (r[0] >> u(2)) | ((u(3) - x) << u(top))
+            rc_less = np.zeros(c.shape[0], bool)
+            for t in range(3, -1, -1):
+                rc_less = np.where(r[t] != f[t], r[t] < f[t], rc_less)
+            for t in range(4):
+                win[:, o, t] = np.where(rc_less, r[t], f[t])
+        out.append(win.reshape(-1, 4))
+    return np.concatenate(out)
+
+
+def limb_hash(limbs: np.ndarray) -> np.ndarray:
+    """uint64 hash of each row of uint64[n, 4] limbs (splitmix64 finalizer
+    over a running combination); equal rows hash equal."""
+    with np.errstate(over="ignore"):
+        h = np.zeros(limbs.shape[0], np.uint64)
+        for t in range(limbs.shape[1]):
+            h = (h ^ limbs[:, t]) * np.uint64(0x9E3779B97F4A7C15)
+            h ^= h >> np.uint64(31)
+            h *= np.uint64(0xBF58476D1CE4E5B9)
+            h ^= h >> np.uint64(27)
+        return h
+
+
+class LimbCounter:
+    """Exact multiset of canonical limb rows: rows sorted by `limb_hash`
+    (`order`: their indices in the input); counts of query rows by a binary
+    search of their hashes, each hit checked limb by limb (a hash shared by
+    two different rows raises)."""
+
+    def __init__(self, limbs: np.ndarray):
+        h = limb_hash(limbs)
+        self.order = np.argsort(h)
+        self.h, self.rows = h[self.order], limbs[self.order]
+        same = self.h[1:] == self.h[:-1]
+        if (self.rows[1:][same] != self.rows[:-1][same]).any():
+            raise AssertionError("limb_hash collision in the reference")
+
+    def span(self, q: np.ndarray):
+        """(first index, count) of each query row among the rows."""
+        hq = limb_hash(q)
+        lo = np.searchsorted(self.h, hq, "left")
+        cnt = np.searchsorted(self.h, hq, "right") - lo
+        hit = cnt > 0
+        if (self.rows[lo[hit]] != q[hit]).any():
+            raise AssertionError("limb_hash collision with a query")
+        return lo, cnt
 
 
 def sync(dev):
@@ -581,13 +686,146 @@ def phase_p6(dev, path, quals, qcodes, queries, canon_all, want_counts, smi,
     return p6
 
 
+def phase_p7(dev, path, codes, quals, smi, n_queries: int = 1_000_000,
+             n_sample: int = 10_000) -> dict:
+    """P7: P4's FASTQ at k = 127 (the module docstring) through CountIndex
+    and PositionQualityIndex on one shard.  Returns the kernel launches of
+    its run; raises on any difference from numpy."""
+    import torch
+    from kmerind_tpu_torch import DNA, CountIndex, KmerSpec, PositionQualityIndex
+    from kmerind_tpu_torch.ops import kernels
+    spec = KmerSpec(K_WIDE, DNA)
+    nwin = READ_LEN - K_WIDE + 1
+    n_reads = codes.shape[0]
+    n_windows = n_reads * nwin
+    # the numpy reference: canonical limbs of every window, and the queries
+    t0 = time.perf_counter()
+    limbs = canonical_limbs(codes)
+    ref = LimbCounter(limbs)
+    rng = np.random.default_rng(7)
+    n_read_q = n_queries * 9 // 10
+    r = rng.integers(0, n_reads, n_read_q)
+    o = rng.integers(0, nwin, n_read_q)
+    qcodes = np.concatenate([
+        codes[r[:, None], o[:, None] + np.arange(K_WIDE)],
+        rng.integers(0, 4, (n_queries - n_read_q, K_WIDE), dtype=np.uint8)])
+    qcodes[qcodes == 4] = 0               # DNA encodes N as A
+    queries = pack_rows(qcodes)
+    qlimbs = canonical_limbs(qcodes)
+    want_counts = ref.span(qlimbs)[1]
+    ref_s = time.perf_counter() - t0
+    log(f"P7 numpy reference: {n_windows} canonical {K_WIDE}-mer windows, "
+        f"{n_queries} queries, {ref_s:.2f} s [{smi}]")
+
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    idx = CountIndex(spec, device=dev, max_runs=8)
+    t0 = time.perf_counter()
+    idx.build(path)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    chunks, merges = idx.timer.count("insert"), idx.timer.count("merge")
+    t0 = time.perf_counter()
+    counts = idx.count(queries)
+    count_s = time.perf_counter() - t0
+    if not np.array_equal(counts, want_counts):
+        raise AssertionError(
+            f"P7: {int((counts != want_counts).sum())} of {counts.size} "
+            "counts differ from the numpy reference")
+    if not (counts[:n_read_q] >= 1).all():
+        raise AssertionError("P7: a sampled read window counted 0")
+    rows, cnts = idx.items()
+    if int(cnts.sum()) != n_windows or rows.shape[0] != idx.size():
+        raise AssertionError(f"P7 items: sum {int(cnts.sum())} != "
+                             f"{n_windows} windows")
+    peak = peak_bytes(dev)
+    log(f"P7 CountIndex k={K_WIDE}, 1 shard: build {build_s:.3f} s = "
+        f"{n_windows / build_s:.0f} k-mers/s, {chunks} chunks, {merges} "
+        f"merges; count of {n_queries}: {count_s:.3f} s = "
+        f"{n_queries / count_s:.0f} q/s == numpy counts; items: "
+        f"{rows.shape[0]} distinct, count sum == {n_windows} windows; peak "
+        f"device memory {peak} bytes [{smi}]")
+    log("P7 CountIndex phases:\n" + idx.timer.report("P7"))
+    del idx, rows, cnts
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the sampled finds: every window whose canonical key is a sampled
+    # read-window query's, its id and quality
+    sample = rng.choice(n_read_q, n_sample, replace=False)
+    first, cnt = ref.span(qlimbs[sample])
+    wq_all = window_quality(quals, K_WIDE).reshape(-1)
+    del limbs
+    pq = PositionQualityIndex(spec, canonical=True, device=dev)
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    pq.build(path)
+    sync(dev)
+    pq_build_s = time.perf_counter() - t0
+    pq_chunks = pq.timer.count("insert")
+    size = pq.size()
+    flushes = pq.timer.count("merge")
+    if size != n_windows:
+        raise AssertionError(f"P7: size {size} != {n_windows} windows")
+    t0 = time.perf_counter()
+    f_ids, f_q, f_mask = pq.find(queries[sample], with_quality=True)
+    find_s = time.perf_counter() - t0
+    worst, pairs = 0.0, 0
+    for i in range(n_sample):
+        widx = ref.order[first[i]:first[i] + cnt[i]]
+        want_ids = short_ids(np.stack(np.divmod(widx, nwin), 1))
+        want_q = wq_all[widx]
+        o = np.argsort(want_ids)
+        want_ids, want_q = want_ids[o], want_q[o]
+        got_ids, got_q = f_ids[i][f_mask[i]], f_q[i][f_mask[i]]
+        g = np.argsort(got_ids)
+        got_ids, got_q = got_ids[g], got_q[g].astype(np.float64)
+        if not np.array_equal(got_ids, want_ids):
+            raise AssertionError(f"P7: find of sampled query {i}: ids != "
+                                 "the numpy window ids")
+        if not (np.array_equal(got_q == 0, want_q == 0) and np.allclose(
+                got_q, want_q, rtol=1e-4, atol=0)):
+            raise AssertionError(f"P7: find of sampled query {i}: "
+                                 "qualities off by more than rtol 1e-4")
+        live = want_q > 0
+        if live.any():
+            worst = max(worst, float(np.max(
+                np.abs(got_q[live] - want_q[live]) / want_q[live])))
+        pairs += want_ids.size
+    p7 = dict(kernels.LAUNCHES)
+    k1 = dict(kernels.K1_LAUNCHES)
+    peak = peak_bytes(dev)
+    log(f"P7 PositionQualityIndex k={K_WIDE}, canonical, 1 shard: build "
+        f"{pq_build_s:.3f} s = {n_windows / pq_build_s:.0f} k-mers/s, "
+        f"{pq_chunks} chunks, {flushes} flushes, size {size} == windows; "
+        f"find(with_quality) of {n_sample} sampled queries {find_s:.3f} s "
+        f"= {n_sample / find_s:.0f} q/s == numpy id sets ({pairs} pairs), "
+        f"qualities max rel err {worst:.3e} (rtol 1e-4); peak device memory "
+        f"{peak} bytes [{smi}]")
+    log("P7 PositionQualityIndex phases:\n" + pq.timer.report("P7"))
+    log(f"P7 launches: {p7}")
+    log(f"P7 K1 launches by kernel: {k1}")
+    if not p7["extract_canonical"] == k1["wide"] == chunks + pq_chunks:
+        raise AssertionError(f"P7: K1 launches {p7['extract_canonical']} "
+                             f"(wide {k1['wide']}) != {chunks + pq_chunks} "
+                             "chunks")
+    if p7["merge_runs_cols"] < merges + flushes or not merges or not flushes:
+        raise AssertionError(f"P7: K2 launches < {merges} merges + "
+                             f"{flushes} flushes")
+    return p7
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
-    from kmerind_tpu_torch import (DNA, DNA16, CountIndex, KmerSpec,
+    from kmerind_tpu_torch import (ASCII, DNA, DNA16, CountIndex, KmerSpec,
                                    PositionIndex, PositionQualityIndex,
                                    SortedCountIndex,
                                    SortedPositionQualityIndex)
@@ -624,18 +862,22 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
 
-    def record(kname, case, call, plain, err, nbytes, library=None):
+    def record(kname, case, call, plain, err, nbytes, library=None,
+               slow_plain=False):
         """Check one P2 case and time it: the kernel's wrapper over many
         launches (`median_ms`), one call alone (`single_ms`), the host's
         enqueue time per call (`host_ms`) and under the profiler (its
         kernels' device time per call); the plain version and the library
-        call the same way as the wrapper."""
+        call the same way as the wrapper (`slow_plain`: a plain version of
+        a large fraction of a second a call is timed over 5 calls, one a
+        run, not over 121)."""
         if err != 0:
             raise AssertionError(f"{kname} {case}: kernel != plain "
                                  f"(max_abs_err {err})")
         ms, one, host = median_ms(call), single_ms(call), host_ms(call)
         device_ms = sum(kernel_us_per_call(call).values()) / 1e3
-        plain_ms = median_ms(plain)
+        plain_ms = (median_ms(plain, reps=3, calls=1, min_run_ms=0.0)
+                    if slow_plain else median_ms(plain))
         library_ms = None if library is None else median_ms(library)
         bound = bound_ms(nbytes)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
@@ -669,12 +911,16 @@ def main() -> int:
                lambda: kernels.extract_canonical(codes, spec),
                lambda: packing.extract_canonical(codes, spec), err,
                kernel_bytes("extract_canonical", n=codes.shape[0],
-                            nwords=spec.nwords))
+                            nwords=spec.nwords), slow_plain=spec.k > 64)
 
     # k=21: the main path; k=63 DNA, k=31 DNA16: 128-bit rolling state;
-    # k=127 DNA: the wide per-window kernel (k * bits > 128)
+    # above 128 bits the wide bit-stream kernel: DNA k=65 to 1024 (k=127:
+    # P7), DNA16 and ASCII at k=64
     for spec in (KmerSpec(21, DNA), KmerSpec(63, DNA), KmerSpec(31, DNA16),
-                 KmerSpec(127, DNA)):
+                 KmerSpec(65, DNA), KmerSpec(K_WIDE, DNA),
+                 KmerSpec(255, DNA), KmerSpec(512, DNA),
+                 KmerSpec(1024, DNA), KmerSpec(64, DNA16),
+                 KmerSpec(64, ASCII)):
         codes = torch.randint(0, spec.alphabet.size, (CHUNK,),
                               dtype=torch.uint8, device=dev, generator=gen)
         canonical(f"n={CHUNK} {spec} ({kernels.k1_kernel(spec)})", codes,
@@ -687,14 +933,15 @@ def main() -> int:
               KmerSpec(21, DNA))
     del codes, big
 
-    def sorted_run(n, flagged=False):
-        """[2, n] sorted k=21 key columns, 1 % sentinel rows at the tail;
-        flagged: k=32 full words behind a liveness flag column (0 live, 1
-        dead), the flagged multimap flush's [3, n] keys."""
-        words = torch.randint(-(2**31), 2**31 - 1, (n, 2), dtype=torch.int32,
+    def sorted_run(n, flagged=False, w=2):
+        """[w, n] sorted key columns, 1 % sentinel rows at the tail: k=21
+        (w=2) or k=127 (w=8) DNA words; flagged: w full words (k=32: 2,
+        k=512: 32) behind a liveness flag column (0 live, 1 dead), the
+        flagged multimap flush's [w + 1, n] keys."""
+        words = torch.randint(-(2**31), 2**31 - 1, (n, w), dtype=torch.int32,
                               device=dev, generator=gen)
-        if not flagged:
-            words[:, 1] &= 0x3FF              # k=21: 10-bit last word
+        if not flagged:                       # the right-aligned last word
+            words[:, -1] &= 0x3FF if w == 2 else 0x3FFFFFFF
         valid = torch.rand(n, device=dev, generator=gen) > 0.01
         cols, _, s_valid = sortops.sort_rows(words, (), valid,
                                              sentinel_ok=not flagged,
@@ -724,12 +971,22 @@ def main() -> int:
         del a, b, pa, pb
 
     # the multimap flushes: a store of 2^26 rows merged with a batch of
-    # 2^24, the id halves and the quality bits riding as 3 payloads; and
-    # the flagged flush (k = 32: a flag column ahead of the 2 key words).
-    # Library call: the stable sort of the 2 key words packed in int64.
-    for flagged in (False, True):
-        na, nb, npay = 1 << 26, 1 << 24, 3
-        a, b = sorted_run(na, flagged), sorted_run(nb, flagged)
+    # 2^24, the id halves and the quality bits riding as 3 payloads, at
+    # k=21 (w=2), in the flagged flush (k = 32: a flag column ahead of the
+    # 2 key words) and at k=127 (w=8, P7's flushes); P7's CountIndex
+    # merges (8,388,628 + 8,388,628 rows, w=8, keys only); and the widest
+    # keys, DNA k=512 (a flag and 32 full words) with Bimolecule's 4
+    # payloads, past the 9 key words K2 compares in registers.  Library
+    # call: the stable sort of the first 2 key words packed in int64.
+    for na, nb, npay, w, flagged, shape in (
+            (1 << 26, 1 << 24, 3, 2, False, "multimap flush, w=2"),
+            (1 << 26, 1 << 24, 3, 2, True,
+             "flagged flush, w=3 (flag + 2 words)"),
+            (CHUNK, CHUNK, 0, 8, False, "k=127 merge, w=8"),
+            (1 << 26, 1 << 24, 3, 8, False, "k=127 multimap flush, w=8"),
+            (1 << 22, 1 << 22, 4, 32, True,
+             "k=512 flagged, w=33 (flag + 32 words)")):
+        a, b = sorted_run(na, flagged, w), sorted_run(nb, flagged, w)
         pa, pb = (tuple(torch.randint(-(2**31), 2**31 - 1, (n,),
                                       dtype=torch.int32, device=dev,
                                       generator=gen) for _ in range(npay))
@@ -737,35 +994,38 @@ def main() -> int:
         gk, gp = kernels.merge_runs_cols(a, pa, b, pb)
         wk, wp = kernels.merge_runs_cols_plain(a, pa, b, pb)
         err = max([err_of(gk, wk)] + [err_of(x, y) for x, y in zip(gp, wp)])
-        w, n_out = gk.shape
+        kw, n_out = gk.shape
         del gk, gp, wk, wp
-        shape = "flagged flush, w=3 (flag + 2 words)" if flagged else \
-            "multimap flush, w=2"
         record("merge_runs_cols", f"{na}+{nb} {shape} payloads={npay}",
                lambda: kernels.merge_runs_cols(a, pa, b, pb),
                lambda: kernels.merge_runs_cols_plain(a, pa, b, pb),
                err, kernel_bytes("merge_runs_cols", na=na, nb=nb,
-                                 n_out=n_out, w=w, npay=npay),
-               packed_sort(a[w - 2:], b[w - 2:]))
+                                 n_out=n_out, w=kw, npay=npay),
+               packed_sort(a[kw - w:kw - w + 2], b[kw - w:kw - w + 2]),
+               slow_plain=kw > 2)
         del a, b, pa, pb
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
-    a, b = (sorted_run(CHUNK).t().contiguous() for _ in range(2))
-    pa, pb = ((torch.randint(0, 100, (CHUNK,), dtype=torch.int32, device=dev,
-                             generator=gen),) for _ in range(2))
-    kernels.LAUNCHES["merge_sorted_runs"] = 0
-    gk, gp = kernels.merge_sorted_runs(a, pa, b, pb)
-    wk, wp = kernels.merge_sorted_runs_plain(a, pa, b, pb)
-    k2r_launches = kernels.LAUNCHES["merge_sorted_runs"]
-    err, n_out = max(err_of(gk, wk), err_of(gp[0], wp[0])), gk.shape[0]
-    del gk, gp, wk, wp
-    record("merge_sorted_runs", f"{CHUNK}+{CHUNK} rows w=2 payloads=1",
-           lambda: kernels.merge_sorted_runs(a, pa, b, pb),
-           lambda: kernels.merge_sorted_runs_plain(a, pa, b, pb), err,
-           kernel_bytes("merge_sorted_runs", na=CHUNK, nb=CHUNK,
-                        n_out=n_out, w=2, npay=1),
-           packed_sort(a.t(), b.t()))
-    del a, b, pa, pb
+    # K2′: row-major runs, w=2 and w=8, one payload
+    k2r_launches = 0
+    for w in (2, 8):
+        a, b = (sorted_run(CHUNK, w=w).t().contiguous() for _ in range(2))
+        pa, pb = ((torch.randint(0, 100, (CHUNK,), dtype=torch.int32,
+                                 device=dev, generator=gen),)
+                  for _ in range(2))
+        kernels.LAUNCHES["merge_sorted_runs"] = 0
+        gk, gp = kernels.merge_sorted_runs(a, pa, b, pb)
+        wk, wp = kernels.merge_sorted_runs_plain(a, pa, b, pb)
+        k2r_launches += kernels.LAUNCHES["merge_sorted_runs"]
+        err, n_out = max(err_of(gk, wk), err_of(gp[0], wp[0])), gk.shape[0]
+        del gk, gp, wk, wp
+        record("merge_sorted_runs", f"{CHUNK}+{CHUNK} rows w={w} payloads=1",
+               lambda: kernels.merge_sorted_runs(a, pa, b, pb),
+               lambda: kernels.merge_sorted_runs_plain(a, pa, b, pb), err,
+               kernel_bytes("merge_sorted_runs", na=CHUNK, nb=CHUNK,
+                            n_out=n_out, w=w, npay=1),
+               packed_sort(a[:, :2].t(), b[:, :2].t()), slow_plain=w > 2)
+        del a, b, pa, pb
 
     for hi in (2, 101):
         x = torch.randint(0, hi, (1 << 28,), dtype=torch.int32, device=dev,
@@ -1021,14 +1281,20 @@ def main() -> int:
         # ------------------------------------------------------------ P6
         launches["P6"] = phase_p6(dev, path, quals, qcodes, queries,
                                   canon_all, want_counts, smi)
-        del canon_all, sorted_codes
+        del canon_all, sorted_codes, qcodes, queries, want_counts
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------------------ P7
+        t0 = time.perf_counter()
+        launches["P7"] = phase_p7(dev, path, codes, quals, smi)
+        log(f"P7 seconds {time.perf_counter() - t0:.2f} [{smi}]")
 
     log(f"total seconds {time.perf_counter() - t_all:.2f} [{smi}]")
     entries = []
     for kname, (src, replaces) in kernels.KERNELS.items():
-        # main-path launches (P4 + P5 + P6, and per run); K2′ is on no
-        # index's path: P2's
-        by_run = {r: launches[r][kname] for r in ("P4", "P5", "P6")}
+        # main-path launches (P4 + P5 + P6 + P7, and per run); K2′ is on
+        # no index's path: P2's
+        by_run = {r: launches[r][kname] for r in ("P4", "P5", "P6", "P7")}
         n = (k2r_launches if kname == "merge_sorted_runs"
              else sum(by_run.values()))
         entries.append({"name": kname, "route": "cuda", "source": src,

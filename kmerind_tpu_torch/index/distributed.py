@@ -161,9 +161,8 @@ def multi_merge_step(store: st.MultiStore, words, hi, lo, q, valid,
                      sentinel_ok: bool):
     """Deferred merge of owner-resident tuples into each shard's store:
     words [p, n, w], hi / lo / valid [p, n], q float32[p, n] or None (the
-    store carries no quality).  Every shard flushes through the K2 merge,
-    flagged where keys may equal the sentinel (K2 takes at most 5 key
-    columns, flag included: wider keys raise in its wrapper).  Returns
+    store carries no quality).  Every shard flushes through the K2 merge
+    (any key width), flagged where keys may equal the sentinel.  Returns
     (new stacked store, the largest shard overflow)."""
     flush = (st.multi_merge_flush if sentinel_ok
              else st.multi_merge_flush_flagged)

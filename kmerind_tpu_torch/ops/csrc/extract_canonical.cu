@@ -47,10 +47,33 @@
 // 3-40 % slower; streaming cache hints and cp.async staging moved it by
 // 2 % or less; storing each thread's chunks straight from registers was
 // 2.4x slower than the staged stores.
-//  * wider k-mers (extract_wide_kernel, k * bits > 128): one thread per
-//    window over a 256-window tile plus halo in shared memory; the strand
-//    choice compares forward and reverse-complement characters up to the
-//    first difference, then packs only the chosen strand.
+//  * wider k-mers (extract_wide_kernel, k * bits > 128, any k whose tile
+//    fits shared memory: DNA k up to ~150,000): packing a window from its
+//    k characters costs O(k) a window, and its strand choice a walk of up
+//    to k characters with a data-dependent branch.  Instead a CTA stages
+//    its kWideTile windows' codes plus the k - 1 halo once (16-byte loads
+//    of the aligned chunks inside the codes) and bit-packs them twice into
+//    shared memory: the forward stream and the reversed, complemented
+//    stream, `bits` bits a character, big-endian.  Both strands of every
+//    window are then contiguous in one stream each (the reverse complement
+//    of window j starts at character span - k - j of the reversed stream),
+//    so every output word is one funnel-shift extraction of nch * bits
+//    bits at a bit offset (30-bit words for DNA5/6 included): O(nwords) a
+//    window.  The strand choice compares the two strands word by word from
+//    word 0 (numeric order of equal-width big-endian words is the
+//    characters' order) and stops at the first word that differs, nearly
+//    always word 0; equal strands take the forward one.  Windows are
+//    striped over the threads (window s * kWideThreads + t, kWideItems of
+//    them), so each word column is written with coalesced 4-byte stores: a
+//    warp writes 128 whole bytes, and the 16-byte staged stores of the
+//    rolling kernels would buy nothing but fewer store instructions.  A
+//    thread decides all of its windows' strands first, then stores word
+//    column by word column, so a tile writes each column's block at once
+//    (window by window: k=1024 22 % slower, the 64 columns' blocks filled
+//    a little at a time).
+//    tools/sweep_variants.py chose 256 threads of 4 windows (1024-window
+//    tiles, k=127: 69.0 -> 74.6 % of the bound); 8 and 16 windows a thread
+//    and 128 threads measured 8-18 % slower.
 // The wrapper (ops/kernels.py::extract_canonical) picks the kernel by
 // k * bits alone.  The complement is a 256-entry table passed by value
 // (kernel parameter space) and staged in shared memory: one code path for
@@ -74,8 +97,9 @@ constexpr int kFront = 16;                  // zero bytes before the tile's code
 constexpr int kCodeBytes = kFront + ((15 + kTile + kMaxHalo + 15) / 16) * 16 + 16;
 constexpr int kMaxWords64 = 3;              // nwords of a 64-bit state (DNA5 k=21)
 constexpr int kMaxWords128 = 5;             // of a 128-bit state (DNA5 k=42)
-constexpr int kWideThreads = 256;           // windows per CTA, wide kernel
-constexpr int kMaxK = 512;                  // same bound as the Pallas kernel
+constexpr int kWideThreads = 256;           // threads of a wide tile
+constexpr int kWideItems = 4;               // windows per thread, wide kernel
+constexpr int kWideTile = kWideThreads * kWideItems;
 
 static_assert(kItems % 4 == 0, "a thread writes whole 16-byte chunks");
 static_assert(kTile % 16 == 0, "tiles keep 16-byte alignment");
@@ -341,46 +365,155 @@ extract_rolling_kernel(const uint8_t* __restrict__ codes, int64_t n,
 }
 
 // ------------------------------------------------------- wide kernel
+// shared-memory layout of a wide tile of k-mers: `span` codes (the tile's
+// windows plus the halo), staged as `code_bytes`, and two bit streams of
+// `swords` words each (one more than the span needs: the funnel shifts
+// read a word past the last character)
+struct WideShape {
+  int span, code_bytes, swords;
+};
+
+WideShape wide_shape(int k, int bits) {
+  WideShape sh;
+  sh.span = kWideTile + k - 1;
+  sh.code_bytes = 16 * ((sh.span + 30) / 16);
+  sh.swords = (sh.span * bits + 31) / 32 + 1;
+  return sh;
+}
+
+size_t wide_smem(const WideShape& sh) {
+  return static_cast<size_t>(sh.code_bytes) + 8 * static_cast<size_t>(sh.swords) +
+         256;
+}
+
+// bits [32q, 32q + 32) of the big-endian stream of `bits`-bit characters
+// ch(0), ch(1), ...
+template <typename Ch>
+__device__ __forceinline__ uint32_t stream_word(int q, int bits, const Ch& ch) {
+  const int lo = 32 * q;
+  const int j0 = lo / bits, j1 = (lo + 31) / bits;
+  uint64_t acc = 0;
+  for (int j = j0; j <= j1; ++j) acc = (acc << bits) | ch(j);
+  return static_cast<uint32_t>(acc >> ((j1 + 1) * bits - lo - 32));
+}
+
+// the nbits (<= 32) bits of a stream from character p on, right-aligned
+__device__ __forceinline__ uint32_t stream_field(const uint32_t* s, int p,
+                                                 int bits, int nbits) {
+  const int o = p * bits;
+  const uint32_t x = __funnelshift_l(s[(o >> 5) + 1], s[o >> 5], o & 31);
+  return x >> (32 - nbits);
+}
+
 __global__ void __launch_bounds__(kWideThreads)
 extract_wide_kernel(const uint8_t* __restrict__ codes, int64_t n,
                     CompLut lut_in, int k, int bits, int cpw, int nwords,
-                    uint32_t* __restrict__ words, bool* __restrict__ was_rc) {
-  __shared__ uint8_t tile[kWideThreads + kMaxK - 1];
-  __shared__ uint8_t lut[256];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kWideThreads;
-  for (int t = threadIdx.x; t < 256; t += kWideThreads) lut[t] = lut_in.v[t];
-  const int span = kWideThreads + k - 1;
-  for (int t = threadIdx.x; t < span; t += kWideThreads) {
-    const int64_t g = base + t;
-    tile[t] = g < n ? codes[g] : 0;  // zero past the end, like the TPU pad
+                    WideShape sh, uint32_t* __restrict__ words,
+                    bool* __restrict__ was_rc) {
+  extern __shared__ uint4 wsmem[];
+  uint8_t* scodes = reinterpret_cast<uint8_t*>(wsmem);
+  uint32_t* fwd = reinterpret_cast<uint32_t*>(scodes + sh.code_bytes);
+  uint32_t* rev = fwd + sh.swords;
+  uint8_t* lut = reinterpret_cast<uint8_t*>(rev + sh.swords);
+  const int tid = threadIdx.x;
+  const int span = sh.span;
+  const int64_t g0 = static_cast<int64_t>(blockIdx.x) * kWideTile;
+  for (int t = tid; t < 256; t += kWideThreads) lut[t] = lut_in.v[t];
+
+  // stage codes [g0, g0 + span) at scodes[a, a + span), a = the codes'
+  // address % 16: chunk m is aligned chunk g0 / 16 + m of the code stream
+  const uintptr_t cp = reinterpret_cast<uintptr_t>(codes);
+  const int a = static_cast<int>(cp & 15);
+  const uint4* chunks = reinterpret_cast<const uint4*>(cp - a) + g0 / 16;
+  const int nchunks = (a + span + 15) / 16;
+  for (int m = tid; m < nchunks; m += kWideThreads) {
+    const int64_t c0 = g0 + 16 * m - a;            // its first code index
+    if (c0 >= 0 && c0 + 16 <= n) {
+      wsmem[m] = __ldg(chunks + m);
+    } else {
+      uint8_t* d = scodes + 16 * m;
+#pragma unroll
+      for (int b = 0; b < 16; ++b) {
+        const int64_t g = c0 + b;
+        d[b] = g >= 0 && g < n ? codes[g] : 0;     // zero past the end
+      }
+    }
   }
   __syncthreads();
-  const int64_t i = base + threadIdx.x;
-  if (i >= n) return;
-  const uint8_t* win = tile + threadIdx.x;
 
-  // strand choice: lex_less(revcomp, forward) on the character sequences
-  bool use_rc = false;
-  for (int j = 0; j < k; ++j) {
-    const uint32_t f = win[j];
-    const uint32_t r = lut[win[k - 1 - j]];
-    if (f != r) {
-      use_rc = r < f;
-      break;
+  // the forward stream (character j = code g0 + j) and the reversed,
+  // complemented one (character j = comp(code g0 + span - 1 - j)); zero
+  // past the span
+  for (int q = tid; q < sh.swords; q += kWideThreads) {
+    fwd[q] = stream_word(q, bits, [&](int j) -> uint32_t {
+      return j < span ? scodes[a + j] : 0u;
+    });
+    rev[q] = stream_word(q, bits, [&](int j) -> uint32_t {
+      return j < span ? lut[scodes[a + span - 1 - j]] : 0u;
+    });
+  }
+  __syncthreads();
+
+  const int full_bits = cpw * bits;
+  const int last_bits = (k - (nwords - 1) * cpw) * bits;
+  int p0s[kWideItems];
+  bool rcs[kWideItems];
+  for (int s = 0; s < kWideItems; ++s) {
+    const int j = s * kWideThreads + tid;          // the window in the tile
+    const int64_t i = g0 + j;
+    if (i >= n) break;
+    const int r0 = span - k - j;                   // its strand in `rev`
+    bool use_rc = false;
+    for (int w = 0; w < nwords; ++w) {
+      const int nb = w < nwords - 1 ? full_bits : last_bits;
+      const uint32_t f = stream_field(fwd, j + w * cpw, bits, nb);
+      const uint32_t r = stream_field(rev, r0 + w * cpw, bits, nb);
+      if (f != r) {
+        use_rc = r < f;
+        break;
+      }
     }
+    p0s[s] = use_rc ? r0 : j;
+    rcs[s] = use_rc;
+    was_rc[i] = use_rc;
   }
   for (int w = 0; w < nwords; ++w) {
-    const int c0 = w * cpw;
-    const int nch = min(cpw, k - c0);
-    uint32_t acc = 0;
-    for (int j = 0; j < nch; ++j) {
-      const int pos = c0 + j;
-      const uint32_t c = use_rc ? lut[win[k - 1 - pos]] : win[pos];
-      acc = (acc << bits) | c;
+    const int nb = w < nwords - 1 ? full_bits : last_bits;
+#pragma unroll
+    for (int s = 0; s < kWideItems; ++s) {
+      const int64_t i = g0 + s * kWideThreads + tid;
+      if (i < n)
+        words[static_cast<int64_t>(w) * n + i] =
+            stream_field(rcs[s] ? rev : fwd, p0s[s] + w * cpw, bits, nb);
     }
-    words[static_cast<int64_t>(w) * n + i] = acc;
   }
-  was_rc[i] = use_rc;
+}
+
+// launch the wide kernel, one CTA per kWideTile windows; a tile whose
+// staged codes and streams pass the device's shared memory is refused
+cudaError_t launch_wide(const uint8_t* codes, int64_t n, const CompLut& lut,
+                        int k, int bits, int cpw, int nwords, uint32_t* words,
+                        bool* was_rc, cudaStream_t stream) {
+  const WideShape sh = wide_shape(k, bits);
+  const size_t smem = wide_smem(sh);
+  if (smem > 48 * 1024) {
+    int dev = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    if (smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(extract_wide_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int64_t tiles = (n + kWideTile - 1) / kWideTile;
+  extract_wide_kernel<<<static_cast<unsigned>(tiles), kWideThreads, smem,
+                        stream>>>(codes, n, lut, k, bits, cpw, nwords, sh,
+                                  words, was_rc);
+  return cudaGetLastError();
 }
 
 size_t rolling_smem(int nwords) {
@@ -419,11 +552,13 @@ cudaError_t launch_rolling(const uint8_t* codes, int64_t n,
 
 }  // namespace
 
-// windows per tile of the rolling kernels (the tests size their cases by it)
+// windows per tile of the rolling kernels and of the wide kernel (the
+// tests size their cases by them)
 extern "C" int kmerind_extract_canonical_tile() { return kTile; }
+extern "C" int kmerind_extract_wide_tile() { return kWideTile; }
 
 // kernel: 0 = rolling 64-bit state (k * bits <= 64), 1 = rolling 128-bit
-// state (k * bits <= 128), 2 = wide (k <= 512); ops/kernels.py::k1_kernel
+// state (k * bits <= 128), 2 = wide (any k); ops/kernels.py::k1_kernel
 // picks it from the spec's width
 extern "C" int kmerind_extract_canonical(const uint8_t* codes, int64_t n,
                                          const uint8_t* comp_lut_host,
@@ -434,7 +569,7 @@ extern "C" int kmerind_extract_canonical(const uint8_t* codes, int64_t n,
   const int kb = k * bits;
   const bool ok = n > 0 && k >= 1 && bits >= 2 && bits <= 8 &&
                   ((kernel == 0 && kb <= 64) ||
-                   (kernel == 1 && kb <= 128) || (kernel == 2 && k <= kMaxK));
+                   (kernel == 1 && kb <= 128) || kernel == 2);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   CompLut lut;
   for (int t = 0; t < 256; ++t) lut.v[t] = comp_lut_host[t];
@@ -445,8 +580,6 @@ extern "C" int kmerind_extract_canonical(const uint8_t* codes, int64_t n,
   if (kernel == 1)
     return static_cast<int>(launch_rolling<U128State>(
         codes, n, lut, k, bits, cpw, nwords, words, was_rc, s));
-  const int64_t blocks = (n + kWideThreads - 1) / kWideThreads;
-  extract_wide_kernel<<<static_cast<unsigned>(blocks), kWideThreads, 0, s>>>(
-      codes, n, lut, k, bits, cpw, nwords, words, was_rc);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_wide(codes, n, lut, k, bits, cpw, nwords,
+                                      words, was_rc, s));
 }

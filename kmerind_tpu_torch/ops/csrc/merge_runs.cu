@@ -1,4 +1,5 @@
-// K2: merge of two sorted column-major runs (two-level merge path).
+// K2 / K2′: merge of two sorted runs (two-level merge path), any key width,
+// any number of payloads, column-major or row-major keys.
 //
 // Replaces the Pallas bitonic-merge family in
 // kmerind_tpu/ops/pallas_kernels.py: _bitonic_merge_pallas_cols_2op (:877,
@@ -6,14 +7,16 @@
 // _merge_stage_loop (:936; kernels _make_global_stage2_db_kernel :566,
 // _make_global_stage2_kernel :505, _make_global_stage_kernel :455,
 // _make_local_stages_kernel :795), as reached from
-// sortops.merge_sorted_runs_cols.  Contract (ops/kernels.py::
-// merge_runs_cols_plain is the plain version): runs A [w, na] and B [w, nb]
-// ascending, compared lexicographically on w unsigned 32-bit key words,
-// each carrying 0-3 int32 payload columns; the output is the merged run of
-// n_out >= na + nb rows (the wrapper passes next_pow2(na + nb)) whose tail
-// rows hold the all-ones sentinel key and payload 0.  Ties take A first, so
-// the merge is stable (the bitonic network leaves tie order unset; any
-// order is within the contract).
+// sortops.merge_sorted_runs_cols (K2, column-major keys [w, n]), and
+// bitonic_merge_pallas (:832), as reached from sortops.merge_sorted_runs
+// (K2′, row-major keys [n, w]).  Contract (ops/kernels.py::
+// merge_runs_cols_plain is the plain version): runs A (na rows) and B (nb
+// rows) ascending, compared lexicographically on w unsigned 32-bit key
+// words, each carrying npay int32 payload columns; the output is the merged
+// run of n_out >= na + nb rows (the wrapper passes next_pow2(na + nb))
+// whose tail rows hold the all-ones sentinel key and payload 0.  Ties take A
+// first, so the merge is stable (the bitonic network leaves tie order
+// unset; any order is within the contract).
 //
 // What bounds it on the H100: bytes moved.  Every input row is read and
 // every output row written once: (na + nb) * 4 * (w + p) bytes in and
@@ -29,22 +32,52 @@
 //    CTAs of the same launch write the sentinel tail [na + nb, n_out),
 //    which needs no split: all-ones key words and zero payloads, 16-byte
 //    stores, no loads;
-//  * tile launch: CTA t owns outputs [t * kTile, (t+1) * kTile).  It
-//    loads its A range and its B range (kTile rows between them) column
-//    by column with coalesced loads into shared memory; each thread binary
-//    searches its own split inside the tile in shared memory and merges
-//    its kItems outputs sequentially (same tie rule), recording each
-//    output's source row; per column, the outputs are gathered through
-//    shared memory into blocked order and stored coalesced.  Shared memory
-//    is padded one word per 32, so the blocked and striped accesses are
-//    free of bank conflicts.  kTile = 128 threads x 8 outputs:
+//  * tile launch: CTA t owns outputs [t * kTile, (t+1) * kTile).  It loads
+//    its A range and its B range (kTile rows between them) column by column
+//    with coalesced cp.async copies into shared memory, every column's in
+//    flight at once (loads through registers wait a column at a time:
+//    3-31 % slower, tools/sweep_variants.py); each thread binary searches
+//    its own split inside the tile in shared memory and merges its kItems
+//    outputs sequentially in registers (same tie rule), recording each
+//    output's source row; per staged column, the outputs are gathered
+//    through shared memory into blocked order and stored coalesced.  Shared
+//    memory is padded one word per 32 (and skewed by 32 / P words between
+//    key columns, for row-major loads), so the blocked and striped accesses
+//    are free of bank conflicts.  kTile = 128 threads x 8 outputs:
 //    tools/sweep_variants.py timed 256 and 512 threads, 16 outputs a
-//    thread, register caps and cache hints, none faster.  The staging
-//    takes ncols x 4.1 KB (up to 34 KB at w=5 with 3 payloads), set as the
-//    launch's dynamic shared memory;
+//    thread, register caps and cache hints, none faster;
+//  * key width: a template parameter for 1..9 words (DNA k <= 128 has at
+//    most 8, plus the flag column of full-word keys), so comparisons stay
+//    in registers.  Wider keys take the runtime-width instantiation: it
+//    stages the first kStaged words and, only where those tie, compares the
+//    rest word by word from device memory (the tile's own rows, just
+//    loaded, so mostly cache hits);
+//  * the shared-memory budget: a tile stages its key words (at most 9) and
+//    then payloads, up to kMaxStagedCols columns (12 x 4.2 KB, 51 KB).
+//    Staging every column (ncols x 4.2 KB) would pass the 227 KB a CTA can
+//    have at ~55 columns (ASCII k = 512 alone has 129 key columns), and a
+//    smaller tile would multiply the partition searches.  So the columns
+//    past the budget (key words past the staged ones, payloads past the
+//    twelfth column) are not staged: they are gathered by source row from
+//    device memory (the source rows in shared memory), kGatherBatch
+//    columns at a time by cp.async into a buffer, then stored coalesced.
+//    A warp's 32 outputs come from two short runs of consecutive rows, so
+//    those gathers read whole 32-byte sectors, as coalesced loads would.
+//    A tile with nothing to gather is its own instantiation, without that
+//    code;
+//  * columns without a cap: the key words of a run are one tensor, so a run
+//    passes one pointer (column c of row r at c * n + r, or at r * w + c
+//    for row-major keys); payloads come as a host table of column pointers.
+//    The staged columns' pointers go to the kernel by value (computing them
+//    there, base + c * n or a load from a table, measured 19-36 % slower on
+//    the main path's shapes); the C entry copies the whole table into the
+//    tail of the scratch (one small host-to-device copy) only where some
+//    payload is gathered;
+//  * layout a template parameter: row-major runs (K2′) load and store each
+//    tile's rows as contiguous blocks of rows x w words, their payloads
+//    gathered, so K2′ needs no transpose;
 //  * any na and nb (the main path's runs are chunk+halo rows, not powers of
-//    two), the key width a template parameter (1..5 words) so comparisons
-//    stay in registers; payload columns ride along uncompared.
+//    two).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,59 +88,142 @@ constexpr int kThreads = 128;
 constexpr int kItems = 8;                   // outputs per thread
 constexpr int kTile = kThreads * kItems;    // outputs per CTA
 constexpr int kPadTile = kTile + kTile / 32;
-constexpr int kMaxCols = 8;                 // 5 key words + 3 payloads
+constexpr int kMaxWidth = 9;                // widest key held in registers
+constexpr int kStaged = 8;                  // staged key words, wider keys
+constexpr int kMaxStagedCols = 12;          // key words + payloads staged
+constexpr int kGatherBatch = 4;             // columns gathered at once
 constexpr int kFillVecs = 2048;             // 16-byte stores per fill CTA and column
 constexpr int kPartThreads = 128;
 
+// shared-memory words between staged key columns: a padded tile plus 32 / P,
+// so that the P words of 32 / P neighbouring rows (a warp's row-major load)
+// fall in distinct banks
+template <int P>
+__host__ __device__ constexpr int col_stride() {
+  return kPadTile + (P > 1 ? 32 / P : 0);
+}
+
+// the columns a column-major tile stages, by value: its staged key words,
+// then its staged payloads
 struct Cols {
-  const uint32_t* a[kMaxCols];
-  const uint32_t* b[kMaxCols];
-  uint32_t* out[kMaxCols];
+  const uint32_t* a[kMaxStagedCols];
+  const uint32_t* b[kMaxStagedCols];
+  uint32_t* out[kMaxStagedCols];
 };
+
+struct Args {
+  const uint32_t* a;         // A's key words: [w, na] or [na, w]
+  const uint32_t* b;         // B's key words: [w, nb] or [nb, w]
+  uint32_t* out;             // [w, n_out] or [n_out, w]
+  Cols cols;                 // column-major: the nstaged staged columns
+  // device table of the payload columns (A's npay, B's npay, out's npay),
+  // filled where some payload is not staged (npay > nstage)
+  const uint32_t* const* pay;
+  int64_t na, nb, n_out;
+  int w, npay;
+  int nstage;                // payload columns a column-major tile stages
+  int nstaged;               // staged columns: key words, then payloads
+};
+
+// payload column q of out (the fill of the sentinel tail writes it)
+__device__ __forceinline__ uint32_t* pay_out(const Args& g, int q) {
+  return q < g.nstage ? g.cols.out[g.nstaged - g.nstage + q]
+                      : const_cast<uint32_t*>(g.pay[2 * g.npay + q]);
+}
 
 __device__ __forceinline__ int pad(int p) { return p + (p >> 5); }
 
-// A[i] <= B[j], lexicographic over W unsigned key words in device memory
-template <int W>
-__device__ __forceinline__ bool row_le(const Cols& cols, int64_t i, int64_t j) {
+// one word from device to shared memory without passing through a
+// register (cp.async), so a thread keeps every column's loads in flight;
+// complete after cp_async_wait()
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// word c of row r of a run of n rows and w words
+template <bool kRow>
+__device__ __forceinline__ int64_t at(int64_t r, int c, int64_t n, int w) {
+  return kRow ? r * w + c : static_cast<int64_t>(c) * n + r;
+}
+
+// A[i] <= B[j] on key words [c0, w) in device memory (W > 0: w == W)
+template <int W, bool kRow>
+__device__ __forceinline__ bool rows_le(const Args& g, int c0, int64_t i,
+                                        int64_t j) {
+  const int w = W > 0 ? W : g.w;
 #pragma unroll
-  for (int c = 0; c < W; ++c) {
-    const uint32_t p = cols.a[c][i];
-    const uint32_t q = cols.b[c][j];
+  for (int c = c0; c < (W > 0 ? W : w); ++c) {
+    const uint32_t p = g.a[at<kRow>(i, c, g.na, w)];
+    const uint32_t q = g.b[at<kRow>(j, c, g.nb, w)];
     if (p != q) return p < q;
   }
   return true;
 }
 
-template <int W>
+template <int P>
 __device__ __forceinline__ bool key_le(const uint32_t* x, const uint32_t* y) {
 #pragma unroll
-  for (int c = 0; c < W; ++c) {
+  for (int c = 0; c < P; ++c) {
     if (x[c] != y[c]) return x[c] < y[c];
   }
   return true;
 }
 
+// -1, 0, 1 as x <, ==, > y over P words
+template <int P>
+__device__ __forceinline__ int key_cmp(const uint32_t* x, const uint32_t* y) {
+#pragma unroll
+  for (int c = 0; c < P; ++c) {
+    if (x[c] != y[c]) return x[c] < y[c] ? -1 : 1;
+  }
+  return 0;
+}
+
+// fill segment s of the sentinel tail: its first word, length and value
+template <bool kRow>
+__device__ __forceinline__ uint32_t* fill_segment(const Args& g, int s,
+                                                  int64_t m, int64_t& len,
+                                                  uint32_t& fill) {
+  const int64_t total = g.na + g.nb;
+  const int kseg = kRow ? 1 : g.w;
+  if (s < kseg) {
+    fill = 0xFFFFFFFFu;
+    len = kRow ? m * g.w : m;
+    return kRow ? g.out + total * g.w : g.out + s * g.n_out + total;
+  }
+  fill = 0u;
+  len = m;
+  return pay_out(g, s - kseg) + total;
+}
+
 // CTAs [0, part_ctas): parts[t] = the smallest i in [max(0, d - nb),
 // min(d, na)] with A[i] > B[d-1-i], d = min(t * kTile, na + nb); CTAs past
-// them: the sentinel fill of [na + nb, n_out), per column an unaligned
-// head, a 16-byte body and a tail
-template <int W>
+// them: the sentinel fill of [na + nb, n_out), per segment (a key column,
+// the row-major key block, a payload column) an unaligned head, a 16-byte
+// body and a tail.  W = 0: runtime width.
+template <int W, bool kRow>
 __global__ void __launch_bounds__(kPartThreads)
-merge_partition_kernel(Cols cols, int ncols, int64_t na, int64_t nb,
-                       int64_t n_out, int64_t tiles, int64_t part_ctas,
+merge_partition_kernel(Args g, int64_t tiles, int64_t part_ctas,
                        int64_t* __restrict__ parts) {
   const int tid = threadIdx.x;
   if (static_cast<int64_t>(blockIdx.x) >= part_ctas) {
     const int64_t f = blockIdx.x - part_ctas;
-    const int64_t total = na + nb;
-    const int64_t m = n_out - total;
-    for (int c = 0; c < ncols; ++c) {
-      const uint32_t fill = c < W ? 0xFFFFFFFFu : 0u;
-      uint32_t* o = cols.out[c] + total;
+    const int64_t m = g.n_out - (g.na + g.nb);
+    const int nseg = (kRow ? 1 : g.w) + g.npay;
+    for (int s = 0; s < nseg; ++s) {
+      int64_t len;
+      uint32_t fill;
+      uint32_t* o = fill_segment<kRow>(g, s, m, len, fill);
       const int64_t mis = (reinterpret_cast<uintptr_t>(o) >> 2) & 3;
-      const int64_t head = mis ? (4 - mis < m ? 4 - mis : m) : 0;
-      const int64_t vecs = (m - head) >> 2;
+      const int64_t head = mis ? (4 - mis < len ? 4 - mis : len) : 0;
+      const int64_t vecs = (len - head) >> 2;
       uint4* o4 = reinterpret_cast<uint4*>(o + head);
       const uint4 q = make_uint4(fill, fill, fill, fill);
       for (int64_t v = f * kFillVecs + tid; v < (f + 1) * kFillVecs && v < vecs;
@@ -117,19 +233,20 @@ merge_partition_kernel(Cols cols, int ncols, int64_t na, int64_t nb,
       if (f == 0 && tid < 4) {
         if (tid < head) o[tid] = fill;
         const int64_t r = head + 4 * vecs + tid;
-        if (r < m) o[r] = fill;
+        if (r < len) o[r] = fill;
       }
     }
     return;
   }
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kPartThreads + tid;
   if (t > tiles) return;
+  const int64_t na = g.na, nb = g.nb;
   const int64_t d = t * kTile < na + nb ? t * kTile : na + nb;
   int64_t lo = d > nb ? d - nb : 0;
   int64_t hi = d < na ? d : na;
   while (lo < hi) {
     const int64_t mid = (lo + hi) >> 1;
-    if (row_le<W>(cols, mid, d - 1 - mid)) {
+    if (rows_le<W, kRow>(g, 0, mid, d - 1 - mid)) {
       lo = mid + 1;
     } else {
       hi = mid;
@@ -138,14 +255,24 @@ merge_partition_kernel(Cols cols, int ncols, int64_t na, int64_t nb,
   parts[t] = lo;
 }
 
-// CTA t merges outputs [t * kTile, min((t+1) * kTile, na + nb))
-template <int W>
+// CTA t merges outputs [t * kTile, min((t+1) * kTile, na + nb)).  P key
+// words are staged and compared in registers; kTail: the key has more
+// (g.w > P), compared from device memory where the P staged words tie.
+// Column-major tiles also stage g.nstage payload columns.  kGather: some
+// column is not staged (row-major keys, key words past P, payloads past
+// g.nstage) and is gathered by source row; without it the kernel holds no
+// gather code, whose registers would cost occupancy.
+template <int P, bool kTail, bool kRow, bool kGather>
 __global__ void __launch_bounds__(kThreads)
-merge_tiles_kernel(Cols cols, int ncols, int64_t na, int64_t nb,
-                   const int64_t* __restrict__ parts) {
+merge_tiles_kernel(Args g, const int64_t* __restrict__ parts) {
+  static_assert(kGather || !(kTail || kRow), "those tiles gather");
+  constexpr int kCol = col_stride<P>();
   extern __shared__ uint32_t smem[];
+  const int nstaged = kRow ? P : g.nstaged;
+  int* srcs = reinterpret_cast<int*>(smem + nstaged * kCol);
   const int tid = threadIdx.x;
-  const int64_t total = na + nb;
+  const int w = kTail ? g.w : P;
+  const int64_t total = g.na + g.nb;
   const int64_t t = blockIdx.x;
   const int64_t d0 = t * kTile;
   const int cnt = static_cast<int>((d0 + kTile < total ? d0 + kTile : total) - d0);
@@ -154,18 +281,41 @@ merge_tiles_kernel(Cols cols, int ncols, int64_t na, int64_t nb,
   const int ta = static_cast<int>(parts[t + 1] - a0);   // A rows of the tile
   const int tb = cnt - ta;                                // B rows of the tile
 
-  // stage: A rows at [0, ta), B rows at [ta, cnt), one padded column each
-  for (int c = 0; c < ncols; ++c) {
-    const uint32_t* a = cols.a[c] + a0;
-    const uint32_t* b = cols.b[c] + b0;
-    uint32_t* s = smem + c * kPadTile;
+  // stage key words [0, P) (and, column-major, payloads [0, g.nstage)):
+  // A rows at [0, ta), B rows at [ta, cnt), one padded column each
+  if constexpr (!kRow) {
+    for (int c = 0; c < nstaged; ++c) {
+      const uint32_t* a = g.cols.a[c] + a0;
+      const uint32_t* b = g.cols.b[c] + b0;
+      uint32_t* s = smem + c * kCol;
 #pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int p = k * kThreads + tid;
-      if (p < cnt) s[pad(p)] = p < ta ? a[p] : b[p - ta];
+      for (int k = 0; k < kItems; ++k) {
+        const int p = k * kThreads + tid;
+        if (p < cnt) cp_async4(s + pad(p), p < ta ? a + p : b + (p - ta));
+      }
+    }
+  } else {
+    // the tile's A rows, then its B rows, as one range of cnt * P words
+    // (contiguous blocks of ta * w and tb * w words when w == P)
+#pragma unroll 8
+    for (int k = 0; k < kItems * P; ++k) {
+      const int e = k * kThreads + tid;
+      if (e < cnt * P) {
+        const int p = e / P;
+        const int c = e - p * P;
+        cp_async4(smem + c * kCol + pad(p),
+                  p < ta ? g.a + (a0 + p) * w + c
+                         : g.b + (b0 + p - ta) * w + c);
+      }
     }
   }
+  cp_async_wait();
   __syncthreads();
+
+  // A row i of the tile <= B row j, on the words past the staged ones
+  auto tail_le = [&](int i, int j) {
+    return rows_le<0, kRow>(g, P, a0 + i, b0 + j);
+  };
 
   // this thread's split inside the tile, then its kItems outputs
   const int diag = tid * kItems < cnt ? tid * kItems : cnt;
@@ -174,15 +324,19 @@ merge_tiles_kernel(Cols cols, int ncols, int64_t na, int64_t nb,
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     const int pb = ta + diag - 1 - mid;
-    bool le = true;
+    bool le = true, tie = true;
 #pragma unroll
-    for (int c = 0; c < W; ++c) {
-      const uint32_t x = smem[c * kPadTile + pad(mid)];
-      const uint32_t y = smem[c * kPadTile + pad(pb)];
+    for (int c = 0; c < P; ++c) {
+      const uint32_t x = smem[c * kCol + pad(mid)];
+      const uint32_t y = smem[c * kCol + pad(pb)];
       if (x != y) {
         le = x < y;
+        tie = false;
         break;
       }
+    }
+    if constexpr (kTail) {
+      if (tie) le = tail_le(mid, pb - ta);
     }
     if (le) {
       lo = mid + 1;
@@ -191,16 +345,25 @@ merge_tiles_kernel(Cols cols, int ncols, int64_t na, int64_t nb,
     }
   }
   int i = lo, j = diag - lo;
-  uint32_t ak[W], bk[W];
+  uint32_t ak[P], bk[P];
 #pragma unroll
-  for (int c = 0; c < W; ++c) {
-    ak[c] = i < ta ? smem[c * kPadTile + pad(i)] : 0u;
-    bk[c] = j < tb ? smem[c * kPadTile + pad(ta + j)] : 0u;
+  for (int c = 0; c < P; ++c) {
+    ak[c] = i < ta ? smem[c * kCol + pad(i)] : 0u;
+    bk[c] = j < tb ? smem[c * kCol + pad(ta + j)] : 0u;
   }
   int src[kItems];
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
-    const bool take_a = j >= tb || (i < ta && key_le<W>(ak, bk));
+    bool take_a;
+    if constexpr (kTail) {
+      take_a = j >= tb;
+      if (!take_a && i < ta) {
+        const int cmp = key_cmp<P>(ak, bk);
+        take_a = cmp < 0 || (cmp == 0 && tail_le(i, j));
+      }
+    } else {
+      take_a = j >= tb || (i < ta && key_le<P>(ak, bk));
+    }
     src[k] = take_a ? i : ta + j;
     i += take_a;
     j += !take_a;
@@ -208,30 +371,107 @@ merge_tiles_kernel(Cols cols, int ncols, int64_t na, int64_t nb,
     const int next = take_a ? i : ta + j;
     const bool ok = take_a ? i < ta : j < tb;
 #pragma unroll
-    for (int c = 0; c < W; ++c) {
-      const uint32_t x = ok ? smem[c * kPadTile + pad(next)] : 0u;
+    for (int c = 0; c < P; ++c) {
+      const uint32_t x = ok ? smem[c * kCol + pad(next)] : 0u;
       ak[c] = take_a ? x : ak[c];
       bk[c] = take_a ? bk[c] : x;
     }
   }
-
-  // per column: gather the sources, put them in blocked order, store
-  for (int c = 0; c < ncols; ++c) {
-    uint32_t* s = smem + c * kPadTile;
-    uint32_t v[kItems];
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) v[k] = diag + k < cnt ? s[pad(src[k])] : 0u;
-    __syncthreads();
+  if constexpr (kGather) {
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
-      if (diag + k < cnt) s[pad(diag + k)] = v[k];
+      if (diag + k < cnt) srcs[pad(diag + k)] = src[k];
     }
-    __syncthreads();
-    uint32_t* o = cols.out[c] + d0;
+  }
+  if constexpr (!kRow) {
+    // per staged column: gather the sources, put them in blocked order,
+    // store (the first barrier also publishes srcs)
+    for (int c = 0; c < nstaged; ++c) {
+      uint32_t* s = smem + c * kCol;
+      uint32_t v[kItems];
 #pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int p = k * kThreads + tid;
-      if (p < cnt) o[p] = s[pad(p)];
+      for (int k = 0; k < kItems; ++k) v[k] = diag + k < cnt ? s[pad(src[k])] : 0u;
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        if (diag + k < cnt) s[pad(diag + k)] = v[k];
+      }
+      __syncthreads();
+      uint32_t* o = g.cols.out[c] + d0;
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        const int p = k * kThreads + tid;
+        if (p < cnt) o[p] = s[pad(p)];
+      }
+    }
+  } else {
+    __syncthreads();
+    if constexpr (!kTail) {
+      // rows [d0, d0 + cnt) are one block of cnt * P words
+      uint32_t* o = g.out + d0 * P;
+#pragma unroll 8
+      for (int k = 0; k < kItems * P; ++k) {
+        const int e = k * kThreads + tid;
+        if (e < cnt * P) {
+          const int p = e / P;
+          const int c = e - p * P;
+          o[e] = smem[c * kCol + pad(srcs[pad(p)])];
+        }
+      }
+    } else {
+      uint32_t* o = g.out + d0 * w;
+      for (int e = tid; e < cnt * w; e += kThreads) {
+        const int p = e / w;
+        const int c = e - p * w;
+        const int s = srcs[pad(p)];
+        o[e] = c < P ? smem[c * kCol + pad(s)]
+                     : s < ta ? g.a[(a0 + s) * w + c]
+                              : g.b[(b0 + s - ta) * w + c];
+      }
+    }
+  }
+  if constexpr (kGather) {
+    // the columns past the staged ones (column-major key words past P,
+    // then payloads past g.nstage), gathered by source row, kGatherBatch
+    // at a time: each thread copies its striped outputs' source words into
+    // a buffer by cp.async, so a batch's loads are all in flight without
+    // holding registers, and stores them once its own copies have landed
+    // (no barrier: a thread reads back only what it copied)
+    const int nkeys = kRow ? 0 : w - P;
+    const int q0 = kRow ? 0 : g.nstage;
+    const int ncols = nkeys + g.npay - q0;
+    uint32_t* buf = reinterpret_cast<uint32_t*>(srcs + kPadTile);
+    for (int c0 = 0; c0 < ncols; c0 += kGatherBatch) {
+      const int nc = ncols - c0 < kGatherBatch ? ncols - c0 : kGatherBatch;
+      for (int c = 0; c < nc; ++c) {
+        const int i = c0 + c;
+        const uint32_t* a =
+            i < nkeys ? g.a + (P + i) * g.na : g.pay[q0 + i - nkeys];
+        const uint32_t* b =
+            i < nkeys ? g.b + (P + i) * g.nb : g.pay[g.npay + q0 + i - nkeys];
+#pragma unroll
+        for (int k = 0; k < kItems; ++k) {
+          const int p = k * kThreads + tid;
+          if (p < cnt) {
+            const int s = srcs[pad(p)];
+            cp_async4(buf + c * kTile + p,
+                      s < ta ? a + a0 + s : b + b0 + (s - ta));
+          }
+        }
+      }
+      cp_async_wait();
+      for (int c = 0; c < nc; ++c) {
+        const int i = c0 + c;
+        uint32_t* o = (i < nkeys ? g.out + (P + i) * g.n_out
+                                 : const_cast<uint32_t*>(
+                                       g.pay[2 * g.npay + q0 + i - nkeys])) +
+                      d0;
+#pragma unroll
+        for (int k = 0; k < kItems; ++k) {
+          const int p = k * kThreads + tid;
+          if (p < cnt) o[p] = buf[c * kTile + p];
+        }
+      }
     }
   }
 }
@@ -240,72 +480,123 @@ int64_t merge_tiles_of(int64_t na, int64_t nb) {
   return (na + nb + kTile - 1) / kTile;
 }
 
-template <int W>
-int launch(const Cols& cols, int ncols, int64_t na, int64_t nb,
-           int64_t n_out, int64_t* parts, cudaStream_t s) {
-  const int64_t tiles = merge_tiles_of(na, nb);
-  const int64_t fill = n_out - (na + nb);
+template <int P, bool kTail, bool kRow, bool kGather>
+int launch_tiles(const Args& g, int64_t tiles, int64_t* parts,
+                 cudaStream_t s) {
+  // the staged columns and, where columns are gathered, the source rows
+  // and the gather buffer: up to 12 padded columns, one more and 4 tiles,
+  // 71 KB
+  const int smem = ((kRow ? P : g.nstaged) * col_stride<P>() +
+                    (kGather ? kPadTile + kGatherBatch * kTile : 0)) *
+                   static_cast<int>(sizeof(uint32_t));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        merge_tiles_kernel<P, kTail, kRow, kGather>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  merge_tiles_kernel<P, kTail, kRow, kGather>
+      <<<static_cast<unsigned>(tiles), kThreads, smem, s>>>(g, parts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int P, bool kTail, bool kRow>
+int launch(const Args& g, int64_t* parts, cudaStream_t s) {
+  const int64_t tiles = merge_tiles_of(g.na, g.nb);
+  const int64_t m = g.n_out - (g.na + g.nb);
+  const int64_t longest = kRow ? m * g.w : m;      // longest fill segment
   const int64_t part_ctas =
       tiles > 0 ? (tiles + 1 + kPartThreads - 1) / kPartThreads : 0;
-  const int64_t fill_ctas = (fill + 4 * kFillVecs - 1) / (4 * kFillVecs);
-  merge_partition_kernel<W><<<static_cast<unsigned>(part_ctas + fill_ctas),
-                              kPartThreads, 0, s>>>(
-      cols, ncols, na, nb, n_out, tiles, part_ctas, parts);
+  const int64_t fill_ctas = (longest + 4 * kFillVecs - 1) / (4 * kFillVecs);
+  merge_partition_kernel<kTail ? 0 : P, kRow>
+      <<<static_cast<unsigned>(part_ctas + fill_ctas), kPartThreads, 0, s>>>(
+          g, tiles, part_ctas, parts);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || tiles == 0) return static_cast<int>(err);
-  const int smem = ncols * kPadTile * static_cast<int>(sizeof(uint32_t));
-  err = cudaFuncSetAttribute(merge_tiles_kernel<W>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  merge_tiles_kernel<W><<<static_cast<unsigned>(tiles), kThreads, smem, s>>>(
-      cols, ncols, na, nb, parts);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (kTail || kRow) {
+    return launch_tiles<P, kTail, kRow, true>(g, tiles, parts, s);
+  } else {
+    return g.npay > g.nstage
+               ? launch_tiles<P, kTail, kRow, true>(g, tiles, parts, s)
+               : launch_tiles<P, kTail, kRow, false>(g, tiles, parts, s);
+  }
+}
+
+template <bool kRow>
+int launch_width(const Args& g, int64_t* parts, cudaStream_t s) {
+  static_assert(kMaxWidth == 9 && kStaged <= kMaxWidth, "cases below");
+  static_assert(kMaxStagedCols >= kMaxWidth, "every key word staged");
+  switch (g.w) {
+    case 1: return launch<1, false, kRow>(g, parts, s);
+    case 2: return launch<2, false, kRow>(g, parts, s);
+    case 3: return launch<3, false, kRow>(g, parts, s);
+    case 4: return launch<4, false, kRow>(g, parts, s);
+    case 5: return launch<5, false, kRow>(g, parts, s);
+    case 6: return launch<6, false, kRow>(g, parts, s);
+    case 7: return launch<7, false, kRow>(g, parts, s);
+    case 8: return launch<8, false, kRow>(g, parts, s);
+    case 9: return launch<9, false, kRow>(g, parts, s);
+    default: return launch<kStaged, true, kRow>(g, parts, s);
+  }
 }
 
 }  // namespace
 
-// partition scratch size in int64 entries: one per tile boundary
+// partition scratch size in int64 entries: one per tile boundary (the
+// scratch a call takes is this plus 3 * npay, room for the payload table)
 extern "C" int64_t kmerind_merge_runs_parts(int64_t na, int64_t nb) {
   return merge_tiles_of(na, nb) + 1;
 }
 
-// a_keys [w, na], b_keys [w, nb], out_keys [w, n_out] row-major (one row per
-// key word); a_pay/b_pay/out_pay: npay pointers to int32 columns; parts:
-// kmerind_merge_runs_parts(na, nb) int64 of scratch.
+// a_keys [w, na] / b_keys [w, nb] / out_keys [w, n_out] column-major (one
+// row per key word), or with row_major [na, w] / [nb, w] / [n_out, w];
+// pays: host table of 3 * npay int32 column pointers (A's npay, B's npay,
+// out's npay); scratch: kmerind_merge_runs_parts(na, nb) + 3 * npay int64.
 extern "C" int kmerind_merge_runs(const uint32_t* a_keys, int64_t na,
                                   const uint32_t* b_keys, int64_t nb, int w,
-                                  const int32_t* a_pay0, const int32_t* a_pay1,
-                                  const int32_t* a_pay2, const int32_t* b_pay0,
-                                  const int32_t* b_pay1, const int32_t* b_pay2,
-                                  int npay, uint32_t* out_keys,
-                                  int32_t* out_pay0, int32_t* out_pay1,
-                                  int32_t* out_pay2, int64_t n_out,
-                                  int64_t* parts, void* stream) {
-  if (w < 1 || w > 5 || npay < 0 || npay > 3 || na < 0 || nb < 0 ||
-      n_out < na + nb || n_out <= 0) {
+                                  int row_major, const void* const* pays,
+                                  int npay, uint32_t* out_keys, int64_t n_out,
+                                  int64_t* scratch, void* stream) {
+  if (w < 1 || npay < 0 || na < 0 || nb < 0 || n_out < na + nb ||
+      n_out <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Cols cols = {};
-  for (int c = 0; c < w; ++c) {
-    cols.a[c] = a_keys + c * na;
-    cols.b[c] = b_keys + c * nb;
-    cols.out[c] = out_keys + c * n_out;
-  }
-  const int32_t* ap[3] = {a_pay0, a_pay1, a_pay2};
-  const int32_t* bp[3] = {b_pay0, b_pay1, b_pay2};
-  int32_t* op[3] = {out_pay0, out_pay1, out_pay2};
-  for (int p = 0; p < npay; ++p) {
-    cols.a[w + p] = reinterpret_cast<const uint32_t*>(ap[p]);
-    cols.b[w + p] = reinterpret_cast<const uint32_t*>(bp[p]);
-    cols.out[w + p] = reinterpret_cast<uint32_t*>(op[p]);
-  }
-  const int ncols = w + npay;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (w) {
-    case 1: return launch<1>(cols, ncols, na, nb, n_out, parts, s);
-    case 2: return launch<2>(cols, ncols, na, nb, n_out, parts, s);
-    case 3: return launch<3>(cols, ncols, na, nb, n_out, parts, s);
-    case 4: return launch<4>(cols, ncols, na, nb, n_out, parts, s);
-    default: return launch<5>(cols, ncols, na, nb, n_out, parts, s);
+  Args g = {};
+  g.a = a_keys;
+  g.b = b_keys;
+  g.out = out_keys;
+  g.na = na;
+  g.nb = nb;
+  g.n_out = n_out;
+  g.w = w;
+  g.npay = npay;
+  // column-major: the staged key words (all of them up to kMaxWidth, else
+  // kStaged), then as many payloads as fit kMaxStagedCols
+  const int p = w <= kMaxWidth ? w : kStaged;
+  g.nstage = row_major ? 0 : (npay < kMaxStagedCols - p ? npay
+                                                        : kMaxStagedCols - p);
+  g.nstaged = row_major ? 0 : p + g.nstage;
+  for (int c = 0; c < g.nstaged; ++c) {
+    const int q = c - p;                 // the payload, past the key words
+    g.cols.a[c] = c < p ? a_keys + c * na
+                        : static_cast<const uint32_t*>(pays[q]);
+    g.cols.b[c] = c < p ? b_keys + c * nb
+                        : static_cast<const uint32_t*>(pays[npay + q]);
+    g.cols.out[c] = c < p ? out_keys + c * n_out
+                          : static_cast<uint32_t*>(
+                                const_cast<void*>(pays[2 * npay + q]));
   }
+  int64_t* table = scratch + kmerind_merge_runs_parts(na, nb);
+  if (npay > g.nstage) {
+    // pageable host-to-device: CUDA stages the copy, so `pays` may go
+    // once this returns; ordered before the launches on the stream
+    const cudaError_t err = cudaMemcpyAsync(
+        table, pays, 3 * static_cast<size_t>(npay) * sizeof(void*),
+        cudaMemcpyHostToDevice, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  g.pay = reinterpret_cast<const uint32_t* const*>(table);
+  return row_major ? launch_width<true>(g, scratch, s)
+                   : launch_width<false>(g, scratch, s);
 }

@@ -8,8 +8,8 @@ The kernels replace the Pallas kernels of
   ``ops/packing.py::extract_canonical``;
 * K2 `merge_runs_cols` (``csrc/merge_runs.cu``) — plain version
   `merge_runs_cols_plain`;
-* K2′ `merge_sorted_runs` — the same kernel behind a row-major entry,
-  plain version `merge_sorted_runs_plain`;
+* K2′ `merge_sorted_runs` — the same source with row-major keys, plain
+  version `merge_sorted_runs_plain`;
 * K3 `prefix_sum_i32` (``csrc/prefix_sum.cu``) — plain version
   `prefix_sum_i32_plain`;
 * K4 `run_length_weights` (``csrc/run_length_weights.cu``) — plain version
@@ -19,7 +19,8 @@ Each wrapper takes the plain version for tensors on the CPU and, for CUDA
 tensors, launches its kernel or raises: nothing falls back.  It checks
 device, dtype, shape and contiguity, allocates outputs with `torch.empty`,
 launches on the current stream, raises on a non-zero ``cudaGetLastError()``
-and adds one to ``LAUNCHES[name]`` per call that launched.
+and adds one to ``LAUNCHES[name]`` per call that launched (K1 also to
+``K1_LAUNCHES[variant]``, the kernel it picked).
 
 The sources are compiled by ``nvcc`` for ``sm_90a`` — one process per
 source, all at once, then one link — into a shared library with a plain C
@@ -46,7 +47,7 @@ from ..kmer import KmerSpec
 from . import packing
 from .keys import SENTINEL, biased, lex_argsort
 
-__all__ = ["LAUNCHES", "KERNELS", "build", "reset_launches",
+__all__ = ["LAUNCHES", "K1_LAUNCHES", "KERNELS", "build", "reset_launches",
            "extract_canonical", "k1_kernel",
            "merge_runs_cols", "merge_runs_cols_plain",
            "merge_sorted_runs", "merge_sorted_runs_plain",
@@ -83,7 +84,14 @@ KERNELS = {
 #: launches per kernel wrapper (one per wrapper call that launched)
 LAUNCHES = {name: 0 for name in KERNELS}
 
-_K1_MAX_K = 512
+#: the K1 kernels, in the order of the C entry's `kernel` argument: a
+#: k-mer of k * bits <= 64 (128) bits rolls in one 64-bit (128-bit)
+#: integer; a wider one takes the bit-stream kernel
+_K1_KERNELS = ("rolling64", "rolling128", "wide")
+#: K1's launches by the kernel each picked (they sum to
+#: LAUNCHES["extract_canonical"])
+K1_LAUNCHES = {name: 0 for name in _K1_KERNELS}
+
 _lib = None
 _build_lock = threading.Lock()
 _vp = ctypes.c_void_p
@@ -92,8 +100,9 @@ _int = ctypes.c_int
 
 
 def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, K1_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -116,11 +125,12 @@ def _bind(lib):
     """Set the C signatures of the kernel library's entries; returns lib."""
     lib.kmerind_extract_canonical.argtypes = [
         _vp, _i64, _vp, _int, _int, _int, _int, _int, _vp, _vp, _vp]
-    lib.kmerind_extract_canonical_tile.argtypes = []
-    lib.kmerind_extract_canonical_tile.restype = _int
+    for fn in (lib.kmerind_extract_canonical_tile,
+               lib.kmerind_extract_wide_tile):
+        fn.argtypes = []
+        fn.restype = _int
     lib.kmerind_merge_runs.argtypes = [
-        _vp, _i64, _vp, _i64, _int, _vp, _vp, _vp, _vp, _vp, _vp,
-        _int, _vp, _vp, _vp, _vp, _i64, _vp, _vp]
+        _vp, _i64, _vp, _i64, _int, _int, _vp, _int, _vp, _i64, _vp, _vp]
     lib.kmerind_merge_runs_parts.argtypes = [_i64, _i64]
     lib.kmerind_merge_runs_parts.restype = _i64
     lib.kmerind_prefix_sum_scratch_words.argtypes = [_i64]
@@ -210,10 +220,6 @@ def _ptr(t: torch.Tensor | None):
 
 
 # ---------------------------------------------------------------- K1
-#: the K1 kernels, in the order of the C entry's `kernel` argument: a
-#: k-mer of k * bits <= 64 (128) bits rolls in one 64-bit (128-bit)
-#: integer; a wider one takes the per-window kernel
-_K1_KERNELS = ("rolling64", "rolling128", "wide")
 #: spec -> (complement table, its address, k, bits, cpw, nwords, kernel):
 #: the launch arguments of K1 that depend on the spec alone
 _k1_args: dict = {}
@@ -245,22 +251,22 @@ def _k1_launch_args(spec: KmerSpec) -> tuple:
 def extract_canonical(codes: torch.Tensor, spec: KmerSpec):
     """K1: (canonical int32[n, nwords], was_rc bool[n]) at every window
     start; rows past n-k are garbage.  For a CUDA tensor the words are a
-    [n, nwords] view of the kernel's column-major [nwords, n] output."""
+    [n, nwords] view of the kernel's column-major [nwords, n] output; any
+    k whose tile fits the card's shared memory (DNA k up to ~150,000)."""
     if codes.device.type == "cpu":
         return packing.extract_canonical(codes, spec)
     _check_cuda("extract_canonical", codes, torch.uint8, 1, codes.device)
-    if spec.k > _K1_MAX_K:
-        raise ValueError(f"extract_canonical kernel takes k <= {_K1_MAX_K}, "
-                         f"got {spec}")
     n = codes.shape[0]
     words = torch.empty((spec.nwords, n), dtype=torch.int32,
                         device=codes.device)
     was_rc = torch.empty(n, dtype=torch.bool, device=codes.device)
     if n:
+        args = _k1_launch_args(spec)
         rc = _cuda_lib().kmerind_extract_canonical(
-            codes.data_ptr(), n, *_k1_launch_args(spec)[1:], words.data_ptr(),
+            codes.data_ptr(), n, *args[1:], words.data_ptr(),
             was_rc.data_ptr(), _stream(codes.device))
         _launched("extract_canonical", rc)
+        K1_LAUNCHES[_K1_KERNELS[args[-1]]] += 1
     return words.t(), was_rc
 
 
@@ -288,52 +294,49 @@ def merge_runs_cols(a_keys, a_payloads, b_keys, b_payloads):
     """K2: merge two ascending column-major runs.
 
     a_keys int32[w, na], b_keys int32[w, nb] (uint32 key words, compared
-    lexicographically as unsigned), payloads tuples of int32 [na] / [nb].
-    Returns (keys int32[w, n], payloads) with n = next_pow2(na + nb): the
-    merged run followed by sentinel rows with payload 0.  Ties keep A
-    first."""
+    lexicographically as unsigned; any w >= 1), payloads tuples of int32
+    [na] / [nb] (any number).  Returns (keys int32[w, n], payloads) with n
+    = next_pow2(na + nb): the merged run followed by sentinel rows with
+    payload 0.  Ties keep A first."""
     if a_keys.device.type == "cpu":
         return merge_runs_cols_plain(a_keys, a_payloads, b_keys, b_payloads)
-    return _merge_cols("merge_runs_cols", a_keys, a_payloads, b_keys,
-                       b_payloads)
+    return _merge("merge_runs_cols", a_keys, a_payloads, b_keys, b_payloads,
+                  row_major=False)
 
 
-def _merge_cols(name, a_keys, a_payloads, b_keys, b_payloads):
+def _merge(name, a_keys, a_payloads, b_keys, b_payloads, row_major):
     """Check and launch K2 (its partition and tile launches, with the
-    partition scratch from `torch.empty`); counts one launch under
-    `name`."""
+    partition scratch and the payload table's room from `torch.empty`) on
+    column-major ([w, n]) or row-major ([n, w]) key runs; counts one launch
+    under `name`."""
     dev = a_keys.device
-    w, na = a_keys.shape
-    nb = b_keys.shape[1]
-    npay = len(a_payloads)
-    if not 1 <= w <= 5 or b_keys.shape[0] != w:
-        raise ValueError(f"{name} takes 1-5 key words, got "
-                         f"{tuple(a_keys.shape)} and {tuple(b_keys.shape)}")
-    if npay > 3 or len(b_payloads) != npay:
-        raise ValueError(f"{name} takes 0-3 payloads per run")
     _check_cuda(f"{name} a_keys", a_keys, torch.int32, 2, dev)
     _check_cuda(f"{name} b_keys", b_keys, torch.int32, 2, dev)
+    (na, w), (nb, wb) = ((a_keys.shape, b_keys.shape) if row_major else
+                         (a_keys.shape[::-1], b_keys.shape[::-1]))
+    if w < 1 or wb != w:
+        raise ValueError(f"{name}: runs of {w} and {wb} key words")
+    npay = len(a_payloads)
+    if len(b_payloads) != npay:
+        raise ValueError(f"{name}: {npay} and {len(b_payloads)} payloads")
     for p, m in [(p, na) for p in a_payloads] + [(p, nb) for p in b_payloads]:
         _check_cuda(f"{name} payload", p, torch.int32, 1, dev)
         if p.shape[0] != m:
             raise ValueError(f"{name}: payload length != run length")
     n = _merged_len(na, nb)
-    out_keys = torch.empty((w, n), dtype=torch.int32, device=dev)
+    out_keys = torch.empty((n, w) if row_major else (w, n),
+                           dtype=torch.int32, device=dev)
     out_pays = tuple(torch.empty(n, dtype=torch.int32, device=dev)
                      for _ in range(npay))
-
-    def three(ts):
-        ps = [_ptr(t) for t in ts]
-        return ps + [None] * (3 - len(ps))
-
+    table = (ctypes.c_void_p * (3 * npay))(
+        *(p.data_ptr() for p in (*a_payloads, *b_payloads, *out_pays)))
     lib = _cuda_lib()
-    parts = torch.empty(lib.kmerind_merge_runs_parts(na, nb),
-                        dtype=torch.int64, device=dev)
+    scratch = torch.empty(lib.kmerind_merge_runs_parts(na, nb) + 3 * npay,
+                          dtype=torch.int64, device=dev)
     rc = lib.kmerind_merge_runs(
-        a_keys.data_ptr(), na, b_keys.data_ptr(), nb, w,
-        *three(a_payloads), *three(b_payloads), npay,
-        out_keys.data_ptr(), *three(out_pays), n, parts.data_ptr(),
-        _stream(dev))
+        a_keys.data_ptr(), na, b_keys.data_ptr(), nb, w, int(row_major),
+        ctypes.cast(table, _vp), npay, out_keys.data_ptr(), n,
+        scratch.data_ptr(), _stream(dev))
     _launched(name, rc)
     return out_keys, out_pays
 
@@ -348,16 +351,14 @@ def merge_sorted_runs_plain(a_keys, a_payloads, b_keys, b_payloads):
 
 def merge_sorted_runs(a_keys, a_payloads, b_keys, b_payloads):
     """K2′: merge two ascending ROW-major runs (int32[n_i, w] key rows,
-    aligned int32 payloads) — the K2 kernel on their transposes.  Returns
-    (keys int32[n, w], payloads), n = next_pow2(na + nb), sentinel rows with
-    payload 0 at the tail; ties keep A first."""
+    aligned int32 payloads) — K2's source with row-major loads and stores,
+    no transposes.  Returns (keys int32[n, w], payloads), n = next_pow2(na
+    + nb), sentinel rows with payload 0 at the tail; ties keep A first."""
     if a_keys.device.type == "cpu":
         return merge_sorted_runs_plain(a_keys, a_payloads, b_keys,
                                        b_payloads)
-    keys, pays = _merge_cols("merge_sorted_runs", a_keys.t().contiguous(),
-                             tuple(a_payloads), b_keys.t().contiguous(),
-                             tuple(b_payloads))
-    return keys.t().contiguous(), pays
+    return _merge("merge_sorted_runs", a_keys, tuple(a_payloads), b_keys,
+                  tuple(b_payloads), row_major=True)
 
 
 # ---------------------------------------------------------------- K3

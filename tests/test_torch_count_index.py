@@ -80,6 +80,24 @@ def test_count_index_slice_matches_jax(reads_path, k):
     np.testing.assert_array_equal(pidx.count(strs), jidx.count(strs))
 
 
+@pytest.mark.parametrize("k", [81, 127, 128])
+def test_count_index_wide_k_matches_jax(tmp_path, k):
+    """6 key words (k = 81), 8 (k = 127, sentinel-safe: unit runs,
+    keys-only merges at w = 8) and 8 full words (k = 128: flag-mode sort,
+    weighted merges): contents and counts equal the JAX index's."""
+    path = tmp_path / "reads.fastq"
+    reads = write_reads(path, 80, 200, 1500, seed=17, n_rate=0.002)
+    jidx = JaxCountIndex(kt.KmerSpec(k, kt.DNA), max_runs=2)
+    jidx.insert_batch(jax_read_file(path, kt.DNA), chunk_bases=4000)
+    pidx = kp.CountIndex(kp.KmerSpec(k, kp.DNA), device="cpu", max_runs=2)
+    pidx.insert_batch(port_read_file(path, kp.DNA), chunk_bases=4000)
+    assert pidx.timer.count("merge") >= 2
+    strs = _queries(k, np.random.default_rng(k), reads, 400)
+    np.testing.assert_array_equal(pidx.count(strs), jidx.count(strs))
+    assert pidx.to_dict() == jidx.to_dict()
+    assert pidx.size() == jidx.size()
+
+
 @pytest.mark.parametrize("fmt", ["fastq", "fasta"])
 def test_build_and_build_stream_match_jax(tmp_path, fmt):
     """build() (whole file through the parser ring) and build_stream()

@@ -32,6 +32,21 @@ CHUNK = chip_smoke.CHUNK
                              npay=3), ((1 << 26) + (1 << 24) + (1 << 27)) * 24),
     ("merge_sorted_runs", dict(na=3, nb=5, n_out=8, w=5, npay=3),
      (3 + 5 + 8) * 32),
+    # P7's shapes: k=127 merges (8 key words) and flushes (+ 3 payloads),
+    # and DNA k=512 full words behind the flag with 4 payloads
+    ("merge_runs_cols", dict(na=CHUNK, nb=CHUNK, n_out=1 << 25, w=8,
+                             npay=0), 1_610_614_016),
+    ("merge_runs_cols", dict(na=1 << 26, nb=1 << 24, n_out=1 << 27, w=8,
+                             npay=3), 9_596_567_552),
+    ("merge_runs_cols", dict(na=1 << 22, nb=1 << 22, n_out=1 << 23, w=33,
+                             npay=4), 2_483_027_968),
+    # K2′ on row-major [n, w] runs: the same bytes as the column layout
+    ("merge_sorted_runs", dict(na=CHUNK, nb=CHUNK, n_out=1 << 25, w=2,
+                               npay=1), 603_980_256),
+    ("merge_sorted_runs", dict(na=CHUNK, nb=CHUNK, n_out=1 << 25, w=8,
+                               npay=1), 1_811_940_768),
+    # K1's wide kernel, k=127 DNA: 8 words a window
+    ("extract_canonical", dict(n=CHUNK, nwords=8), 285_213_352),
     # K2 with an empty run: the sentinel rows are still written
     ("merge_runs_cols", dict(na=0, nb=0, n_out=2, w=1, npay=0), 8),
     # K3 at 2^28: 2^31 bytes
@@ -50,6 +65,14 @@ def test_bound_ms_is_bytes_over_the_hbm_rate():
     # K3 at 2^28 and K2 CHUNK + CHUNK, as PERF.md's table states them
     assert chip_smoke.bound_ms(1 << 31) == pytest.approx(0.641, abs=5e-4)
     assert chip_smoke.bound_ms(402_653_504) == pytest.approx(0.120, abs=5e-4)
+    # K1 wide at k=127 and the new K2 shapes, as PERF.md states them
+    assert chip_smoke.bound_ms(285_213_352) == pytest.approx(0.0851, abs=5e-5)
+    assert chip_smoke.bound_ms(1_610_614_016) == pytest.approx(0.4808,
+                                                               abs=5e-5)
+    assert chip_smoke.bound_ms(9_596_567_552) == pytest.approx(2.8646,
+                                                               abs=5e-5)
+    assert chip_smoke.bound_ms(2_483_027_968) == pytest.approx(0.7412,
+                                                               abs=5e-5)
 
 
 def test_kernel_bytes_covers_every_kernel_and_no_other():

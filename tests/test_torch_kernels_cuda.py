@@ -1,15 +1,17 @@
 """The CUDA kernels against their plain versions on the card, at small and
-edge-case shapes (empty runs, one row, 5 key words with 3 payloads, k up
-to 512, sums that wrap, runs crossing every tile, no valid rows; for K1
-every alphabet on both sides of the 64- and 128-bit rolling states, sizes
-around its tile and a thread's segment, n < k, all-palindrome input,
-unaligned views, repeated calls; for the K2 merge ties across every tile
-boundary, lopsided, disjoint and sentinel runs, totals around the tile
-size; for the K3 scan sizes around its tile, look-back over many tiles,
-repeated calls, unaligned views; for K4 a run over 10,000 tiles, tv at a
-tile boundary, unaligned views, repeated calls), and the
-port's indexes on the card against the same index on the CPU: CountIndex
-(one shard and 4 hashed shards), SortedCountIndex and the multimaps.
+edge-case shapes (empty runs, one row, key widths 1-9 in registers and 17,
+33, 129 past them with 0-8 payloads, k up to 1024, sums that wrap, runs
+crossing every tile, no valid rows; for K1 every alphabet on both sides of
+the 64- and 128-bit rolling states and on the wide kernel above them,
+sizes around both tiles and a thread's segment, n < k, all-palindrome
+input, unaligned views, repeated calls; for the K2 merge ties across every
+tile boundary (and past the staged key words), lopsided, disjoint and
+sentinel runs, totals around the tile size, row-major runs (K2′); for the
+K3 scan sizes around its tile, look-back over many tiles, repeated calls,
+unaligned views; for K4 a run over 10,000 tiles, tv at a tile boundary,
+unaligned views, repeated calls), and the port's indexes on the card
+against the same index on the CPU: CountIndex (one shard, 4 hashed shards,
+k = 81 and 127), SortedCountIndex and the multimaps (k up to 128).
 Exact equality throughout (qualities aside): everything else is integer,
 and the K2 merge keeps ties in the plain version's (stable) order.
 
@@ -42,6 +44,7 @@ def dev():
 
 K1_TILE = 2048     # windows per tile of the rolling K1 kernels (kTile)
 K1_ITEMS = 16      # windows per thread (kItems)
+K1_WIDE_TILE = 1024   # windows per tile of the wide K1 kernel (kWideTile)
 
 
 def _k1_check(dev, codes, spec, launches=1):
@@ -64,7 +67,7 @@ def _k1_check(dev, codes, spec, launches=1):
 # every alphabet on both sides of the 64- and 128-bit rolling states (DNA
 # 32/33, 64/65; DNA5/6 21/22, 42/43; DNA16 16/17, 32/33; ASCII 8/9,
 # 16/17), the widest word counts (DNA5 k=21: 3 words, k=42: 5), and the
-# wide kernel up to k=512
+# wide kernel on every alphabet up to k=1024
 @pytest.mark.parametrize("name,k", [
     ("DNA", 1), ("DNA", 21), ("DNA", 32), ("DNA", 33), ("DNA", 63),
     ("DNA", 64), ("DNA", 65), ("RNA", 16), ("DNA5", 11), ("DNA5", 21),
@@ -72,7 +75,9 @@ def _k1_check(dev, codes, spec, launches=1):
     ("RNA6", 31), ("DNA16", 9), ("DNA16", 16), ("DNA16", 17),
     ("DNA16", 32), ("DNA16", 33), ("DNA_IUPAC", 15), ("ASCII", 5),
     ("ASCII", 8), ("ASCII", 9), ("ASCII", 16), ("ASCII", 17),
-    ("DNA", 512)])
+    ("DNA", 512), ("DNA", 127), ("DNA", 128), ("DNA", 1024), ("RNA", 100),
+    ("DNA5", 43), ("DNA5", 200), ("RNA6", 43), ("DNA16", 100),
+    ("DNA_IUPAC", 33), ("ASCII", 100), ("ASCII", 513), ("ASCII", 1024)])
 @pytest.mark.parametrize("n", [1, 300, 70001, "T-1", "T", "T+1", "T+k-1",
                                "S*m-1", "S*m+1"])
 def test_extract_canonical_kernel(dev, name, k, n):
@@ -89,11 +94,34 @@ def test_extract_canonical_kernel(dev, name, k, n):
 
 
 def test_k1_tile_matches_the_source(dev):
-    assert kernels._cuda_lib().kmerind_extract_canonical_tile() == K1_TILE
+    lib = kernels._cuda_lib()
+    assert lib.kmerind_extract_canonical_tile() == K1_TILE
+    assert lib.kmerind_extract_wide_tile() == K1_WIDE_TILE
+
+
+@pytest.mark.parametrize("n", [K1_WIDE_TILE - 1, K1_WIDE_TILE,
+                               K1_WIDE_TILE + 1, "3T+k-1", "3T+k",
+                               "5T-k"])
+@pytest.mark.parametrize("name,k", [("DNA", 65), ("DNA", 127),
+                                    ("DNA6", 300), ("ASCII", 1024)])
+def test_extract_canonical_wide_tile_sizes(dev, name, k, n):
+    """The wide kernel at sizes around its tile, with the halo of the last
+    whole tile in the input or cut by its end; one launch on "wide"."""
+    spec = kp.KmerSpec(k, kp.alphabets.by_name(name))
+    assert kernels.k1_kernel(spec) == "wide"
+    if isinstance(n, str):
+        n = {"3T+k-1": 3 * K1_WIDE_TILE + k - 1, "3T+k": 3 * K1_WIDE_TILE + k,
+             "5T-k": 5 * K1_WIDE_TILE - k}[n]
+    codes = np.random.default_rng(n * 7 + k).integers(
+        0, spec.alphabet.size, n).astype(np.uint8)
+    before = kernels.K1_LAUNCHES["wide"]
+    _k1_check(dev, torch.from_numpy(codes).to(dev), spec)
+    assert kernels.K1_LAUNCHES["wide"] == before + 1
 
 
 @pytest.mark.parametrize("name,k,n", [
-    ("DNA", 21, 5), ("DNA", 64, 63), ("DNA16", 33, 1), ("DNA", 127, 100)])
+    ("DNA", 21, 5), ("DNA", 64, 63), ("DNA16", 33, 1), ("DNA", 127, 100),
+    ("DNA", 1024, 1000), ("ASCII", 513, 3)])
 def test_extract_canonical_shorter_than_k(dev, name, k, n):
     """n < k: no whole window; the kernel runs and reads no code past the
     end (the rows are garbage, the shapes are right)."""
@@ -104,7 +132,8 @@ def test_extract_canonical_shorter_than_k(dev, name, k, n):
 
 @pytest.mark.parametrize("name,k", [("DNA", 2), ("DNA", 20), ("DNA", 32),
                                     ("DNA", 64), ("DNA", 100),
-                                    ("DNA16", 30)])
+                                    ("DNA16", 30), ("DNA", 128),
+                                    ("DNA", 1024), ("DNA16", 64)])
 def test_extract_canonical_all_palindromes(dev, name, k):
     """A T A T ... (DNA16: the same letters): every window of even k is its
     own reverse complement, so every was_rc is False (ties take the
@@ -118,7 +147,8 @@ def test_extract_canonical_all_palindromes(dev, name, k):
 
 @pytest.mark.parametrize("offset", range(1, 16))
 @pytest.mark.parametrize("name,k", [("DNA", 21), ("DNA", 63),
-                                    ("ASCII", 16)])
+                                    ("ASCII", 16), ("DNA", 127),
+                                    ("ASCII", 40)])
 def test_extract_canonical_unaligned_views(dev, offset, name, k):
     """Codes that start `offset` bytes into a larger tensor (a shard of the
     sorted index starts at s * L bytes), n % 4 == 3."""
@@ -143,7 +173,10 @@ def test_extract_canonical_repeated_calls(dev):
 @pytest.mark.parametrize("w,npay,na,nb", [
     (1, 0, 0, 0), (1, 1, 0, 5), (2, 0, 5, 0), (2, 3, 1, 1),
     (2, 1, 1000, 3), (3, 2, 3, 1000), (4, 0, 4096, 4096),
-    (5, 3, 20001, 7777), (2, 0, 1 << 16, 8212)])
+    (5, 3, 20001, 7777), (2, 0, 1 << 16, 8212), (6, 4, 3000, 2999),
+    (7, 0, 1, 5000), (8, 3, 20001, 7777), (9, 8, 4097, 4095),
+    (17, 0, 5000, 3), (33, 4, 9000, 7001), (129, 8, 2047, 2049),
+    (129, 0, 0, 700)])
 def test_merge_runs_kernel(dev, w, npay, na, nb):
     rng = np.random.default_rng(w * 100 + npay + na)
     a = words_t(sorted_key_cols(rng, w, na, n_sentinel=min(na, 3)))
@@ -210,7 +243,11 @@ def _check_merge(dev, a, b, npay):
     (1, 1, 5 * MERGE_TILE + 37, 3 * MERGE_TILE + 11, 10),
     (2, 3, 4 * MERGE_TILE - 1, 4 * MERGE_TILE + 1, 3),
     (5, 2, 9 * MERGE_TILE + 5, 2 * MERGE_TILE, 2),
-    (2, 1, 100_003, 99_997, 1000)])
+    (2, 1, 100_003, 99_997, 1000), (6, 0, 3 * MERGE_TILE + 7, MERGE_TILE, 4),
+    (9, 5, 5 * MERGE_TILE + 1, 3 * MERGE_TILE - 1, 3),
+    (17, 2, 4 * MERGE_TILE + 9, 2 * MERGE_TILE + 3, 3),
+    (33, 4, 3 * MERGE_TILE - 5, 3 * MERGE_TILE + 5, 2),
+    (129, 8, 2 * MERGE_TILE + 1, MERGE_TILE - 1, 2)])
 def test_merge_ties_straddle_every_tile_boundary(dev, w, npay, na, nb, nvals):
     """Few distinct keys: every tile boundary falls inside a run of ties
     between A and B."""
@@ -255,7 +292,8 @@ def test_merge_sentinel_runs(dev, na, nb, a_sent, b_sent):
 
 @pytest.mark.parametrize("total", [4 * MERGE_TILE - 1, 4 * MERGE_TILE,
                                    4 * MERGE_TILE + 1])
-@pytest.mark.parametrize("w,npay", [(1, 0), (2, 1), (3, 3)])
+@pytest.mark.parametrize("w,npay", [(1, 0), (2, 1), (3, 3), (8, 6),
+                                    (33, 4), (129, 1)])
 def test_merge_totals_around_the_tile(dev, total, w, npay):
     """na + nb at T*m - 1, T*m, T*m + 1: a last tile of T - 1, T or 1 rows,
     and a sentinel fill of 1, 0 or T*m - 1 rows (unaligned head and tail)."""
@@ -318,9 +356,13 @@ def test_prefix_sum_unaligned_views(dev, offset):
 
 
 @pytest.mark.parametrize("w,npay,na,nb", [
-    (1, 0, 0, 3), (2, 1, 1000, 3), (3, 2, 3, 1000), (5, 3, 20001, 7777)])
+    (1, 0, 0, 3), (2, 1, 1000, 3), (3, 2, 3, 1000), (5, 3, 20001, 7777),
+    (4, 1, 5 * MERGE_TILE + 3, 3 * MERGE_TILE), (6, 0, 2049, 2047),
+    (7, 2, 10_000, 1), (8, 1, 3 * MERGE_TILE - 1, 3 * MERGE_TILE + 1),
+    (9, 4, 4000, 4000), (12, 3, 3001, 2999), (33, 0, 2048, 1000)])
 def test_merge_sorted_runs_kernel(dev, w, npay, na, nb):
-    """K2′: the row-major entry, its own launch counter."""
+    """K2′: the row-major entry (row-major loads and stores, no transposes),
+    its own launch counter."""
     rng = np.random.default_rng(w * 10 + na)
     a = words_t(sorted_key_cols(rng, w, na).T)
     b = words_t(sorted_key_cols(rng, w, nb, n_sentinel=min(nb, 2)).T)
@@ -440,15 +482,18 @@ def test_wrappers_reject_bad_input(dev):
         kernels.extract_canonical(torch.zeros(10, dtype=torch.int32,
                                               device=dev), spec)
     with pytest.raises(ValueError):
-        kernels.extract_canonical(torch.zeros(10, dtype=torch.uint8,
-                                              device=dev),
-                                  kp.KmerSpec(513, kp.DNA))
+        kernels.extract_canonical(torch.zeros((2, 10), dtype=torch.uint8,
+                                              device=dev), spec)
     with pytest.raises(ValueError):
         kernels.prefix_sum_i32(torch.zeros((4, 4), dtype=torch.int32,
                                            device=dev)[:, 0])
     a = torch.zeros((6, 4), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
-        kernels.merge_runs_cols(a, (), a, ())
+        kernels.merge_runs_cols(a, (), a[:5].contiguous(), ())
+    with pytest.raises(ValueError):
+        kernels.merge_runs_cols(a, (a[0],), a, ())
+    with pytest.raises(ValueError):
+        kernels.merge_sorted_runs(a, (), a[:, :3].contiguous(), ())
     with pytest.raises(ValueError):
         kernels.run_length_weights(a[:, :2], torch.tensor(
             2, dtype=torch.int32, device=dev))
@@ -555,13 +600,12 @@ def test_multimap_cuda_matches_cpu(dev, tmp_path, cls, k, p):
     assert idx[dev].size() == idx["cpu"].size()
 
 
-@pytest.mark.parametrize("k", [64, 80, 81])
+@pytest.mark.parametrize("k", [64, 80, 81, 127, 128])
 def test_multimap_merge_width_on_card(dev, tmp_path, k):
-    """Every hash-multimap flush on the card goes through K2, which takes
-    at most 5 key columns, the flag column of the flagged merge included:
-    k = 64 (the flag plus 4 full words) merges and matches the CPU; k = 80
-    (the flag plus 5 words) and k = 81 (6 words) raise in K2's wrapper at
-    the first flush instead of sorting on the card."""
+    """Every hash-multimap flush on the card goes through K2, at any key
+    width: k = 64 (the flag plus 4 full words), 80 (the flag plus 5), 81
+    (6 words), 127 (8) and 128 (the flag plus 8: 9 key columns) merge on
+    the card and match the CPU."""
     path = tmp_path / "reads.fastq"
     write_reads(path, 200, 150, 3000, seed=7, n_rate=0.002)
     spec = kp.KmerSpec(k, kp.DNA)
@@ -569,11 +613,30 @@ def test_multimap_merge_width_on_card(dev, tmp_path, k):
     for d in ("cpu", dev):
         idx[d] = kp.PositionIndex(spec, device=d, nparts=2)
         idx[d].insert_batch(read_file(path, kp.DNA), chunk_bases=7000)
-    if k > 64:
-        with pytest.raises(ValueError, match="1-5 key words"):
-            idx[dev].size()
-        return
     before = kernels.LAUNCHES["merge_runs_cols"]
     assert idx[dev].size() == idx["cpu"].size() > 0
     assert kernels.LAUNCHES["merge_runs_cols"] - before >= 2
     assert idx[dev].to_dict() == idx["cpu"].to_dict()
+
+
+@pytest.mark.parametrize("k", [81, 127])
+def test_count_index_wide_cuda_matches_cpu(dev, tmp_path, k):
+    """CountIndex at 6 and 8 key words: K1's wide kernel per chunk and K2's
+    merges at w = 6 / 8 on the card give the CPU's contents and counts."""
+    path = tmp_path / "reads.fastq"
+    reads = write_reads(path, 300, 150, 2000, seed=8, n_rate=0.002)
+    spec = kp.KmerSpec(k, kp.DNA)
+    idx = {}
+    for d in ("cpu", dev):
+        before = dict(kernels.LAUNCHES)
+        idx[d] = kp.CountIndex(spec, device=d, max_runs=2)
+        idx[d].insert_batch(read_file(path, kp.DNA), chunk_bases=7000)
+    assert kernels.LAUNCHES["merge_runs_cols"] - before["merge_runs_cols"] \
+        >= idx[dev].timer.count("merge") >= 2
+    assert kernels.LAUNCHES["extract_canonical"] - \
+        before["extract_canonical"] == idx[dev].timer.count("insert")
+    q = [r[i:i + k].replace("N", "A") for r in reads[:60]
+         for i in (0, 150 - k)]
+    np.testing.assert_array_equal(idx[dev].count(q), idx["cpu"].count(q))
+    assert idx[dev].to_dict() == idx["cpu"].to_dict()
+    assert idx[dev].size() == idx["cpu"].size()

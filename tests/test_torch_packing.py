@@ -48,7 +48,7 @@ def test_extract_canonical_matches_jax_at_state_limits(name, k):
 @pytest.mark.parametrize("name,k,want", [
     ("DNA", 1, "rolling64"), ("DNA", 32, "rolling64"),
     ("DNA", 33, "rolling128"), ("DNA", 64, "rolling128"),
-    ("DNA", 65, "wide"), ("DNA", 512, "wide"),
+    ("DNA", 65, "wide"), ("DNA", 512, "wide"), ("DNA", 1024, "wide"),
     ("DNA6", 21, "rolling64"), ("DNA6", 22, "rolling128"),
     ("DNA6", 42, "rolling128"), ("DNA6", 43, "wide"),
     ("DNA16", 16, "rolling64"), ("DNA16", 17, "rolling128"),
@@ -58,6 +58,32 @@ def test_extract_canonical_matches_jax_at_state_limits(name, k):
 def test_k1_kernel_by_width(name, k, want):
     """The K1 wrapper's kernel follows k * bits alone."""
     assert kernels.k1_kernel(TSpec(k, tal.by_name(name))) == want
+
+
+@pytest.mark.parametrize("name,k", [("DNA", 513), ("DNA", 1024),
+                                    ("ASCII", 513)])
+def test_extract_canonical_past_the_pallas_kernel_matches_jax(name, k):
+    """k > 512, past the Pallas kernel (`pallas_supported`): the port's
+    plain version against the JAX package's XLA path, every row."""
+    jspec = JSpec(k, jal.by_name(name))
+    tspec = TSpec(k, tal.by_name(name))
+    codes = _codes(tspec.alphabet, k, n=k + 300)
+    t = torch.from_numpy(codes)
+    got_w, got_rc = kernels.extract_canonical(t, tspec)  # CPU: plain path
+    xla_w, xla_rc = jpacking.extract_canonical(jnp.asarray(codes), jspec)
+    np.testing.assert_array_equal(words_np(got_w), np.asarray(xla_w))
+    np.testing.assert_array_equal(got_rc.numpy(), np.asarray(xla_rc))
+
+
+def test_k1_launch_counts_by_kernel():
+    """One counter per K1 kernel, in the wrapper's dispatch order; the
+    reset clears them with the per-wrapper counts."""
+    assert tuple(kernels.K1_LAUNCHES) == ("rolling64", "rolling128", "wide")
+    kernels.K1_LAUNCHES["wide"] += 3
+    kernels.LAUNCHES["extract_canonical"] += 3
+    kernels.reset_launches()
+    assert not any(kernels.K1_LAUNCHES.values())
+    assert not any(kernels.LAUNCHES.values())
 
 
 def test_k1_launch_args_built_once():

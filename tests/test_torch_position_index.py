@@ -52,6 +52,18 @@ def reads(tmp_path_factory):
     return d, seqs
 
 
+@pytest.fixture(scope="module")
+def long_reads(tmp_path_factory):
+    """200 bp reads of a 2 kb genome at ~12x, FASTQ with varied qualities
+    and FASTA: room for k = 127 and 128 windows."""
+    d = tmp_path_factory.mktemp("torch_position_wide")
+    seqs = write_reads(d / "reads.fastq", 120, 200, 2000, seed=13,
+                       n_rate=0.005, varied_quality=True)
+    write_reads(d / "reads.fasta", 120, 200, 2000, seed=13, fmt="fasta",
+                n_rate=0.005)
+    return d, seqs
+
+
 def _pair(family, path, p, k, canonical, id_kind="short"):
     jcls, pcls = FAMILIES[family]
     jidx = jcls(kt.KmerSpec(k, kt.DNA), mesh=make_mesh(p),
@@ -122,10 +134,25 @@ def _assert_same_find(got, want, with_quality):
 def test_position_index_matches_jax(reads, family, p, k, canonical, fmt):
     """to_dict, size, count, find (growing and cut), unique_size and erase;
     k = 32 takes the flagged merge (keys may equal the sentinel), FASTA the
-    long ids.  k = 80 (the flag plus 5 full words) and k = 81 (6 words)
-    flush through the merge's plain version, beyond the 5 key columns of
-    K2's kernel, which raises there (ROADMAP queue 3)."""
-    d, seqs = reads
+    long ids; k = 80 (the flag plus 5 full words) and k = 81 (6 words) take
+    K2 (here its plain version) past 5 key columns."""
+    _check_matches_jax(*reads, family, p, k, canonical, fmt)
+
+
+@pytest.mark.parametrize("family,p,k,canonical,fmt", [
+    ("hash", 2, 127, False, "fastq"),
+    ("hash_q", 1, 128, True, "fastq"),
+    ("sorted", 1, 127, True, "fasta"),
+    ("sorted_q", 4, 128, False, "fastq"),
+])
+def test_position_index_wide_k_matches_jax(long_reads, family, p, k,
+                                           canonical, fmt):
+    """The same at 8 key words (k = 127) and at 8 full words behind the
+    flag (k = 128, 9 key columns in the hash family's merge)."""
+    _check_matches_jax(*long_reads, family, p, k, canonical, fmt)
+
+
+def _check_matches_jax(d, seqs, family, p, k, canonical, fmt):
     id_kind = "short" if fmt == "fastq" else "long"
     jidx, pidx = _pair(family, d / f"reads.{fmt}", p, k, canonical, id_kind)
     wq = pidx.with_quality

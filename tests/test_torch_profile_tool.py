@@ -76,6 +76,10 @@ def test_phases_of_both_runs():
     calls = [fn() for fn in steps["p6"].values()]
     assert calls == [("build", "p.fastq"), ("size",), ("find", "q", True),
                      ("find", "q", True)]
+    calls = [fn() for fn in steps["p7"].values()]
+    assert calls == [("build", "p.fastq"), ("count", "q"), ("count", "q"),
+                     ("items",)]
+    assert profile_p4.RUN_K == {"p4": 21, "p5": 21, "p6": 21, "p7": 127}
 
 
 class _FakeIndex:
@@ -121,3 +125,13 @@ def test_p6_dry_run_on_the_cpu(capsys):
     assert list(record["runs"]) == ["p6"]
     assert list(record["runs"]["p6"]) == ["insert", "merge", "find1",
                                           "find2"]
+
+
+def test_p7_dry_run_on_the_cpu(capsys):
+    """--run p7 on the CPU: the k = 127 count index's phases."""
+    assert profile_p4.main(["--run", "p7", "--device", "cpu", "--genome",
+                            "20000", "--coverage", "2"]) == 0
+    record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(record["runs"]) == ["p7"]
+    assert list(record["runs"]["p7"]) == ["build", "count1", "count2",
+                                          "items"]

@@ -95,11 +95,13 @@ def _expected_merge(a, pa, b, pb):
 @pytest.mark.parametrize("w,npay,na,nb", [
     (1, 0, 1000, 999), (1, 3, 37, 1200), (2, 0, 8212, 8212),
     (2, 1, 3000, 1), (2, 2, 0, 513), (3, 3, 2047, 2049), (3, 1, 600, 100),
+    (6, 4, 700, 333), (9, 6, 1000, 1048), (33, 4, 300, 212), (33, 6, 5, 600),
 ])
 def test_merge_matches_jax_xla(w, npay, na, nb):
     """Any lengths (not powers of two), nb < na and nb > na, empty runs,
-    sentinel tails: the port equals the JAX merge (XLA bitonic path) and
-    the numpy oracle."""
+    sentinel tails, key widths past the 9 words K2's kernel keeps in
+    registers, 4 and 6 payloads: the port equals the JAX merge (XLA
+    bitonic path) and the numpy oracle."""
     rng = np.random.default_rng(w * 1000 + npay * 10 + na % 7)
     a, pa, b, pb = _runs(rng, w, na, nb, npay, sent_a=min(na, 5),
                          sent_b=min(nb, 3))
@@ -161,7 +163,8 @@ def test_prefix_starts_and_prebuilt_lower_bound(tbits):
 
 
 @pytest.mark.parametrize("w,npay,na,nb", [
-    (1, 0, 1000, 999), (2, 1, 3000, 1), (2, 2, 0, 513), (3, 3, 2047, 2049)])
+    (1, 0, 1000, 999), (2, 1, 3000, 1), (2, 2, 0, 513), (3, 3, 2047, 2049),
+    (8, 1, 1500, 2500)])
 def test_merge_sorted_runs_row_major_matches_jax(w, npay, na, nb):
     """K2′'s plain version (sortops.merge_sorted_runs on CPU tensors)
     against the JAX row-major merge, per key multiset."""

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Time the K1 and K4 kernels of two checkouts of the port on one GPU, in
-turns (A, B, B, A, ...).
+"""Time the K1, K2, K2′ and K4 kernels of two checkouts of the port on one
+GPU, in turns (A, B, B, A, ...).
 
     python3 tools/ab_trees.py A_DIR B_DIR [--pairs 1]
 
 Each turn is one process with that checkout first on sys.path: it builds
 the checkout's kernels, makes chip_smoke.py P2's main-path inputs (K1:
-8,388,628 random DNA codes at k=21; K4: the sorted canonical 21-mers of one
-chunk of reads, w=2) and times the checkout's own wrappers with this
+8,388,628 random DNA codes at k=21 and at k=127, the wide kernel; K2: two
+sorted runs of 8,388,628 rows, w=2, and the multimap flush's 2^26 + 2^24
+rows with 3 payloads at w=2 and w=3; K2′: the row-major runs, w=2, 1
+payload; K4: the sorted canonical 21-mers of one chunk of reads, w=2) and
+times the checkout's own wrappers with this
 tree's chip_smoke.median_ms (CUDA events over many launches) and
 chip_smoke.kernel_us_per_call (the profiler's device time per call), so
 both sides are timed the same way whatever their own chip_smoke does.
@@ -64,11 +67,44 @@ def run_turn(tree: str) -> dict:
         words, (), torch.arange(cs.CHUNK, device=dev) <= cs.CHUNK - cs.K,
         is_stable=False, sentinel_ok=True, as_cols=True)
     tv = s_valid.sum(dtype=torch.int32)
+    wide = KmerSpec(127, DNA)
     cases = {
         f"extract_canonical n={cs.CHUNK} k=21 DNA":
             lambda: kernels.extract_canonical(codes, spec),
+        f"extract_canonical n={cs.CHUNK} k=127 DNA":
+            lambda: kernels.extract_canonical(codes, wide),
         f"run_length_weights n={cs.CHUNK} sorted canonical 21-mers":
             lambda: kernels.run_length_weights(kcols, tv)}
+
+    def sorted_run(n, flagged=False):
+        words = torch.randint(-(2**31), 2**31 - 1, (n, 2), dtype=torch.int32,
+                              device=dev, generator=gen)
+        valid = torch.rand(n, device=dev, generator=gen) > 0.01
+        cols, _, s_valid = sortops.sort_rows(words, (), valid,
+                                             sentinel_ok=not flagged,
+                                             as_cols=True)
+        if flagged:
+            cols = torch.cat([(~s_valid).to(torch.int32)[None], cols])
+        return cols
+
+    def pays(n, npay):
+        return tuple(torch.randint(0, 100, (n,), dtype=torch.int32,
+                                   device=dev, generator=gen)
+                     for _ in range(npay))
+
+    runs = {}
+    for label, na, nb, npay, flagged in (
+            (f"{cs.CHUNK}+{cs.CHUNK} w=2", cs.CHUNK, cs.CHUNK, 0, False),
+            ("2^26+2^24 w=2 payloads=3", 1 << 26, 1 << 24, 3, False),
+            ("2^26+2^24 w=3 flagged payloads=3", 1 << 26, 1 << 24, 3, True)):
+        runs[label] = (sorted_run(na, flagged), pays(na, npay),
+                       sorted_run(nb, flagged), pays(nb, npay))
+        cases[f"merge_runs_cols {label}"] = (
+            lambda r=runs[label]: kernels.merge_runs_cols(*r))
+    rows = (sorted_run(cs.CHUNK).t().contiguous(), pays(cs.CHUNK, 1),
+            sorted_run(cs.CHUNK).t().contiguous(), pays(cs.CHUNK, 1))
+    cases[f"merge_sorted_runs {cs.CHUNK}+{cs.CHUNK} w=2 payloads=1"] = (
+        lambda: kernels.merge_sorted_runs(*rows))
     return {case: {"ms": cs.median_ms(fn), "device_ms": sum(
         cs.kernel_us_per_call(fn).values()) / 1e3}
         for case, fn in cases.items()}

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Device-busy profile of the smoke's full-size runs (chip_smoke.py P4-P6).
+"""Device-busy profile of the smoke's full-size runs (chip_smoke.py P4-P7).
 
-    python3 tools/profile_p4.py [--run p4|p5|p6|all] [--coverage 30]
+    python3 tools/profile_p4.py [--run p4|p5|p6|p7|all] [--coverage 30]
                                 [--genome 4641652] [--trace trace.json]
 
 Makes the P4 data of chip_smoke.py (150 bp reads at 30x coverage of a
@@ -14,7 +14,9 @@ shard: build, flush (the first size(), which runs the samplesort flush),
 count() twice.  P6, the PositionQualityIndex (canonical, one shard):
 insert (the build, whose chunks flush into the store every 2^24 pending
 rows), merge (the first size(), which flushes the last pending rows),
-find(with_quality=True) of the 1M queries twice.  The first pass runs
+find(with_quality=True) of the 1M queries twice.  P7, the hash CountIndex
+at k = 127 (K1's wide kernel, K2 at 8 key words; max_runs=8): build,
+count() of 1M 127-mer queries twice, items().  The first pass runs
 without the profiler and gives each
 phase's wall seconds; it also warms the native parser, the kernels and the
 allocator.  The second pass runs under torch.profiler, each phase in a
@@ -48,14 +50,18 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import (COVERAGE, GENOME_LEN, K, READ_LEN,  # noqa: E402
-                        make_quals, make_reads, pack_rows, write_fastq)
+from chip_smoke import (COVERAGE, GENOME_LEN, K, K_WIDE,  # noqa: E402
+                        READ_LEN, make_quals, make_reads, pack_rows,
+                        write_fastq)
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: run -> its phases, in order
 PHASES = {"p4": ("build", "count1", "count2", "items", "compact"),
           "p5": ("build", "flush", "count1", "count2"),
-          "p6": ("insert", "merge", "find1", "find2")}
+          "p6": ("insert", "merge", "find1", "find2"),
+          "p7": ("build", "count1", "count2", "items")}
+#: run -> its k
+RUN_K = {"p4": K, "p5": K, "p6": K, "p7": K_WIDE}
 #: the port's kernels -> the CUDA kernel names (ops/csrc) of their launches
 PORT_KERNELS = {
     "extract_canonical": ("extract_rolling_kernel", "extract_wide_kernel"),
@@ -73,6 +79,11 @@ def phase_steps(run: str, idx, path, queries) -> dict:
                 "count2": lambda: idx.count(queries),
                 "items": idx.items,
                 "compact": idx.compact}
+    if run == "p7":
+        return {"build": lambda: idx.build(path),
+                "count1": lambda: idx.count(queries),
+                "count2": lambda: idx.count(queries),
+                "items": idx.items}
     if run == "p6":
         return {"insert": lambda: idx.build(path),
                 "merge": idx.size,
@@ -117,14 +128,14 @@ def port_kernel_ms(by_name) -> dict:
             for k, cuda in PORT_KERNELS.items()}
 
 
-def make_queries(codes: np.ndarray) -> np.ndarray:
+def make_queries(codes: np.ndarray, k: int = K) -> np.ndarray:
     """The smoke's 1M queries: 900k read windows and 100k random k-mers."""
     rng = np.random.default_rng(2)
     r = rng.integers(0, codes.shape[0], 900_000)
-    o = rng.integers(0, READ_LEN - K + 1, 900_000)
+    o = rng.integers(0, READ_LEN - k + 1, 900_000)
     qcodes = np.concatenate([
-        codes[r[:, None], o[:, None] + np.arange(K)],
-        rng.integers(0, 4, (100_000, K), dtype=np.uint8)])
+        codes[r[:, None], o[:, None] + np.arange(k)],
+        rng.integers(0, 4, (100_000, k), dtype=np.uint8)])
     qcodes[qcodes == 4] = 0               # DNA encodes N as A
     return pack_rows(qcodes)
 
@@ -198,7 +209,9 @@ def main(argv=None) -> int:
     make_index = {"p4": lambda: CountIndex(spec, device=dev),
                   "p5": lambda: SortedCountIndex(spec, device=dev),
                   "p6": lambda: PositionQualityIndex(spec, device=dev,
-                                                     canonical=True)}
+                                                     canonical=True),
+                  "p7": lambda: CountIndex(KmerSpec(K_WIDE, DNA),
+                                           device=dev, max_runs=8)}
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if on_gpu else [])
     out = {"card": smi, "runs": {}}
@@ -208,14 +221,16 @@ def main(argv=None) -> int:
         codes = make_reads(args.genome, n_reads, seed=0)
         path = pathlib.Path(tmp) / "p4.fastq"
         write_fastq(codes, make_quals(codes, seed=0), path)
-        queries = make_queries(codes)
+        queries = {k: make_queries(codes, k)
+                   for k in sorted({RUN_K[run] for run in runs})}
         print(f"data: {n_reads} reads, {codes.size} bases, "
               f"{path.stat().st_size} bytes FASTQ [{smi}]", flush=True)
         del codes
 
         for run in runs:
             wall = {}
-            fns = phase_steps(run, make_index[run](), path, queries)
+            fns = phase_steps(run, make_index[run](), path,
+                              queries[RUN_K[run]])
             for name in PHASES[run]:
                 t0 = time.perf_counter()
                 fns[name]()
@@ -224,7 +239,7 @@ def main(argv=None) -> int:
             del fns
 
             idx = make_index[run]()
-            fns = phase_steps(run, idx, path, queries)
+            fns = phase_steps(run, idx, path, queries[RUN_K[run]])
             with profile(activities=acts) as prof:
                 for name in PHASES[run]:
                     with record_function(f"{run}:{name}"):

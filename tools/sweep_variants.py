@@ -43,6 +43,32 @@ from chip_smoke import (CHUNK, GENOME_LEN, K, READ_LEN,  # noqa: E402
 _LDCS = ("buf[swz(c)] = __ldcs(x4 + c);", "buf[swz(c)] = x4[c];")
 _STCS = ("__stcs(o4 + c, buf[swz(c)]);", "o4[c] = buf[swz(c)];")
 
+_WIDE_LOOP = """    const uint32_t* str = use_rc ? rev : fwd;
+    const int p0 = use_rc ? r0 : j;
+    for (int w = 0; w < nwords; ++w) {
+      const int nb = w < nwords - 1 ? full_bits : last_bits;
+      words[static_cast<int64_t>(w) * n + i] =
+          stream_field(str, p0 + w * cpw, bits, nb);
+    }
+    was_rc[i] = use_rc;
+  }"""
+_WIDE_LOOP_WORD_MAJOR = """    p0s[s] = use_rc ? r0 : j;
+    rcs[s] = use_rc;
+    was_rc[i] = use_rc;
+  }
+  for (int w = 0; w < nwords; ++w) {
+    const int nb = w < nwords - 1 ? full_bits : last_bits;
+#pragma unroll
+    for (int s = 0; s < kWideItems; ++s) {
+      const int64_t i = g0 + s * kWideThreads + tid;
+      if (i < n)
+        words[static_cast<int64_t>(w) * n + i] =
+            stream_field(rcs[s] ? rev : fwd, p0s[s] + w * cpw, bits, nb);
+    }
+  }"""
+_WIDE_DECLS = ("  for (int s = 0; s < kWideItems; ++s) {\n"
+               "    const int j = s * kWideThreads + tid;")
+
 #: kernel -> (source, {variant: [(committed text, variant text), ...]})
 VARIANTS = {
     "scan": ("prefix_sum.cu", {
@@ -75,6 +101,16 @@ VARIANTS = {
             ("  __syncthreads();\n\n  // roll in the warm-up codes",
              '  asm volatile("cp.async.wait_all;" ::: "memory");\n'
              "  __syncthreads();\n\n  // roll in the warm-up codes")],
+        # the wide (bit-stream) kernel's tile shape
+        "wide_items_8": [("kWideItems = 4;", "kWideItems = 8;")],
+        "wide_items_16": [("kWideItems = 4;", "kWideItems = 16;")],
+        "wide_threads_128": [("kWideThreads = 256;", "kWideThreads = 128;")],
+        # each window's words stored as soon as its strand is decided
+        # (window by window, not word column by word column)
+        "wide_window_major": [
+            ("  int p0s[kWideItems];\n  bool rcs[kWideItems];\n"
+             + _WIDE_DECLS, _WIDE_DECLS),
+            (_WIDE_LOOP_WORD_MAJOR, _WIDE_LOOP)],
     }),
     "runlength": ("run_length_weights.cu", {
         "committed": [],
@@ -90,9 +126,15 @@ VARIANTS = {
         "items_16": [("kItems = 8;", "kItems = 16;")],
         "min_blocks_12": [("__launch_bounds__(kThreads)\nmerge_tiles_kernel",
                            "__launch_bounds__(kThreads, 12)\nmerge_tiles_kernel")],
+        "min_blocks_16": [("__launch_bounds__(kThreads)\nmerge_tiles_kernel",
+                           "__launch_bounds__(kThreads, 16)\nmerge_tiles_kernel")],
+        "no_col_skew": [("return kPadTile + (P > 1 ? 32 / P : 0);",
+                         "return kPadTile;")],
+        # the staged columns' loads through registers, a column at a time
+        "register_stage": [
+            ("if (p < cnt) cp_async4(s + pad(p), p < ta ? a + p : b + (p - ta));",
+             "if (p < cnt) s[pad(p)] = p < ta ? a[p] : b[p - ta];")],
         "cache_hints": [
-            ("s[pad(p)] = p < ta ? a[p] : b[p - ta];",
-             "s[pad(p)] = p < ta ? __ldcs(a + p) : __ldcs(b + p - ta);"),
             ("if (p < cnt) o[p] = s[pad(p)];",
              "if (p < cnt) __stcs(o + p, s[pad(p)]);"),
             ("o4[v] = q;", "__stcs(o4 + v, q);")],
@@ -179,13 +221,20 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def sorted_run(n):
-        words = torch.randint(-(2**31), 2**31 - 1, (n, 2), dtype=torch.int32,
+    def sorted_run(n, w=2, flagged=False):
+        """chip_smoke.py P2's runs: k=21 (w=2) or k=127 (w=8) key words,
+        or w full words behind a liveness flag."""
+        words = torch.randint(-(2**31), 2**31 - 1, (n, w), dtype=torch.int32,
                               device=dev, generator=gen)
-        words[:, 1] &= 0x3FF
+        if not flagged:
+            words[:, -1] &= 0x3FF if w == 2 else 0x3FFFFFFF
         valid = torch.rand(n, device=dev, generator=gen) > 0.01
-        return sortops.sort_rows(words, (), valid, sentinel_ok=True,
-                                 as_cols=True)[0]
+        cols, _, s_valid = sortops.sort_rows(words, (), valid,
+                                             sentinel_ok=not flagged,
+                                             as_cols=True)
+        if flagged:
+            cols = torch.cat([(~s_valid).to(torch.int32)[None], cols])
+        return cols
 
     def copy_of(nbytes):
         """Yardstick: a device copy that reads and writes nbytes in all."""
@@ -196,7 +245,8 @@ def main(argv=None) -> int:
     cases = []      # (kernel, case, call(), check(), bytes, yardsticks)
     if "extract" in names:
         for spec in (KmerSpec(21, DNA), KmerSpec(63, DNA),
-                     KmerSpec(31, DNA16)):
+                     KmerSpec(31, DNA16), KmerSpec(127, DNA),
+                     KmerSpec(1024, DNA)):
             codes = torch.randint(0, spec.alphabet.size, (CHUNK,),
                                   dtype=torch.uint8, device=dev,
                                   generator=gen)
@@ -243,9 +293,13 @@ def main(argv=None) -> int:
                           nbytes, copy_of(nbytes)))
         del words, table, pick
     if "merge" in names:
-        for na, nb, npay in ((CHUNK, CHUNK, 0), (1 << 26, CHUNK, 0),
-                             (CHUNK, CHUNK, 1)):
-            a, b = sorted_run(na), sorted_run(nb)
+        for na, nb, npay, w, flagged in (
+                (CHUNK, CHUNK, 0, 2, False), (1 << 26, CHUNK, 0, 2, False),
+                (CHUNK, CHUNK, 1, 2, False), (1 << 26, 1 << 24, 3, 2, False),
+                (1 << 26, 1 << 24, 3, 2, True), (CHUNK, CHUNK, 0, 8, False),
+                (1 << 26, 1 << 24, 3, 8, False),
+                (1 << 22, 1 << 22, 4, 32, True)):
+            a, b = sorted_run(na, w, flagged), sorted_run(nb, w, flagged)
             pa = tuple(torch.randint(0, 100, (na,), dtype=torch.int32,
                                      device=dev, generator=gen)
                        for _ in range(npay))
@@ -264,9 +318,10 @@ def main(argv=None) -> int:
                 k, p = call()
                 return torch.equal(k, want[0]) and all(
                     torch.equal(x, y) for x, y in zip(p, want[1]))
+            kw = a.shape[0]
             nbytes = kernel_bytes("merge_runs_cols", na=na, nb=nb,
-                                  n_out=want[0].shape[1], w=2, npay=npay)
-            cases.append(("merge", f"{na}+{nb} w=2 payloads={npay}", call,
+                                  n_out=want[0].shape[1], w=kw, npay=npay)
+            cases.append(("merge", f"{na}+{nb} w={kw} payloads={npay}", call,
                           check, nbytes, {"stable torch.sort": (
                               lambda key=key: torch.sort(key, stable=True))}))
     if "scan" in names:
