@@ -61,16 +61,20 @@ and power limit as nvidia-smi reports them):
       must all have run.
 * P5  the same FASTQ through SortedCountIndex.build on one shard: the 1M
       queries return P4's numpy reference counts, size() equals P4's
-      distinct count, the store's counts sum to the window count.  Counters
-      zeroed just before, read just after: K1 and K4 ran once per chunk.
+      distinct count, the store's counts sum to the window count,
+      histogram() equals the numpy spectrum of the canonical 21-mer counts.
+      Counters zeroed just before, read just after: K1 and K4 ran once per
+      chunk.
 * P6  the same FASTQ through PositionQualityIndex(canonical=True).build on
       one shard (K1 extracts, K2 flushes with 3 payloads): size() equals
       the window count, count() of the 1M queries P4's numpy counts, find
       (with_quality) of 10,000 sampled queries the numpy set of window ids
-      per query with qualities at rtol 1e-4, and erasing 1,000 keys erases
-      exactly their pairs; find of all 1M queries is timed.  Counters
-      zeroed just before, read just after: K1 ran once per chunk, K2 at
-      least once per flush.
+      per query with qualities at rtol 1e-4, erasing 1,000 keys erases
+      exactly their pairs, and erase_if(window quality < a threshold that
+      no numpy window quality lies within rtol 1e-5 of) erases numpy's
+      count of such pairs, size() following; find of all 1M queries is
+      timed.  Counters zeroed just before, read just after: K1 ran once
+      per chunk, K2 at least once per flush.
 * P7  wide k-mers: the same FASTQ at k = 127 DNA (8 key words, K1's wide
       kernel) on one shard.  CountIndex(max_runs=8).build: 1M count()
       queries (900k read windows, 100k random 127-mers) equal an
@@ -83,11 +87,28 @@ and power limit as nvidia-smi reports them):
       just after: K1 ran once per chunk, all on the wide kernel; K2 at
       least once per merge or flush (w = 8, no payloads; w = 8, 3
       payloads).
+* P8  the index surface at P4's size (runs after P6, before P7, while P4's
+      numpy reference is held): CountIndex(KmerSpec(21, DNA)) on one shard
+      over P4's FASTQ, each step timed and checked exactly against a numpy
+      model of the contents — build, histogram(255) == the numpy spectrum;
+      insert_counts of 1M (k-mer, count) pairs (500k read k-mers, 500k
+      random, counts 1-1000 from the seed), then count() of the 1M P4
+      queries == numpy counts plus the added ones; erase of 1M keys (half
+      present) returns numpy's number of distinct present keys, which then
+      count 0, and size() / the items() count sum follow; filter(c >= 2)
+      drops numpy's singletons and empties bin 1; count_if(c >= t), t the
+      lowest threshold selecting at most 1M keys, == numpy's selection; npz
+      save -> CountIndex.load and save_index -> load_index answer the 1M
+      queries like the saved index; CountIndex(saturate=20) over the same
+      FASTQ: count() == min(numpy, 20), histogram == the clamped spectrum.
+      Counters zeroed just before, read just after: K2 and K3 ran, K2 at
+      least once with one payload (the weights; `kernels.
+      K2_PAYLOAD_LAUNCHES` counts K2's launches by payload count).
 
 Exits non-zero, printing no result, when there is no CUDA device, a build
 fails or any check fails.  The last line of standard output is the
 contract JSON; the line before it lists the kernels with their launches
-in the main-path runs P4 + P5 + P6 + P7.
+in the main-path runs P4 + P5 + P6 + P7 + P8.
 """
 
 from __future__ import annotations
@@ -389,6 +410,43 @@ def expected_counts(sorted_codes: np.ndarray, qcodes: np.ndarray
             - np.searchsorted(sorted_codes, q, "left"))
 
 
+def distinct_counts(sorted_codes: np.ndarray):
+    """(distinct keys, int64 count of each) of a sorted 1-d key array: the
+    lengths of its runs of equal values."""
+    if sorted_codes.size == 0:
+        return sorted_codes[:0], np.zeros(0, np.int64)
+    heads = np.flatnonzero(np.diff(sorted_codes)) + 1
+    starts = np.concatenate([[0], heads])
+    return sorted_codes[starts], np.diff(np.append(starts, sorted_codes.size))
+
+
+def add_counts(keys, cnts, add_keys, add_cnts):
+    """(sorted distinct keys, summed int64 counts) of two (key, count) sets:
+    a counting map's contents after inserting (add_keys, add_cnts)."""
+    all_keys = np.concatenate([keys, add_keys])
+    order = np.argsort(all_keys, kind="stable")
+    out, runs = distinct_counts(all_keys[order])
+    starts = np.concatenate([[0], np.cumsum(runs)[:-1]])
+    summed = np.concatenate([cnts, add_cnts]).astype(np.int64)[order]
+    return out, np.add.reduceat(summed, starts) if out.size else runs
+
+
+def spectrum(counts: np.ndarray, max_count: int = 255) -> np.ndarray:
+    """int64[max_count + 1] k-mer spectrum of per-key counts: how many keys
+    have each count, counts above max_count in the last bin (what
+    CountIndex.histogram returns)."""
+    return np.bincount(np.minimum(counts, max_count),
+                       minlength=max_count + 1).astype(np.int64)
+
+
+def code_rows(codes: np.ndarray) -> np.ndarray:
+    """uint32[m, 2] DNA words (`pack_rows` layout) of 2-bit 21-mer codes
+    (uint64, base 0 most significant)."""
+    codes = np.asarray(codes, np.uint64)
+    return np.stack([(codes >> np.uint64(10)).astype(np.uint32),
+                     (codes & np.uint64(0x3FF)).astype(np.uint32)], axis=1)
+
+
 def pack_rows(codes: np.ndarray) -> np.ndarray:
     """uint32[m, ceil(k / 16)] DNA words (kmer.py layout: 16 bases a word,
     the last word right-aligned) of [m, k] codes."""
@@ -595,7 +653,8 @@ def phase_p6(dev, path, quals, qcodes, queries, canon_all, want_counts, smi,
     nwin = READ_LEN - K + 1
     w_key = pos[widx]
     w_id = short_ids(np.stack(np.divmod(widx, nwin), 1))
-    w_q = window_quality(quals).reshape(-1)[widx]
+    wq_all = window_quality(quals).reshape(-1)
+    w_q = wq_all[widx]
     order = np.lexsort((w_id, w_key))
     w_key, w_id, w_q = w_key[order], w_id[order], w_q[order]
     bounds = np.searchsorted(w_key, np.arange(uq.size + 1))
@@ -661,6 +720,23 @@ def phase_p6(dev, path, quals, qcodes, queries, canon_all, want_counts, smi,
             or pq.size() != n_windows - gone_pairs):
         raise AssertionError(f"P6: erase of {first.size} keys took {erased} "
                              f"pairs, not their {gone_pairs}")
+    # a quality-aware cut: erase_if every pair whose window quality is under
+    # a threshold that no window's numpy quality lies within rtol 1e-5 of
+    # (the port's float32 qualities agree to rtol 1e-5), less the windows
+    # of the keys erased above
+    thr = next(t for t in (0.5, 0.25, 0.1, 0.05, 0.01, 1e-3, 1e-6)
+               if not ((wq_all > t * (1 - 1e-5))
+                       & (wq_all < t * (1 + 1e-5))).any())
+    gone_q = np.concatenate([w_q[bounds[e]:bounds[e + 1]]
+                             for e in inv[first]])
+    want_cut = int((wq_all < thr).sum()) - int((gone_q < thr).sum())
+    del wq_all
+    t0 = time.perf_counter()
+    cut = pq.erase_if(lambda k, h, l, q: q < thr)
+    cut_s = time.perf_counter() - t0
+    if cut != want_cut or pq.size() != n_windows - gone_pairs - want_cut:
+        raise AssertionError(f"P6: erase_if(quality < {thr}) took {cut} "
+                             f"pairs, numpy {want_cut}")
     p6 = dict(kernels.LAUNCHES)
     peak = peak_bytes(dev)
     nq = queries.shape[0]
@@ -676,7 +752,8 @@ def phase_p6(dev, path, quals, qcodes, queries, canon_all, want_counts, smi,
         f"{f_s[1]:.3f} s = {nq / f_s[1]:.0f} q/s; {sample.size} sampled "
         f"finds == numpy id sets ({bounds[-1]} pairs), qualities max rel "
         f"err {worst:.3e} (rtol 1e-4); erase of {first.size} keys took "
-        f"their {erased} pairs in {erase_s:.3f} s [{smi}]")
+        f"their {erased} pairs in {erase_s:.3f} s; erase_if(window quality "
+        f"< {thr}) took numpy's {cut} pairs in {cut_s:.3f} s [{smi}]")
     log("P6 phases:\n" + pq.timer.report("P6"))
     log(f"P6 launches: {p6}")
     if p6["extract_canonical"] != chunks:
@@ -817,6 +894,156 @@ def phase_p7(dev, path, codes, quals, smi, n_queries: int = 1_000_000,
         raise AssertionError(f"P7: K2 launches < {merges} merges + "
                              f"{flushes} flushes")
     return p7
+
+
+def phase_p8(dev, path, tmp, qcodes, queries, keys, cnts, want_counts,
+             smi, n_pairs: int = 1_000_000, max_count: int = 255,
+             saturate: int = 20) -> dict:
+    """P8: the index surface at P4's size (the module docstring), each step
+    timed and held exactly against a numpy model of the contents (sorted
+    canonical codes and their counts).  Returns the kernel launches of its
+    run, with K2's by payload count under "K2 payloads"; raises on any
+    difference from numpy."""
+    import torch
+    from kmerind_tpu_torch import DNA, CountIndex, KmerSpec
+    from kmerind_tpu_torch.ops import kernels
+    from kmerind_tpu_torch.utils.checkpoint import load_index, save_index
+    spec = KmerSpec(K, DNA)
+    rng = np.random.default_rng(8)
+    times = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        times[name] = time.perf_counter() - t0
+        return out
+
+    def lookup(keys, cnts, q):
+        """Counts of the canonical codes q in the model (0 if absent)."""
+        pos = np.searchsorted(keys, q).clip(max=max(keys.size - 1, 0))
+        return np.where(keys[pos] == q, cnts[pos], 0)
+
+    def check(cond, what):
+        if not cond:
+            raise AssertionError(f"P8: {what}")
+
+    # the model: P4's distinct canonical 21-mers (keys) and counts (cnts)
+    n_windows = int(cnts.sum())
+    want_spec = spectrum(cnts, max_count)
+    half = n_pairs // 2
+    rand = rng.integers(0, 4, (n_pairs - half, K), dtype=np.uint8)
+    add_keys = np.concatenate([rng.choice(keys, half, replace=False),
+                               window_codes(rand)[:, 0]])
+    add_rows = np.concatenate([code_rows(add_keys[:half]), pack_rows(rand)])
+    add_cnts = rng.integers(1, 1001, n_pairs)
+    rand = rng.integers(0, 4, (n_pairs - half, K), dtype=np.uint8)
+    erase_keys = np.concatenate([rng.choice(keys, half),
+                                 window_codes(rand)[:, 0]])
+    erase_rows = np.concatenate([code_rows(erase_keys[:half]),
+                                 pack_rows(rand)])
+    qcanon = window_codes(qcodes)[:, 0]
+    del rand
+
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    idx = CountIndex(spec, device=dev)
+    timed("build", lambda: idx.build(path))
+    hist = timed("histogram", lambda: idx.histogram(max_count))
+    check(np.array_equal(hist, want_spec), "histogram != numpy spectrum")
+
+    # (kmer, count) pairs: weighted runs adopted with the K3 prefix sum
+    timed("insert_counts", lambda: idx.insert_counts(add_rows, add_cnts))
+    keys, cnts = add_counts(keys, cnts, add_keys, add_cnts)
+    got = timed("count", lambda: idx.count(queries))
+    check(np.array_equal(got, lookup(keys, cnts, qcanon)),
+          "counts after insert_counts != numpy counts + added counts")
+    check(np.array_equal(idx.count(add_rows), lookup(
+        keys, cnts, add_keys)), "counts of the inserted pairs")
+
+    # erase: distinct present keys, over the adopted runs and the build's
+    erased = timed("erase", lambda: idx.erase(erase_rows))
+    pos = np.searchsorted(keys, erase_keys).clip(max=keys.size - 1)
+    gone = np.unique(pos[keys[pos] == erase_keys])
+    check(erased == gone.size, f"erase returned {erased}, numpy "
+          f"{gone.size} distinct present keys")
+    check(not idx.count(erase_rows).any(), "an erased key still counts")
+    keep = np.ones(keys.size, bool)
+    keep[gone] = False
+    keys, cnts = keys[keep], cnts[keep]
+    size = timed("size", idx.size)
+    _, item_cnts = idx.items()
+    check(size == keys.size and int(item_cnts.sum()) == int(cnts.sum()),
+          f"size {size} / count sum {int(item_cnts.sum())} != numpy "
+          f"{keys.size} / {int(cnts.sum())}")
+
+    # drop the singletons
+    singles = int((cnts == 1).sum())
+    dropped = timed("filter", lambda: idx.filter(lambda k, c: c >= 2))
+    keys, cnts = keys[cnts >= 2], cnts[cnts >= 2]
+    hist = idx.histogram(max_count)
+    check(dropped == singles and hist[1] == 0
+          and np.array_equal(hist, spectrum(cnts, max_count)),
+          f"filter dropped {dropped}, numpy {singles} singletons")
+
+    # count_if at the lowest threshold selecting at most n_pairs keys
+    t = int(np.sort(cnts)[-n_pairs]) + 1 if cnts.size >= n_pairs else 0
+    sel = timed("count_if", lambda: idx.count_if(lambda k, c: c >= t))
+    pick = cnts >= t
+    check(sorted(sel) == list(zip(keys[pick].tolist(), cnts[pick].tolist())),
+          f"count_if(c >= {t}) != numpy's {int(pick.sum())} entries")
+
+    # persistence: npz (the JAX package's format) and the sharded checkpoint
+    want = lookup(keys, cnts, qcanon)
+    timed("save", lambda: idx.save(tmp / "p8.npz"))
+    back = timed("load", lambda: CountIndex.load(tmp / "p8.npz", dev))
+    check(np.array_equal(back.count(queries), want), "npz reload's counts")
+    del back
+    timed("save_index", lambda: save_index(idx, tmp / "p8_ckpt"))
+    back = timed("load_index", lambda: load_index(tmp / "p8_ckpt", dev))
+    check(np.array_equal(back.count(queries), want)
+          and np.array_equal(idx.count(queries), want),
+          "checkpoint reload's counts")
+    del back, idx
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # a saturating map over the same FASTQ: every reader clamps
+    sat = CountIndex(spec, device=dev, saturate=saturate)
+    timed("build saturate", lambda: sat.build(path))
+    got = sat.count(queries)
+    clamped = want_spec.copy()
+    clamped[saturate] = clamped[saturate:].sum()
+    clamped[saturate + 1:] = 0
+    check(np.array_equal(got, np.minimum(want_counts, saturate))
+          and np.array_equal(sat.histogram(max_count), clamped),
+          f"saturate={saturate}: counts or spectrum != numpy, clamped")
+    launches = dict(kernels.LAUNCHES)
+    launches["K2 payloads"] = dict(kernels.K2_PAYLOAD_LAUNCHES)
+    peak = peak_bytes(dev)
+    del sat
+    log(f"P8 CountIndex surface, 1 shard: build {times['build']:.3f} s = "
+        f"{n_windows / times['build']:.0f} k-mers/s; histogram({max_count}) "
+        f"{times['histogram']:.3f} s == numpy spectrum; insert_counts of "
+        f"{n_pairs} pairs {times['insert_counts']:.3f} s; count of "
+        f"{queries.shape[0]} {times['count']:.3f} s == numpy + added; erase "
+        f"of {n_pairs} keys {times['erase']:.3f} s ({erased} distinct "
+        f"present); size {times['size']:.3f} s ({size}); filter(c >= 2) "
+        f"{times['filter']:.3f} s ({dropped} singletons); count_if(c >= {t})"
+        f" {times['count_if']:.3f} s ({len(sel)} entries); npz save "
+        f"{times['save']:.3f} s, load {times['load']:.3f} s; save_index "
+        f"{times['save_index']:.3f} s, load_index {times['load_index']:.3f}"
+        f" s; saturate={saturate} build {times['build saturate']:.3f} s, "
+        f"counts and spectrum == numpy clamped; peak device memory {peak} "
+        f"bytes [{smi}]")
+    log(f"P8 launches: {launches}")
+    check(launches["merge_runs_cols"] and launches["prefix_sum_i32"],
+          f"K2 and K3 must both run: {launches}")
+    check(launches["K2 payloads"].get(1, 0) > 0,
+          f"K2 never merged with the weights as its payload: {launches}")
+    return launches
 
 
 def main() -> int:
@@ -1174,6 +1401,7 @@ def main() -> int:
         canon_all = window_codes(codes)
         sorted_codes = np.sort(canon_all, axis=None)
         want_counts = expected_counts(sorted_codes, qcodes)
+        ref_keys, ref_cnts = distinct_counts(sorted_codes)
         log(f"P4 numpy reference counts: "
             f"{time.perf_counter() - t0:.2f} s [{smi}]")
 
@@ -1273,6 +1501,11 @@ def main() -> int:
             raise AssertionError(f"P5: size {size} != P4 distinct {distinct}")
         if int(sidx.store.counts.sum()) != n_windows:
             raise AssertionError("P5: store counts do not sum to windows")
+        t0 = time.perf_counter()
+        if not np.array_equal(sidx.histogram(), spectrum(ref_cnts)):
+            raise AssertionError("P5: histogram() != the numpy spectrum")
+        log(f"P5 histogram(255) {time.perf_counter() - t0:.3f} s == numpy "
+            f"spectrum [{smi}]")
         if not p5["extract_canonical"] == p5["run_length_weights"] == chunks:
             raise AssertionError(f"P5: K1 / K4 launches != {chunks} chunks")
         del sidx
@@ -1281,7 +1514,16 @@ def main() -> int:
         # ------------------------------------------------------------ P6
         launches["P6"] = phase_p6(dev, path, quals, qcodes, queries,
                                   canon_all, want_counts, smi)
-        del canon_all, sorted_codes, qcodes, queries, want_counts
+        del canon_all, sorted_codes
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------------------ P8
+        # (runs while P4's numpy reference is held, before P7)
+        t0 = time.perf_counter()
+        launches["P8"] = phase_p8(dev, path, tmp, qcodes, queries, ref_keys,
+                                  ref_cnts, want_counts, smi)
+        log(f"P8 seconds {time.perf_counter() - t0:.2f} [{smi}]")
+        del qcodes, queries, want_counts, ref_keys, ref_cnts
         torch.cuda.empty_cache()
 
         # ------------------------------------------------------------ P7
@@ -1292,9 +1534,10 @@ def main() -> int:
     log(f"total seconds {time.perf_counter() - t_all:.2f} [{smi}]")
     entries = []
     for kname, (src, replaces) in kernels.KERNELS.items():
-        # main-path launches (P4 + P5 + P6 + P7, and per run); K2′ is on
-        # no index's path: P2's
-        by_run = {r: launches[r][kname] for r in ("P4", "P5", "P6", "P7")}
+        # main-path launches (P4 + P5 + P6 + P7 + P8, and per run); K2′ is
+        # on no index's path: P2's
+        by_run = {r: launches[r][kname]
+                  for r in ("P4", "P5", "P6", "P7", "P8")}
         n = (k2r_launches if kname == "merge_sorted_runs"
              else sum(by_run.values()))
         entries.append({"name": kname, "route": "cuda", "source": src,

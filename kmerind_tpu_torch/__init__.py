@@ -13,7 +13,10 @@ Hopper (``ops/csrc``).  It mirrors the JAX package's module layout:
   `PositionIndex`, `PositionQualityIndex` (hash-partitioned) and
   `SortedCountIndex`, `SortedPositionIndex`, `SortedPositionQualityIndex`
   (range-partitioned), each over p shards stacked on one device;
-* ``quality``  — the phred codec and windowed k-mer quality.
+* ``quality``  — the phred codec and windowed k-mer quality;
+* ``config``   — `IndexConfig`, every index's knobs in one dataclass;
+* ``utils.checkpoint`` — sharded `save_index` / `load_index` (each index
+  also has npz `save` / `load` in the JAX package's formats).
 
 Every tensor function runs on the device its inputs live on; an index
 lives on ``device="cuda"`` unless the caller names another (the tests pass
@@ -22,12 +25,13 @@ lives on ``device="cuda"`` unless the caller names another (the tests pass
 
 from . import alphabets
 from .alphabets import ASCII, DNA, DNA5, DNA6, DNA16, DNA_IUPAC, RNA, RNA5, RNA6
+from .config import IndexConfig
 from .index.api import CountIndex, PositionIndex, PositionQualityIndex
 from .index.sorted_api import (SortedCountIndex, SortedPositionIndex,
                                SortedPositionQualityIndex)
 from .kmer import KmerSpec
 
-__all__ = ["alphabets", "KmerSpec", "CountIndex", "PositionIndex",
+__all__ = ["alphabets", "KmerSpec", "IndexConfig", "CountIndex", "PositionIndex",
            "PositionQualityIndex", "SortedCountIndex", "SortedPositionIndex",
            "SortedPositionQualityIndex", "DNA", "DNA5", "DNA6", "DNA16",
            "DNA_IUPAC", "RNA", "RNA5", "RNA6", "ASCII"]

@@ -23,6 +23,7 @@ import sys
 import numpy as np
 import torch
 
+from .. import alphabets
 from ..io.batch import ReadBatch
 from ..io.files import (file_size, read_fasta_block, read_fastq_block,
                         read_file, sniff_format)
@@ -30,7 +31,7 @@ from ..io.kmer_parsers import DeviceBases, transform_name
 from ..kmer import KmerSpec
 from ..ops import bitops, packing
 from ..quality import ILLUMINA18
-from ..ops.keys import from_numpy_u32, to_numpy_u32
+from ..ops.keys import from_numpy_u32, to_numpy_u32, to_u64
 from ..utils.timers import PhaseTimer
 from . import distributed as dx
 from . import store as st
@@ -40,6 +41,28 @@ __all__ = ["CountIndex", "PositionIndex", "PositionQualityIndex"]
 
 def _next_pow2(n: int) -> int:
     return 1 << max(4, (max(n, 1) - 1).bit_length())
+
+
+def _pred_mask(pred, words: torch.Tensor, counts: np.ndarray) -> np.ndarray:
+    """bool[m] host mask of a user predicate over query rows:
+    pred(keys int64[m, w] — the words' unsigned values, counts [m])."""
+    keep = pred(to_u64(words), torch.from_numpy(counts).to(words.device))
+    return torch.as_tensor(keep).cpu().numpy().astype(bool)
+
+
+def _open_npz(path, kinds: tuple):
+    """(the npz archive, its KmerSpec) of a saved index whose `kind` is one
+    of `kinds` (the JAX package's npz formats)."""
+    z = np.load(path, allow_pickle=False)
+    if str(z["kind"]) not in kinds:
+        raise ValueError(f"{path}: a {str(z['kind'])!r} index, not "
+                         f"{' / '.join(kinds)}")
+    return z, KmerSpec(int(z["k"]), alphabets.by_name(str(z["alphabet"])))
+
+
+def _live_rows(a: np.ndarray, sizes: np.ndarray) -> np.ndarray:
+    """The live rows a[s, :sizes[s]] of every shard s, concatenated."""
+    return np.concatenate([a[s, :n] for s, n in enumerate(sizes.tolist())])
 
 
 class _IndexBase:
@@ -264,6 +287,33 @@ class _IndexBase:
         return self._maybe_canonicalize_queries(
             from_numpy_u32(self._to_words(kmers), self.device))
 
+    # -- container surface (dsc::map_base, distributed_map_base.hpp:149-302)
+    def empty(self) -> bool:
+        """True when no shard holds an entry."""
+        return self.size() == 0
+
+    def exists(self, kmers) -> np.ndarray:
+        """bool[m] membership per query (the KmerIndex exists view,
+        kmer_index.hpp:399)."""
+        return self.count(kmers) > 0
+
+    def clear(self):
+        """Drop every entry and pending row, keeping the capacity
+        (map_base::clear): sentinel keys, every other field zero."""
+        if hasattr(self, "_pending"):
+            self._pending = []
+            self._pending_rows = 0
+        self.store = st.cleared(self.store)
+        return self
+
+    def reserve(self, n: int):
+        """Grow each shard's capacity to hold ~n entries in all
+        (map_base::reserve)."""
+        per = _next_pow2(-(-n // self.nparts))
+        if per > self.capacity:
+            self._grow(per)
+        return self
+
     # -- build paths ---------------------------------------------------------
     def insert_batch(self, batch: ReadBatch, chunk_bases: int | None = None):
         """Insert a parsed batch's k-mers, streamed through the device in
@@ -327,8 +377,112 @@ class _IndexBase:
                                  self._insert_cols)
         return self
 
+    def build_posix(self, path, fmt: str | None = None, file_id: int = 0):
+        """`build` under the reference's per-reader entry names
+        (build_posix / build_mmap / build_mpiio, kmer_index.hpp:332-394):
+        one memory-mapped reader serves all three."""
+        return self.build(path, fmt, file_id)
 
-class CountIndex(_IndexBase):
+    build_mmap = build_mpiio = build_posix
+
+    def build_files(self, paths, fmt: str | None = None):
+        """Build from several files in turn; a k-mer's file_id is its file's
+        position in `paths`."""
+        for fid, path in enumerate(paths):
+            self.build(path, fmt, file_id=fid)
+        return self
+
+
+class _CountSurfaceMixin:
+    """The Index surface (kmer_index.hpp:142-201) of the count indexes,
+    shared by the hash-partitioned CountIndex and the range-partitioned
+    SortedCountIndex.  A class provides `_count_words`, `_erase_words`,
+    `_filter`, `_select` and `_histogram`.
+
+    Predicates take (keys int64[n, w], counts int32[n]) and return bool[n]:
+    each key word is an int64 holding its unsigned value (the store's
+    int32 bit patterns would compare signed), so ``k[:, 0] >= 0x80000000``
+    means what it says.  The JAX package's predicates get jnp arrays of the
+    same shapes; one lambda written with operators both accept serves
+    both."""
+
+    def count(self, kmers) -> np.ndarray:
+        """int32[m] per-query counts in query order (Index::count,
+        kmer_index.hpp:142).  kmers: uint32[m, w] rows, strings or ints."""
+        return self._count_words(self._query_words(kmers))
+
+    get_multiplicity = count
+
+    def find(self, kmers):
+        """(words uint32[h, w], counts int32[h]) of the queries found, in
+        query order, keys as stored (transformed); duplicated queries give
+        duplicated pairs (Index::find, kmer_index.hpp:115-140)."""
+        words = self._query_words(kmers)
+        counts = self._count_words(words)
+        hit = counts > 0
+        return to_numpy_u32(words)[hit], counts[hit]
+
+    def erase(self, kmers) -> int:
+        """Erase the query keys; returns how many distinct keys were
+        present (Index::erase, kmer_index.hpp:148)."""
+        return self._erase_words(self._query_words(kmers))
+
+    def erase_if(self, pred, kmers=None) -> int:
+        """Erase the entries satisfying pred (kmer_index.hpp:153-195);
+        returns how many.  With `kmers`, only those query keys whose (key,
+        count) satisfies pred."""
+        if kmers is None:
+            return self._filter(lambda k, c: ~pred(k, c))
+        words = self._query_words(kmers)
+        counts = self._count_words(words)
+        hits = _pred_mask(pred, words, counts) & (counts > 0)
+        if not hits.any():
+            return 0
+        return self._erase_words(words[torch.from_numpy(hits).to(
+            words.device)])
+
+    def filter(self, pred) -> int:
+        """Keep only the entries satisfying pred; returns how many were
+        erased."""
+        return self.erase_if(lambda k, c: ~pred(k, c))
+
+    def count_if(self, pred, kmers=None):
+        """Without kmers: [(kmer_int, count)] of every entry satisfying
+        pred, shard by shard in key order.  With kmers: the per-query
+        counts, 0 where pred fails."""
+        if kmers is None:
+            out = []
+            for rows, cnts in self._select(pred):
+                if rows.shape[0]:
+                    out.extend(zip(
+                        self.spec.to_ints(to_numpy_u32(rows)).tolist(),
+                        cnts.cpu().numpy().astype(int).tolist()))
+            return out
+        words = self._query_words(kmers)
+        counts = self._count_words(words)
+        return np.where(_pred_mask(pred, words, counts), counts, 0)
+
+    def find_if(self, pred, kmers=None):
+        """find restricted to the entries satisfying pred: count_if(pred)
+        without kmers, else (found bool[m], counts int32[m])."""
+        if kmers is None:
+            return self.count_if(pred)
+        counts = self.count_if(pred, kmers)
+        return counts > 0, counts
+
+    def histogram(self, max_count: int = 255) -> np.ndarray:
+        """int64[max_count + 1] k-mer spectrum: hist[c] = distinct k-mers of
+        count c, counts above max_count in the last bin — where genome-size
+        and coverage estimates start (the reference's
+        utils/kmer_distribution.R over index dumps)."""
+        return self._histogram(max_count + 1).cpu().numpy().astype(np.int64)
+
+    def unique_size(self) -> int:
+        """Distinct keys: size() for a unique-key map."""
+        return self.size()
+
+
+class CountIndex(_CountSurfaceMixin, _IndexBase):
     """k-mer -> count index (CountIndex preset, kmer_index.hpp:409-411;
     counting_densehash_map semantics) over `nparts` hash-partitioned shards
     stacked on one device: key q lives on shard
@@ -339,15 +493,27 @@ class CountIndex(_IndexBase):
     discipline.  Each ingested chunk lands as one sorted UNIT run per
     shard; the index is queryable at once (count visits every run and
     sums), and the two smallest runs merge (K2) whenever the list exceeds
-    `max_runs`.  size(), items() and compact() consolidate to one run
-    first; compaction (run_compact, whose prefix sum is K3) collapses
-    duplicate rows when they dominate.
+    `max_runs`.  Explicit (key, count) inserts land as weighted runs (their
+    prefix sum is K3), and erase / filter zero the weights of the rows they
+    remove (K3 again), so every later merge of such a run carries the
+    weights as K2's payload.  size(), items(), histogram() and the
+    predicate scans consolidate to one run first; compaction (run_compact,
+    whose prefix sum is K3) collapses duplicate and erased rows when they
+    dominate.
+
+    saturate: counts clamp at this value in every reader — count, items,
+    histogram, the predicates' counts and the compaction
+    (saturating_counting_densehash_map, distributed_densehash_map.hpp:
+    2947); the runs keep raw weights until a compaction clamps them.
 
     Example::
 
         idx = CountIndex(KmerSpec(21, DNA))       # on the CUDA device
         idx.build("reads.fastq")
         idx.count(["ACGTACGTACGTACGTACGTA"])
+        spectrum = idx.histogram(255)
+        idx.filter(lambda k, c: c >= 2)           # drop the singletons
+        idx.save("index.npz")
     """
 
     #: weight budget before a pressure check: headroom under int32 max
@@ -356,32 +522,51 @@ class CountIndex(_IndexBase):
     def __init__(self, spec: KmerSpec, device="cuda", canonical=True,
                  initial_capacity: int = 1 << 12, max_runs: int = 8,
                  nparts: int = 1, hash_name: str = "murmur",
+                 saturate: int | None = None,
                  timer: PhaseTimer | None = None):
         super().__init__(spec, device, canonical, nparts, timer)
         self.hash_name = hash_name
+        self.saturate = saturate
         self.initial_capacity = initial_capacity
         self.max_runs = max_runs
+        #: compact when capacity >= compact_factor * next_pow2(2*distinct)
+        self.compact_factor = 4
+        self.clear()
+
+    def clear(self):
+        """Drop every entry: one empty run of `initial_capacity` rows per
+        shard, as a new index holds."""
         self.runs = [st.stack_run_stores(
-            [st.empty_run_count_store(initial_capacity, spec.nwords,
-                                      self.device)] * nparts)]
+            [st.empty_run_count_store(self.initial_capacity,
+                                      self.spec.nwords, self.device)]
+            * self.nparts)]
         #: per-run flag: every live row has weight 1 and sentinels mark
         #: exactly the dead tail (file-ingest output) — such pairs merge
         #: keys-only (st.run_merge_unit).  Only sentinel-safe specs.
-        self._unit = [spec.sentinel_safe]
+        self._unit = [self.spec.sentinel_safe]
         #: the initial empty run is replaced by the first real run
         self._virgin = True
-        #: compact when capacity >= compact_factor * next_pow2(2*distinct)
-        self.compact_factor = 4
         #: upper bound on any shard's raw weight total: the int32 prefix
         #: sums would wrap past 2^31 (see _note_weight)
         self._ingested_weight = 0
         self._aux_cache: list = []
+        return self
 
     # ------------------------------------------------------------------
     @property
     def capacity(self) -> int:
         """Rows per shard over all runs."""
         return sum(r.capacity for r in self.runs)
+
+    def reserve(self, n: int):
+        """Grow the capacity to hold ~n entries in all (map_base::reserve):
+        the last run's sentinel tail grows (weight-0 rows change no
+        count)."""
+        per = _next_pow2(-(-n // self.nparts))
+        if per > self.capacity:
+            self.runs[-1] = st.run_grow(self.runs[-1], per - self.capacity)
+            self._drop_stale_aux()
+        return self
 
     def _distinct(self) -> list[int]:
         """Distinct live keys per shard (one consolidated run)."""
@@ -418,16 +603,28 @@ class CountIndex(_IndexBase):
     def _note_weight(self, add: int):
         """Account `add` incoming weight against the int32 prefix-sum
         budget of the fullest shard (the bound assumes every row may land
-        on one shard); on pressure, tighten the bound from the true run
-        totals and raise before the sums can wrap (the reference's uint32
-        counts overflow silently at 2^32)."""
+        on one shard); on pressure, `_relieve_weight_pressure`."""
         if self._ingested_weight + add > self._I32_WEIGHT_GUARD:
-            self._ingested_weight = self._shard_weight()
-            if self._ingested_weight + add > (1 << 31) - 1:
-                raise OverflowError(
-                    "count index raw weight total would overflow the int32 "
-                    "prefix sums; use smaller inputs per index")
+            self._relieve_weight_pressure(add)
         self._ingested_weight += add
+
+    def _relieve_weight_pressure(self, incoming: int):
+        """The bound says a shard's raw int32 weight total could pass 2^31
+        with `incoming` more.  A saturating map compacts with the clamp
+        (exact, `store.run_compact`) and rebounds from its distinct counts;
+        a plain map tightens the bound to the true worst shard total.
+        Either raises before the prefix sums can wrap (the reference's
+        uint32 counts overflow silently at 2^32)."""
+        if self.saturate is not None and not self._virgin:
+            self.compact()
+            self._ingested_weight = max(self._distinct()) * int(self.saturate)
+        else:
+            self._ingested_weight = self._shard_weight()
+        if self._ingested_weight + incoming > (1 << 31) - 1:
+            raise OverflowError(
+                "count index raw weight total would overflow the int32 "
+                "prefix sums on a shard; use saturate= (clamped counts), "
+                "more shards, or smaller insert batches")
 
     def _append_run(self, words, weights, unit: bool = False):
         unit = unit and self.spec.sentinel_safe
@@ -460,10 +657,12 @@ class CountIndex(_IndexBase):
             self._merge_two_smallest()
         self._maybe_compact()
 
+    _checkpoint_prepare = _consolidate
+
     def _maybe_compact(self):
-        """Compact when the store is mostly duplicate rows (amortized O(1)
-        per ingested row: fires only after the store has at least
-        compact_factor/2-folded its live data)."""
+        """Compact when the store is mostly duplicate or erased rows
+        (amortized O(1) per ingested row: fires only after the store has at
+        least compact_factor/2-folded its live data)."""
         cap = self.capacity
         if len(self.runs) != 1 or cap <= (1 << 14):
             return
@@ -473,15 +672,17 @@ class CountIndex(_IndexBase):
 
     def compact(self, new_cap: int | None = None):
         """Consolidate to one run, collapse every key's rows to one
-        (key, count) row, and shrink each shard's capacity to new_cap
-        (default: next_pow2(2 * the largest shard's distinct count))."""
+        (key, count) row — clamped at `saturate` — and shrink each shard's
+        capacity to new_cap (default: next_pow2(2 * the largest shard's
+        distinct count))."""
         while len(self.runs) > 1:
             self._merge_two_smallest()
         if new_cap is None:
             new_cap = _next_pow2(max(2 * max(self._distinct()), 16))
         while True:
             with self.timer.phase("compact"):
-                new_store, ovf = dx.run_compact_step(self.runs[0], new_cap)
+                new_store, ovf = dx.run_compact_step(self.runs[0], new_cap,
+                                                     self.saturate)
             if ovf == 0:
                 self.runs, self._unit = [new_store], [False]
                 self._drop_stale_aux()
@@ -505,6 +706,42 @@ class CountIndex(_IndexBase):
         self._append_run(rw, rwt, unit=True)
         return self
 
+    def _insert_rows(self, words: torch.Tensor, counts: torch.Tensor):
+        """Route explicit (key, count) device rows [m, w] / int32[m] to
+        their owners and append them as one weighted run per shard (sorted
+        with the counts as payload, adopted with the K3 prefix sum)."""
+        if words.shape[0] == 0:
+            return self
+        self._note_weight(int(counts.sum()))
+        with self.timer.phase("insert"):
+            (rw, rwt), _ = self._route_rows(
+                lambda w, c, v, cap: dx.run_insert_step(
+                    w, c, v, self.nparts, cap, self.hash_name),
+                words, extra=(counts,))
+        self._append_run(rw, rwt)
+        return self
+
+    def insert(self, kmers):
+        """Insert explicit k-mers, one count each (Index::insert,
+        kmer_index.hpp:201)."""
+        words = self._query_words(kmers)
+        return self._insert_rows(words, torch.ones(
+            words.shape[0], dtype=torch.int32, device=self.device))
+
+    def insert_counts(self, kmers, counts):
+        """Insert (kmer, count) pairs — the counting map's second input
+        flavor (counting_densehash_map insert of ::std::pair<Kmer, T>,
+        distributed_densehash_map.hpp:2669+).  Counts are non-negative
+        int32 values (the reference's counts are unsigned)."""
+        words = self._query_words(kmers)
+        c = np.asarray(counts, dtype=np.int64).reshape(-1)
+        if c.shape[0] != words.shape[0]:
+            raise ValueError("kmers and counts length mismatch")
+        if c.size and (c.min() < 0 or c.max() > (1 << 31) - 1):
+            raise ValueError("counts must be non-negative int32 values")
+        return self._insert_rows(words, torch.from_numpy(
+            c.astype(np.int32)).to(self.device))
+
     def _drop_stale_aux(self):
         """Release the cached aux of runs that left the run list (the aux
         would otherwise keep the replaced runs' memory until the next
@@ -523,29 +760,56 @@ class CountIndex(_IndexBase):
         self._aux_cache = out
         return [a for _, a in out]
 
-    def count(self, kmers) -> np.ndarray:
-        """int32[m] per-query counts in query order (Index::count,
-        kmer_index.hpp:142).  kmers: uint32[m, w] rows, strings or ints."""
-        words = self._query_words(kmers)
+    def _count_words(self, words: torch.Tensor) -> np.ndarray:
         aux = self._ensure_aux()
         with self.timer.phase("count"):
             (counts,), m = self._route_rows(
                 lambda q, v, cap: dx.runs_count_query_step(
-                    q, v, aux, self.nparts, cap, self.hash_name), words)
+                    q, v, aux, self.nparts, cap, self.hash_name,
+                    self.saturate), words)
             return counts.reshape(-1)[:m].cpu().numpy()
+
+    def _erase_words(self, words: torch.Tensor) -> int:
+        """Zero every row of the query keys in every run; the runs stop
+        being unit runs (a keys-only merge would revive the dead rows)."""
+        aux = self._ensure_aux()
+        with self.timer.phase("erase"):
+            (runs, nerased), _ = self._route_rows(
+                lambda q, v, cap: dx.runs_erase_step(
+                    self.runs, aux, q, v, self.nparts, cap, self.hash_name),
+                words)
+        self.runs, self._unit = runs, [False] * len(runs)
+        self._drop_stale_aux()
+        return nerased
+
+    def _filter(self, keep_pred) -> int:
+        self._consolidate()
+        with self.timer.phase("filter"):
+            store, nerased = dx.run_filter_step(self.runs[0], keep_pred,
+                                                self.saturate)
+        self.runs, self._unit = [store], [False]
+        self._drop_stale_aux()
+        return nerased
+
+    def _select(self, pred) -> list:
+        self._consolidate()
+        return dx.run_select_step(self.runs[0], pred, self.saturate)
+
+    def _histogram(self, nbins: int) -> torch.Tensor:
+        self._consolidate()
+        return dx.run_histogram_step(self.runs[0], nbins, self.saturate)
 
     def items(self) -> tuple[np.ndarray, np.ndarray]:
         """(words uint32[t, w], counts int64[t]) — every distinct live entry,
-        shard by shard, each shard in key order (to_vector analog,
-        distributed_map_base.hpp:202-217)."""
+        shard by shard, each shard in key order, counts clamped at
+        `saturate` (to_vector analog, distributed_map_base.hpp:202-217)."""
         self._consolidate()
         rows, cnts = [], []
         for s in range(self.nparts):
-            run = self.runs[0].shard(s)
-            _, is_last, total = st.run_totals(run)
-            emit = is_last & (total > 0)
-            rows.append(to_numpy_u32(run.keys[:, emit].t()))
-            cnts.append(total[emit].cpu().numpy().astype(np.int64))
+            keys, total = st.run_select(self.runs[0].shard(s),
+                                        saturate=self.saturate)
+            rows.append(to_numpy_u32(keys))
+            cnts.append(total.cpu().numpy().astype(np.int64))
         return np.concatenate(rows), np.concatenate(cnts)
 
     def to_dict(self) -> dict[int, int]:
@@ -555,22 +819,51 @@ class CountIndex(_IndexBase):
             return {}
         return dict(zip(self.spec.to_ints(rows).tolist(), cnts.tolist()))
 
+    # -- persistence: the JAX package's npz format ----------------------
+    def save(self, path):
+        """One npz file of the contents (one row per distinct key, counts
+        clamped) and the config, in the JAX package's format: either
+        package loads it, at any shard count."""
+        rows, cnts = self.items()
+        np.savez_compressed(
+            path, kind="count", k=self.spec.k,
+            alphabet=self.spec.alphabet.name, canonical=self.canonical,
+            hash_name=self.hash_name,
+            saturate=-1 if self.saturate is None else self.saturate,
+            nparts=self.nparts, rows=rows, row_counts=cnts)
+        return self
+
+    @classmethod
+    def load(cls, path, device="cuda", nparts: int = 1):
+        """An index of `nparts` shards holding a saved index's contents
+        (saved at any shard count, by either package): the stored keys —
+        already transformed — go back in through the insert path without
+        another transform."""
+        z, spec = _open_npz(path, ("count",))
+        sat = int(z["saturate"])
+        idx = cls(spec, device, canonical=bool(z["canonical"]),
+                  nparts=nparts, hash_name=str(z["hash_name"]),
+                  saturate=None if sat < 0 else sat)
+        rows = z["rows"]
+        if rows.shape[0]:
+            idx._insert_rows(from_numpy_u32(rows, idx.device),
+                             torch.from_numpy(z["row_counts"].astype(
+                                 np.int32)).to(idx.device))
+        return idx
+
 
 # ------------------------------------------------------------------ multimaps
-def _not_ported(what: str, item: str):
-    def fn(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"the multimap's {what} is not ported yet: ROADMAP queue 1, "
-            f"item {item}")
-    return fn
-
-
 class _MultimapSurfaceMixin:
     """The Index surface (kmer_index.hpp:142-201) of the multimaps, shared
     by the hash-partitioned PositionIndex and the range-partitioned
     SortedPositionIndex.  A class provides `store` (a stacked
-    `store.MultiStore`), `_flush`, `_insert_pairs` and `_owners` (the
-    shard that owns each key row: the hash, or the splitters)."""
+    `store.MultiStore`), `_flush`, `_insert_pairs`, `_owners` (the shard
+    that owns each key row: the hash, or the splitters) and `_npz_kind`.
+
+    Pair predicates take (keys int64[n, w], id_hi int64[n], id_lo int64[n],
+    qual float32[n]) and return bool[n]; query predicates (count_if /
+    find_if with kmers) take (keys int64[m, w], counts int32[m]).  Every
+    key word and id half is an int64 holding its unsigned value."""
 
     def _init_multimap(self, id_kind: str, initial_capacity: int, codec):
         if id_kind not in ("short", "long"):
@@ -634,7 +927,9 @@ class _MultimapSurfaceMixin:
     def count(self, kmers) -> np.ndarray:
         """int32[m] multiplicity per query (get_multiplicity / count on the
         multimap)."""
-        words = self._query_words(kmers)
+        return self._count_words(self._query_words(kmers))
+
+    def _count_words(self, words: torch.Tensor) -> np.ndarray:
         self._flush()
         aux = self._ensure_aux()
         with self.timer.phase("count"):
@@ -659,7 +954,11 @@ class _MultimapSurfaceMixin:
         With grow_to_fit=False the lists are cut at max_per_query and the
         true multiplicities int32[m] come last: counts[i] > mask[i].sum()
         means query i lost pairs."""
-        words = self._query_words(kmers)
+        return self._find_words(self._query_words(kmers), max_per_query,
+                                with_quality, grow_to_fit)
+
+    def _find_words(self, words: torch.Tensor, max_per_query: int = 64,
+                    with_quality: bool = False, grow_to_fit: bool = True):
         self._flush()
         aux = self._ensure_aux()
         while True:
@@ -683,15 +982,65 @@ class _MultimapSurfaceMixin:
     def erase(self, kmers) -> int:
         """Remove ALL pairs whose key matches a query k-mer; returns the
         number of erased pairs (Index::erase, kmer_index.hpp:148)."""
-        words = self._query_words(kmers)
+        return self._erase_words(self._query_words(kmers))
+
+    def _erase_words(self, words: torch.Tensor, pred=None) -> int:
         self._flush()
         aux = self._ensure_aux()
-        (store, nerased), _ = self._route_rows(
-            lambda w, v, cap: dx.multi_erase_routed(
-                self.store, aux, w, v, self._owners(w), self.nparts, cap),
-            words)
+        with self.timer.phase("erase"):
+            (store, nerased), _ = self._route_rows(
+                lambda w, v, cap: dx.multi_erase_routed(
+                    self.store, aux, w, v, self._owners(w), self.nparts, cap,
+                    pred), words)
         self.store = store
         return nerased
+
+    def erase_if(self, pred, kmers=None) -> int:
+        """Erase the pairs satisfying the pair predicate; with `kmers`, only
+        pairs of those (transformed) query keys.  Returns how many pairs
+        (erase_if, kmer_index.hpp:187-195)."""
+        if kmers is not None:
+            return self._erase_words(self._query_words(kmers), pred)
+        self._flush()
+        with self.timer.phase("filter"):
+            self.store, nerased = dx.multi_filter_step(
+                self.store, lambda k, h, l, q: ~pred(k, h, l, q))
+        return nerased
+
+    def filter(self, pred) -> int:
+        """Keep only the pairs satisfying the pair predicate; returns how
+        many were erased."""
+        return self.erase_if(lambda k, h, l, q: ~pred(k, h, l, q))
+
+    def count_if(self, pred, kmers=None):
+        """Without kmers: sorted [(kmer_int, n)] of every key with n >= 1
+        pairs satisfying the pair predicate (count_if(pred),
+        kmer_index.hpp:181).  With kmers: per-query multiplicities, 0 where
+        the query predicate fails (kmer_index.hpp:175)."""
+        if kmers is not None:
+            words = self._query_words(kmers)
+            counts = self._count_words(words)
+            return np.where(_pred_mask(pred, words, counts), counts, 0)
+        self._flush()
+        out: dict = {}
+        for rows, matches in dx.multi_select_step(self.store, pred):
+            if rows.shape[0]:
+                # a key may straddle two range shards: sum its matches
+                for v, n in zip(self.spec.to_ints(to_numpy_u32(rows)).tolist(),
+                                matches.cpu().numpy().tolist()):
+                    out[v] = out.get(v, 0) + n
+        return sorted(out.items())
+
+    def find_if(self, pred, kmers=None, max_per_query: int = 64):
+        """find restricted by the predicate (find_if, kmer_index.hpp:
+        157-170): count_if(pred) without kmers, else (ids, mask) with the
+        queries failing pred(words, counts) masked out."""
+        if kmers is None:
+            return self.count_if(pred)
+        words = self._query_words(kmers)
+        ids, mask = self._find_words(words, max_per_query)
+        keep = _pred_mask(pred, words, mask.sum(axis=1).astype(np.int32))
+        return ids, mask & keep[:, None]
 
     def pairs(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(kmer ints, position ids uint64, qualities float32) of every
@@ -720,12 +1069,45 @@ class _MultimapSurfaceMixin:
             out.setdefault(v, []).append(val)
         return {k: sorted(v) for k, v in out.items()}
 
-    erase_if = _not_ported("erase_if", "10 (predicates)")
-    filter = _not_ported("filter", "10 (predicates)")
-    count_if = _not_ported("count_if", "10 (predicates)")
-    find_if = _not_ported("find_if", "10 (predicates)")
-    save = _not_ported("save", "10 (checkpoint)")
-    load = classmethod(_not_ported("load", "10 (checkpoint)"))
+    # -- persistence: the JAX package's npz formats ---------------------
+    def save(self, path):
+        """One npz file of every pair, shard by shard, and the config, in
+        the JAX package's format (keys [p, cap, w] row-major, id halves
+        uint32): either package loads it, at any shard count."""
+        self._flush()
+        s = self.store
+        extra = ({"hash_name": self.hash_name} if hasattr(self, "hash_name")
+                 else {})
+        np.savez_compressed(
+            path, kind=self._npz_kind, k=self.spec.k,
+            alphabet=self.spec.alphabet.name, canonical=self.canonical,
+            id_kind=self.id_kind, with_quality=self.with_quality,
+            nparts=self.nparts, keys=to_numpy_u32(s.keys).transpose(0, 2, 1),
+            val_hi=to_numpy_u32(s.val_hi), val_lo=to_numpy_u32(s.val_lo),
+            val_q=s.val_q.cpu().numpy(), sizes=s.size.cpu().numpy(), **extra)
+        return self
+
+    @classmethod
+    def load(cls, path, device="cuda", nparts: int = 1):
+        """An index of `nparts` shards holding a saved multimap's pairs
+        (saved at any shard count, by either package); the stored keys are
+        already transformed and go back in without another transform."""
+        z, spec = _open_npz(path, (cls._npz_kind,))
+        extra = ({"hash_name": str(z["hash_name"])}
+                 if "hash_name" in z.files else {})
+        idx = cls(spec, device, canonical=bool(z["canonical"]),
+                  nparts=nparts, id_kind=str(z["id_kind"]), **extra)
+        sizes = z["sizes"]
+        rows = _live_rows(z["keys"], sizes)
+        if rows.shape[0]:
+            q = _live_rows(z["val_q"], sizes).astype(np.float32)
+            idx._has_q |= bool(q.any())
+            idx._insert_pairs(
+                from_numpy_u32(rows, idx.device),
+                *(from_numpy_u32(_live_rows(z[f], sizes), idx.device)
+                  for f in ("val_hi", "val_lo")),
+                torch.from_numpy(q).to(idx.device))
+        return idx
 
 
 class PositionIndex(_MultimapSurfaceMixin, _IndexBase):
@@ -748,6 +1130,8 @@ class PositionIndex(_MultimapSurfaceMixin, _IndexBase):
         idx.build("reads.fastq")
         ids, mask = idx.find(["ACGTACGTACGTACGTACGTA"])
     """
+
+    _npz_kind = "position"
 
     def __init__(self, spec: KmerSpec, device="cuda", canonical=False,
                  nparts: int = 1, hash_name: str = "murmur",

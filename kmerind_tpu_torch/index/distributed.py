@@ -25,12 +25,16 @@ from ..parallel import distribute as dist
 from ..quality import ILLUMINA18
 from . import store as st
 
-__all__ = ["owners_for", "run_ingest_step", "run_adopt_step",
-           "run_stats_step", "run_compact_step", "run_aux_step",
-           "runs_count_query_step", "run_merge_pair_step",
+__all__ = ["owners_for", "run_ingest_step", "run_insert_step",
+           "run_adopt_step", "run_stats_step", "run_compact_step",
+           "run_aux_step", "runs_count_query_step", "runs_erase_step",
+           "run_filter_step", "run_select_step", "run_histogram_step",
+           "run_merge_pair_step", "count_filter_step", "count_select_step",
+           "histogram_step",
            "multi_insert_step", "multi_aux_step", "multi_ingest_step",
            "multi_merge_step", "unique_size_step", "concat_pending",
-           "multi_count_routed", "multi_find_routed", "multi_erase_routed"]
+           "multi_count_routed", "multi_find_routed", "multi_erase_routed",
+           "multi_filter_step", "multi_select_step"]
 
 
 def owners_for(words: torch.Tensor, nparts: int, hash_name: str = "murmur",
@@ -71,6 +75,25 @@ def run_ingest_step(bases: DeviceBases, spec, canonical, nparts: int = 1,
     return st.stack(cols), st.stack(weights), route.overflow
 
 
+def run_insert_step(words, weights, valid, nparts: int,
+                    capacity: int | None, hash_name: str = "murmur"):
+    """Explicit (key, weight) rows [p, m, w] / [p, m] (valid [p, m]): route
+    each to its owner, then one sort per shard with the weights as its
+    payload.  Returns (sorted_words int32[p, w, n], weights int32[p, n],
+    overflow): a weighted run per shard, sentinel keys of weight 0 after
+    the valid rows."""
+    owner = owners_for(words, nparts, hash_name)
+    (rw, rwt), rvalid, route = dist.distribute((words, weights), owner,
+                                               valid, nparts, capacity)
+    cols, wts = [], []
+    for s in range(nparts):
+        s_words, (s_wt,), s_valid = sortops.sort_rows(
+            rw[s], (rwt[s],), rvalid[s], is_stable=False, as_cols=True)
+        cols.append(torch.where(s_valid[None, :], s_words, SENTINEL))
+        wts.append(torch.where(s_valid, s_wt, 0))
+    return st.stack(cols), st.stack(wts), route.overflow
+
+
 def run_adopt_step(words: torch.Tensor, weights: torch.Tensor,
                    unit: bool = False) -> st.RunCountStore:
     """Adopt a sorted weighted run per shard (words [p, w, n], weights
@@ -87,13 +110,40 @@ def run_stats_step(store: st.RunCountStore) -> list[int]:
             for s in range(store.keys.shape[0])]
 
 
-def run_compact_step(store: st.RunCountStore, new_cap: int):
+def _shards(store):
+    return [store.shard(s) for s in range(store.keys.shape[0])]
+
+
+def run_compact_step(store: st.RunCountStore, new_cap: int,
+                     saturate: int | None = None):
     """(compacted stacked store, the largest shard overflow) — see
     store.run_compact."""
-    out = [st.run_compact(store.shard(s), new_cap)
-           for s in range(store.keys.shape[0])]
+    out = [st.run_compact(sh, new_cap, saturate) for sh in _shards(store)]
     return (st.stack_run_stores([o[0] for o in out]),
             max(o[1] for o in out))
+
+
+def run_filter_step(store: st.RunCountStore, keep_pred,
+                    saturate: int | None = None):
+    """erase_if / filter over every shard of one run (store.run_filter):
+    (new stacked store, distinct keys removed)."""
+    out = [st.run_filter(sh, keep_pred, saturate) for sh in _shards(store)]
+    return (st.stack_run_stores([o[0] for o in out]),
+            int(sum(o[1] for o in out)))
+
+
+def run_select_step(store: st.RunCountStore, pred,
+                    saturate: int | None = None) -> list:
+    """Per shard, (keys int32[t, w], counts) of the entries satisfying
+    pred (store.run_select)."""
+    return [st.run_select(sh, pred, saturate) for sh in _shards(store)]
+
+
+def run_histogram_step(store: st.RunCountStore, nbins: int,
+                       saturate: int | None = None) -> torch.Tensor:
+    """int64[nbins] spectrum over all shards: every key lives on one shard,
+    so the shards' spectra sum."""
+    return sum(st.run_histogram(sh, nbins, saturate) for sh in _shards(store))
 
 
 def run_aux_step(store: st.RunCountStore) -> list:
@@ -104,11 +154,12 @@ def run_aux_step(store: st.RunCountStore) -> list:
 
 def runs_count_query_step(queries: torch.Tensor, qvalid: torch.Tensor, aux,
                           nparts: int = 1, capacity: int | None = None,
-                          hash_name: str = "murmur"):
+                          hash_name: str = "murmur",
+                          saturate: int | None = None):
     """Count query over a list of runs through their cached aux metadata
-    (per run, per shard): route once, look up in each run, sum, reply.
-    queries [p, m, w], qvalid [p, m].  Returns (counts int32[p, m],
-    overflow)."""
+    (per run, per shard): route once, look up in each run, sum (clamped at
+    `saturate`), reply.  queries [p, m, w], qvalid [p, m].  Returns (counts
+    int32[p, m], overflow)."""
     owner = owners_for(queries, nparts, hash_name)
     (rq,), rvalid, route = dist.distribute((queries,), owner, qvalid, nparts,
                                            capacity)
@@ -116,9 +167,39 @@ def runs_count_query_step(queries: torch.Tensor, qvalid: torch.Tensor, aux,
     for s in range(nparts):
         total = sum(st.run_lookup_aux(ext, bstart, rq[s])
                     for ext, bstart in (run[s] for run in aux))
+        if saturate is not None:
+            total = total.clamp(max=saturate)
         local.append(torch.where(rvalid[s], total, 0))
     (back,) = dist.undistribute((st.stack(local),), route, nparts, capacity)
     return back, route.overflow
+
+
+def runs_erase_step(runs, aux, queries: torch.Tensor, qvalid: torch.Tensor,
+                    nparts: int = 1, capacity: int | None = None,
+                    hash_name: str = "murmur"):
+    """Erase over a list of runs: route the query rows [p, m, w] (qvalid
+    [p, m]) to their owners, zero every matching row of every run
+    (store.run_erase_cover, one K3 rebuild a run) and count the DISTINCT
+    keys that had a positive count: a key queried twice, or present in
+    several runs, counts once.  aux: each run's cached per-shard aux.
+    Returns (new runs, keys erased, overflow)."""
+    owner = owners_for(queries, nparts, hash_name)
+    (rq,), rvalid, route = dist.distribute((queries,), owner, qvalid, nparts,
+                                           capacity)
+    shards, nerased = [], 0
+    for s in range(nparts):
+        total = sum(st.run_lookup_aux(ext, bstart, rq[s])
+                    for ext, bstart in (run[s] for run in aux))
+        had = rvalid[s] & (total > 0)
+        shards.append([st.run_erase_cover(run.shard(s), *run_aux[s], rq[s],
+                                          rvalid[s])
+                       for run, run_aux in zip(runs, aux)])
+        s_words, _, s_had = sortops.sort_rows(rq[s], (), had,
+                                              is_stable=False)
+        nerased += sortops.compact_runs(s_words, s_had)[3]
+    new_runs = [st.stack_run_stores([shards[s][r] for s in range(nparts)])
+                for r in range(len(runs))]
+    return new_runs, int(nerased), route.overflow
 
 
 def run_merge_pair_step(a: st.RunCountStore, b: st.RunCountStore,
@@ -131,6 +212,28 @@ def run_merge_pair_step(a: st.RunCountStore, b: st.RunCountStore,
         out.append(st.run_merge_unit(sa, sb) if unit
                    else st.run_merge(sa, sb.keys, sb.weights))
     return st.stack_run_stores(out)
+
+
+# ------------------------------------------------- unique-key count store
+def count_filter_step(store: st.CountStore, keep_pred):
+    """erase_if / filter over a CountStore's shards: entries whose (key,
+    count) fails keep_pred(keys int64[cap, w], counts int32[cap]) ->
+    bool[cap] are removed.  Returns (new stacked store, entries
+    removed)."""
+    out = [st.count_filter(sh, keep_pred) for sh in _shards(store)]
+    return (st.stack_count_stores([o[0] for o in out]),
+            int(sum(o[1] for o in out)))
+
+
+def count_select_step(store: st.CountStore, pred) -> list:
+    """Per shard, (keys int32[t, w], counts int32[t]) of the live entries
+    satisfying pred (store.count_select), in key order."""
+    return [st.count_select(sh, pred) for sh in _shards(store)]
+
+
+def histogram_step(store: st.CountStore, nbins: int) -> torch.Tensor:
+    """int64[nbins] spectrum of a CountStore over all shards."""
+    return sum(st.count_histogram(sh, nbins) for sh in _shards(store))
 
 
 # ----------------------------------------------------------------- multimap
@@ -232,15 +335,34 @@ def multi_find_routed(store, aux, queries, qvalid, owner, nparts, capacity,
     return (*back, route.overflow)
 
 
-def multi_erase_routed(store, aux, keys, valid, owner, nparts, capacity):
-    """Erase every pair of the key rows [p, m, w] under a given owner map:
-    (new store, pairs erased, overflow)."""
+def multi_erase_routed(store, aux, keys, valid, owner, nparts, capacity,
+                       pred=None):
+    """Erase every pair of the key rows [p, m, w] under a given owner map
+    (the hash's or the splitters'), or with `pred` only the pairs that
+    satisfy it (the keyed erase_if, store.multi_erase): (new store, pairs
+    erased, overflow)."""
     (rk,), rvalid, route = dist.distribute((keys,), owner, valid, nparts,
                                            capacity)
-    out = [st.multi_erase(store.shard(s), rk[s], rvalid[s], aux[s])
+    out = [st.multi_erase(store.shard(s), rk[s], rvalid[s], aux[s], pred)
            for s in range(nparts)]
     return (st.stack_multi_stores([o[0] for o in out]),
             sum(int(o[1]) for o in out), route.overflow)
+
+
+def multi_filter_step(store: st.MultiStore, keep_pred):
+    """erase_if / filter over every pair: pairs failing keep_pred(keys
+    int64[cap, w], id_hi int64[cap], id_lo int64[cap], qual float32[cap])
+    -> bool[cap] are removed.  Returns (new stacked store, pairs
+    removed)."""
+    out = [st.multi_filter(sh, keep_pred) for sh in _shards(store)]
+    return (st.stack_multi_stores([o[0] for o in out]),
+            int(sum(o[1] for o in out)))
+
+
+def multi_select_step(store: st.MultiStore, pred) -> list:
+    """Per shard, (keys int32[t, w], matches int64[t]) of the keys with at
+    least one pair satisfying pred (store.multi_select)."""
+    return [st.multi_select(sh, pred) for sh in _shards(store)]
 
 
 def unique_size_step(store: st.MultiStore) -> int:

@@ -25,15 +25,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import alphabets
 from ..kmer import KmerSpec
-from ..ops.keys import from_numpy_u32, to_numpy_u32
-from ..ops.packing import lex_less
+from ..ops.keys import from_numpy_u32, to_numpy_u32, to_u64
 from ..utils.timers import PhaseTimer
 from . import sorted_dist as sx
 from . import store as st
 from . import distributed as dx
-from .api import _IndexBase, _MultimapSurfaceMixin
+from .api import (_CountSurfaceMixin, _IndexBase, _MultimapSurfaceMixin,
+                  _live_rows, _open_npz)
 
 __all__ = ["SortedCountIndex", "SortedPositionIndex",
            "SortedPositionQualityIndex"]
@@ -47,6 +46,12 @@ class _SortedBase(_IndexBase):
         super().__init__(spec, device, canonical, nparts, timer)
         #: int32[p-1, w] range boundaries; None until the first flush
         self.splitters = None
+
+    def reserve(self, n: int):
+        """No-op: each flush sizes every shard to next_pow2 of the largest
+        shard's rows (the JAX package's sorted indexes have no `_grow`, so
+        their reserve raises)."""
+        return self
 
     def splitter_table(self) -> np.ndarray:
         """Host copy of the p-1 range boundaries (uint32[p-1, w])."""
@@ -63,9 +68,10 @@ class _SortedBase(_IndexBase):
                                    self.nparts, cap), words)
 
 
-class SortedCountIndex(_SortedBase):
+class SortedCountIndex(_CountSurfaceMixin, _SortedBase):
     """k-mer -> count index over `nparts` range-partitioned shards stacked
-    on one device (counting_sorted_map, distributed_sorted_map.hpp:2825).
+    on one device (counting_sorted_map, distributed_sorted_map.hpp:2825);
+    the count surface of `CountIndex` (predicates see int64 key words).
 
     saturate: counts are clipped at this value on every flush."""
 
@@ -90,8 +96,6 @@ class SortedCountIndex(_SortedBase):
         """Distinct-key count."""
         self._flush()
         return int(self.store.size.sum())
-
-    unique_size = size
 
     # -- ingest --------------------------------------------------------
     def _insert_cols(self, cols: dict):
@@ -150,63 +154,48 @@ class SortedCountIndex(_SortedBase):
             (counts,), m = self._routed(sx.count_query_step, words)
             return counts.reshape(-1)[:m].cpu().numpy()
 
-    def count(self, kmers) -> np.ndarray:
-        """int32[m] per-query counts in query order."""
-        return self._count_words(self._query_words(kmers))
-
-    get_multiplicity = count
-
-    def find(self, kmers):
-        """(words uint32[h, w], counts int32[h]) of the queries found
-        (Index::find contract)."""
-        words = self._query_words(kmers)
-        counts = self._count_words(words)
-        hit = counts > 0
-        return to_numpy_u32(words)[hit], counts[hit]
-
-    def erase(self, kmers) -> int:
-        """Remove keys; returns how many were present."""
-        (store, nerased), _ = self._routed(sx.count_erase_step,
-                                           self._query_words(kmers))
+    def _erase_words(self, words: torch.Tensor) -> int:
+        """Remove the keys; returns how many were present.  Erasing never
+        moves keys between shards, so the splitters stay."""
+        (store, nerased), _ = self._routed(sx.count_erase_step, words)
         self.store = store
         return int(nerased.sum())
 
-    def _not_ported(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the sorted index's predicate scans and histogram are not "
-            "ported yet: ROADMAP queue 1, item 10")
+    # predicate scans and the spectrum are shard-local: no routing
+    def _filter(self, keep_pred) -> int:
+        self._flush()
+        self.store, nerased = dx.count_filter_step(self.store, keep_pred)
+        return nerased
 
-    erase_if = filter = count_if = find_if = histogram = _not_ported
+    def _select(self, pred) -> list:
+        self._flush()
+        return dx.count_select_step(self.store, pred)
+
+    def _histogram(self, nbins: int) -> torch.Tensor:
+        self._flush()
+        return dx.histogram_step(self.store, nbins)
 
     # -- range scan: the capability hash distribution cannot offer ------
-    def _pairs(self, keys, counts, sizes):
-        """[(kmer_int, count)] of rows [:sizes[s]] of every shard s."""
-        keys, counts = to_numpy_u32(keys), counts.cpu().numpy()
-        out = []
-        for s, n in enumerate(sizes.tolist()):
-            if n:
-                out.extend(zip(self.spec.to_ints(keys[s, :n]).tolist(),
-                               counts[s, :n].tolist()))
-        return out
-
     def items_in_range(self, lo_kmer, hi_kmer):
         """All (kmer_int, count) with lo <= kmer < hi, sorted — a local
         selection on each shard, since shards hold contiguous key ranges
         (distributed_sorted_map.hpp:114-141).  The bounds are taken as
         given, not canonicalized."""
-        self._flush()
-        lo, hi = (from_numpy_u32(self._to_words([x])[0], self.device)
+        lo, hi = (to_u64(from_numpy_u32(self._to_words([x])[0], self.device))
                   for x in (lo_kmer, hi_kmer))
-        keys, counts, n = sx.count_select_step(
-            self.store, lambda k, c: ~lex_less(k, lo) & lex_less(k, hi))
-        return sorted(self._pairs(keys, counts, n))
+
+        def less(k, bound):
+            out = torch.zeros(k.shape[0], dtype=torch.bool, device=k.device)
+            for j in reversed(range(k.shape[1])):
+                out = torch.where(k[:, j] != bound[j], k[:, j] < bound[j], out)
+            return out
+
+        return sorted(self.count_if(lambda k, c: ~less(k, lo) & less(k, hi)))
 
     # -- persistence / export ------------------------------------------
     def to_dict(self) -> dict[int, int]:
         """Full contents as {kmer_int: count} (host-side; tests/tools)."""
-        self._flush()
-        return dict(self._pairs(self.store.keys, self.store.counts,
-                                self.store.size))
+        return dict(self.count_if(lambda k, c: c >= 0))
 
     def save(self, path):
         """npz in the JAX package's format: either package loads it."""
@@ -224,18 +213,15 @@ class SortedCountIndex(_SortedBase):
     def load(cls, path, device="cuda", nparts: int = 1):
         """An index of `nparts` shards holding a saved index's contents
         (saved at any shard count, by either package)."""
-        z = np.load(path, allow_pickle=False)
-        spec = KmerSpec(int(z["k"]), alphabets.by_name(str(z["alphabet"])))
+        z, spec = _open_npz(path, ("sorted_count",))
         sat = int(z["saturate"])
         idx = cls(spec, device, canonical=bool(z["canonical"]),
                   saturate=None if sat < 0 else sat, nparts=nparts)
-        keys, counts, sizes = z["keys"], z["counts"], z["sizes"]
-        rows = np.concatenate([keys[s, :n] for s, n in enumerate(sizes)])
+        rows = _live_rows(z["keys"], z["sizes"])
         if rows.shape[0]:
-            vals = np.concatenate([counts[s, :n] for s, n in enumerate(sizes)])
+            vals = _live_rows(z["counts"], z["sizes"]).astype(np.int32)
             idx._append_rows(from_numpy_u32(rows, idx.device),
-                             torch.from_numpy(vals.astype(np.int32)).to(
-                                 idx.device))
+                             torch.from_numpy(vals).to(idx.device))
         return idx
 
 
@@ -245,6 +231,8 @@ class SortedPositionIndex(_MultimapSurfaceMixin, _SortedBase):
     2333): ingest appends shard-local tuples; the first query after an
     insert re-sorts every pair across the shards by key range (samplesort)
     and recomputes the splitters.  Same surface as `PositionIndex`."""
+
+    _npz_kind = "sorted_position"
 
     def __init__(self, spec: KmerSpec, device="cuda", canonical=False,
                  nparts: int = 1, id_kind: str = "short",

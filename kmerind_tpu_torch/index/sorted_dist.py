@@ -38,7 +38,7 @@ from ..quality import ILLUMINA18
 from . import store as st
 
 __all__ = ["owners_from_splitters", "local_ingest_step", "count_flush_step",
-           "count_query_step", "count_erase_step", "count_select_step",
+           "count_query_step", "count_erase_step",
            "multi_local_ingest_step", "multi_flush_step"]
 
 
@@ -118,23 +118,6 @@ def count_erase_step(store: st.CountStore, splitters, keys, valid,
            for s in range(nparts)]
     return (st.stack_count_stores([o[0] for o in out]),
             torch.stack([o[1] for o in out]), route.overflow)
-
-
-def count_select_step(store: st.CountStore, pred):
-    """Per shard, the live entries satisfying pred(keys [cap, w], counts
-    [cap]) -> bool[cap] moved to the front in key order, the others after
-    them.  Returns (keys_out [p, cap, w], counts_out [p, cap], n int[p])."""
-    keys_out, counts_out, n = [], [], []
-    for s in range(store.keys.shape[0]):
-        sh = store.shard(s)
-        live = torch.arange(sh.keys.shape[0], device=sh.keys.device) < sh.size
-        emit = pred(sh.keys, sh.counts) & live
-        order = torch.cat([torch.nonzero(emit).squeeze(1),
-                           torch.nonzero(~emit).squeeze(1)])
-        keys_out.append(sh.keys[order])
-        counts_out.append(sh.counts[order])
-        n.append(emit.sum())
-    return torch.stack(keys_out), torch.stack(counts_out), torch.stack(n)
 
 
 # ----------------------------------------------------------------- multimap

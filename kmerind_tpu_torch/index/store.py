@@ -18,6 +18,11 @@ sorted batch into it with K2.
 One shard's store has the shapes given in its class; an index of p shards
 stacks them on a leading axis ([p, ...], `shard` takes one apart).
 
+User predicates (erase_if / filter / count_if) see every key word and id
+half as an int64 holding its unsigned value, keys row-major [n, w]
+(`pred_keys`): the int32 bit patterns the store holds would compare
+signed.
+
 Functions are plain PyTorch on whatever device the store lives on; stores
 are immutable by convention (every function returns new tensors), so a
 run's identity versions its query metadata (`run_query_aux`).
@@ -33,16 +38,21 @@ from ..ops import kernels, sortops
 from ..ops.keys import SENTINEL, to_u64
 
 __all__ = ["CountStore", "empty_count_store", "stack_count_stores",
-           "count_lookup", "count_erase",
+           "count_lookup", "count_erase", "count_keep", "count_filter",
+           "count_select", "count_histogram", "histogram_of", "cleared",
+           "pred_keys",
            "RunCountStore", "empty_run_count_store", "run_from_sorted",
            "run_merge", "run_from_sorted_unit", "run_merge_unit",
            "run_totals", "run_distinct", "run_query_aux", "run_lookup_aux",
-           "run_compact", "stack_run_stores",
+           "run_erase_cover", "run_filter", "run_select", "run_histogram",
+           "run_compact", "run_grow", "stack_run_stores",
            "MultiStore", "empty_multi_store", "stack_multi_stores",
            "multi_grow", "multi_insert", "multi_merge_flush",
            "multi_merge_flush_flagged", "multi_query_aux",
            "multi_lookup_ranges_aux", "multi_lookup_ranges", "multi_count",
-           "multi_gather", "multi_erase", "multi_distinct"]
+           "multi_gather", "multi_keep", "multi_erase", "multi_filter",
+           "multi_select",
+           "multi_distinct"]
 
 
 def stack(ts) -> torch.Tensor:
@@ -93,6 +103,30 @@ def count_lookup(store: CountStore, queries: torch.Tensor) -> torch.Tensor:
                        0)
 
 
+def pred_keys(kcols: torch.Tensor) -> torch.Tensor:
+    """Column-major int32-held key words [w, n] -> the [n, w] int64 rows
+    (unsigned values) a user predicate sees."""
+    return to_u64(kcols).t()
+
+
+def _live(size, cap: int, device) -> torch.Tensor:
+    return torch.arange(cap, device=device) < size
+
+
+def count_keep(store: CountStore, keep: torch.Tensor):
+    """One shard with only its live rows where `keep`, in order.  Returns
+    (new_store, n_removed 0-d)."""
+    keep = keep & _live(store.size, store.keys.shape[0], store.keys.device)
+    rows = torch.nonzero(keep).squeeze(1)
+    keys = torch.full_like(store.keys, SENTINEL)
+    counts = torch.zeros_like(store.counts)
+    keys[: rows.shape[0]] = store.keys[rows]
+    counts[: rows.shape[0]] = store.counts[rows]
+    new_size = torch.tensor(rows.shape[0], dtype=torch.int32,
+                            device=store.keys.device)
+    return CountStore(keys, counts, new_size), store.size - new_size
+
+
 def count_erase(store: CountStore, queries: torch.Tensor,
                 qvalid: torch.Tensor):
     """Remove the valid query keys from one shard; the kept rows stay in
@@ -102,15 +136,48 @@ def count_erase(store: CountStore, queries: torch.Tensor,
     hit = sortops.rows_equal_at(store.keys, idx, queries, store.size) & qvalid
     kill = torch.zeros(cap + 1, dtype=torch.bool, device=store.keys.device)
     kill[torch.where(hit, idx, cap)] = True
-    arange = torch.arange(cap, device=store.keys.device)
-    rows = torch.nonzero((arange < store.size) & ~kill[:cap]).squeeze(1)
-    keys = torch.full_like(store.keys, SENTINEL)
-    counts = torch.zeros_like(store.counts)
-    keys[: rows.shape[0]] = store.keys[rows]
-    counts[: rows.shape[0]] = store.counts[rows]
-    new_size = torch.tensor(rows.shape[0], dtype=torch.int32,
-                            device=store.keys.device)
-    return CountStore(keys, counts, new_size), store.size - new_size
+    return count_keep(store, ~kill[:cap])
+
+
+def count_filter(store: CountStore, keep_pred):
+    """One shard without the entries whose (key, count) fails
+    keep_pred(keys int64[cap, w], counts int32[cap]) -> bool[cap].
+    Returns (new_store, n_removed 0-d)."""
+    return count_keep(store, keep_pred(to_u64(store.keys), store.counts))
+
+
+def count_select(store: CountStore, pred):
+    """(keys int32[t, w], counts int32[t]) of one shard's live entries
+    satisfying pred(keys int64[cap, w], counts int32[cap]) -> bool[cap], in
+    key order."""
+    live = _live(store.size, store.keys.shape[0], store.keys.device)
+    emit = pred(to_u64(store.keys), store.counts) & live
+    return store.keys[emit], store.counts[emit]
+
+
+def histogram_of(counts: torch.Tensor, live: torch.Tensor,
+                 nbins: int) -> torch.Tensor:
+    """int64[nbins]: how many live entries have each count, counts >=
+    nbins - 1 in the last bin."""
+    bins = counts[live].to(torch.int64).clamp(0, nbins - 1)
+    return torch.bincount(bins, minlength=nbins)
+
+
+def count_histogram(store: CountStore, nbins: int) -> torch.Tensor:
+    """int64[nbins] spectrum of one shard's live counts (`histogram_of`)."""
+    return histogram_of(store.counts, _live(store.size, store.keys.shape[0],
+                                            store.keys.device), nbins)
+
+
+def cleared(store):
+    """A store (any kind, one shard or stacked) of the same capacity with
+    no entries: sentinel keys, every other field zero."""
+    fields = {}
+    for f in dataclasses.fields(store):
+        v = getattr(store, f.name)
+        fields[f.name] = (torch.full_like(v, SENTINEL) if f.name == "keys"
+                          else torch.zeros_like(v))
+    return type(store)(**fields)
 
 
 @dataclasses.dataclass
@@ -246,10 +313,12 @@ def run_query_aux(store: RunCountStore, tbits: int = 16):
     return ext, sortops._prefix_starts(store.keys[0], tbits)
 
 
-def run_lookup_aux(ext: torch.Tensor, bstart: torch.Tensor,
-                   queries: torch.Tensor) -> torch.Tensor:
-    """int32[m] count per query row [m, w] against cached aux metadata: one
-    bucket-seeded lower_bound plus one fused [w + 1, m] gather."""
+def _run_find(ext: torch.Tensor, bstart: torch.Tensor,
+              queries: torch.Tensor):
+    """(lo int64[m] — the first row of each query key's run, hit bool[m],
+    total int32[m] — its run total, 0 when absent) against cached aux
+    metadata: one bucket-seeded lower_bound plus one fused [w + 1, m]
+    gather."""
     w = ext.shape[0] - 1
     cap = ext.shape[1]
     lo = sortops.lower_bound_cols_prebuilt(ext, w, bstart, queries)
@@ -257,17 +326,98 @@ def run_lookup_aux(ext: torch.Tensor, bstart: torch.Tensor,
     hit = lo < cap
     for j in range(w):
         hit &= g[j] == queries[:, j]
-    return torch.where(hit, g[w], 0)
+    return lo, hit, torch.where(hit, g[w], 0)
 
 
-def run_compact(store: RunCountStore, new_cap: int):
+def run_lookup_aux(ext: torch.Tensor, bstart: torch.Tensor,
+                   queries: torch.Tensor) -> torch.Tensor:
+    """int32[m] count per query row [m, w] against cached aux metadata."""
+    return _run_find(ext, bstart, queries)[2]
+
+
+def run_erase_cover(store: RunCountStore, ext: torch.Tensor,
+                    bstart: torch.Tensor, queries: torch.Tensor,
+                    qvalid: torch.Tensor) -> RunCountStore:
+    """Zero the weights of every row whose key equals a valid query row
+    (the mutation half of erase; the caller counts the distinct keys
+    erased over all runs) and rebuild the prefix sum (K3).  The rows stay
+    in place, so the run stays sorted; `run_compact` reclaims them.  ext,
+    bstart: the run's `run_query_aux`."""
+    lo, hit, _ = _run_find(ext, bstart, queries)
+    neq_prev, _ = _adjacent_neq(store.keys)
+    # a hit's lo is the head of its key's run: mark the run, then every row
+    # of a marked run through its run index
+    marked = torch.zeros(store.capacity + 1, dtype=torch.bool,
+                         device=store.keys.device)
+    marked[torch.where(hit & qvalid, lo, store.capacity)] = True
+    run_id = torch.cumsum(neq_prev, 0) - 1
+    covered = marked[:-1][neq_prev][run_id]
+    return run_from_sorted(store.keys,
+                           torch.where(covered, 0, store.weights))
+
+
+def _clamped_totals(store: RunCountStore, saturate: int | None):
+    """run_totals with each run's total, as readers see it, clamped at
+    `saturate` (None: unclamped) beside the raw one."""
+    is_head, is_last, total = run_totals(store)
+    seen = total if saturate is None else total.clamp(max=saturate)
+    return is_head, is_last, total, seen
+
+
+def run_filter(store: RunCountStore, keep_pred, saturate: int | None = None):
+    """erase_if / filter over one run: every row of a key whose (key,
+    count) fails keep_pred(keys int64[cap, w], counts int32[cap]) ->
+    bool[cap] gets weight 0, the prefix sum is rebuilt (K3).  Counts are
+    the run totals clamped at `saturate`.  Returns (new_store, distinct
+    keys removed 0-d)."""
+    _, is_last, total, seen = _clamped_totals(store, saturate)
+    kill = (total > 0) & ~keep_pred(pred_keys(store.keys), seen)
+    return (run_from_sorted(store.keys, torch.where(kill, 0, store.weights)),
+            (is_last & kill).sum())
+
+
+def run_select(store: RunCountStore, pred=None,
+               saturate: int | None = None):
+    """(keys int32[t, w], counts int32[t]) of one run's distinct live keys
+    whose (key, count) satisfies pred (as in `run_filter`; None: every
+    one), in key order, the counts clamped at `saturate`."""
+    _, is_last, total, seen = _clamped_totals(store, saturate)
+    emit = is_last & (total > 0)
+    if pred is not None:
+        emit &= pred(pred_keys(store.keys), seen)
+    return store.keys[:, emit].t(), seen[emit]
+
+
+def run_histogram(store: RunCountStore, nbins: int,
+                  saturate: int | None = None) -> torch.Tensor:
+    """int64[nbins] spectrum of one run: distinct live keys per count
+    (clamped at `saturate`), counts >= nbins - 1 in the last bin."""
+    _, is_last, total, seen = _clamped_totals(store, saturate)
+    return histogram_of(seen, is_last & (total > 0), nbins)
+
+
+def run_grow(store: RunCountStore, pad: int) -> RunCountStore:
+    """The run (one shard or stacked) with `pad` more rows: sentinel keys of
+    weight 0, the prefix sum carried flat."""
+    keys = torch.nn.functional.pad(store.keys, (0, pad), value=SENTINEL)
+    weights = torch.nn.functional.pad(store.weights, (0, pad))
+    last = store.csum[..., -1:]
+    csum = torch.cat([store.csum, last.expand(last.shape[:-1] + (pad,))],
+                     dim=-1)
+    return RunCountStore(keys, weights, csum)
+
+
+def run_compact(store: RunCountStore, new_cap: int,
+                saturate: int | None = None):
     """Collapse every key run to one (key, total) row, live rows first in
-    key order, at capacity `new_cap`.  Returns (new_store, overflow) with
-    overflow = distinct - new_cap when positive (the store is then cut and
-    the caller retries larger)."""
+    key order, at capacity `new_cap`, the totals clamped at `saturate`
+    (exact for a saturating map: min(min(a, s) + b, s) == min(a + b, s)
+    for b >= 0).  Returns (new_store, overflow) with overflow = distinct -
+    new_cap when positive (the store is then cut and the caller retries
+    larger)."""
     w = store.keys.shape[0]
-    _, is_last, total = run_totals(store)
-    emit = torch.nonzero(is_last & (total > 0)).squeeze(1)
+    _, is_last, raw, total = _clamped_totals(store, saturate)
+    emit = torch.nonzero(is_last & (raw > 0)).squeeze(1)
     n_emit = emit.shape[0]
     keep = emit[:new_cap]
     keys = torch.full((w, new_cap), SENTINEL, dtype=torch.int32,
@@ -471,22 +621,19 @@ def multi_gather(store: MultiStore, lo, hi, max_per_query: int):
     return store.val_hi[idx], store.val_lo[idx], store.val_q[idx], mask
 
 
-def multi_erase(store: MultiStore, queries, qvalid, aux=None):
-    """Remove ALL pairs whose key equals a valid query key; the kept pairs
-    stay in order.  aux: the store's `multi_query_aux`, if cached.
-    Returns (new_store, n_erased 0-d)."""
-    cap = store.capacity
+def _multi_pred(store: MultiStore, pred) -> torch.Tensor:
+    """pred(keys int64[cap, w], id_hi int64[cap], id_lo int64[cap],
+    qual float32[cap]) -> bool[cap] over one shard's rows."""
+    return pred(pred_keys(store.keys), to_u64(store.val_hi),
+                to_u64(store.val_lo), store.val_q)
+
+
+def multi_keep(store: MultiStore, keep: torch.Tensor):
+    """One shard with only its live pairs where `keep`, in order (the same
+    capacity).  Returns (new_store, n_removed 0-d)."""
     dev = store.keys.device
-    lo, hi = (multi_lookup_ranges(store, queries) if aux is None
-              else multi_lookup_ranges_aux(store, *aux, queries))
-    one = qvalid.to(torch.int32)
-    # mark the [lo, hi) ranges: +1 / -1 at their ends, then a prefix sum
-    diff = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
-    diff.index_add_(0, torch.where(qvalid, lo, 0), one)
-    diff.index_add_(0, torch.where(qvalid, hi, 0), -one)
-    covered = torch.cumsum(diff[:cap], 0) > 0
-    rows = torch.nonzero((torch.arange(cap, device=dev) < store.size)
-                         & ~covered).squeeze(1)
+    rows = torch.nonzero(keep & _live(store.size, store.capacity,
+                                      dev)).squeeze(1)
     n = rows.shape[0]
     keys = torch.full_like(store.keys, SENTINEL)
     keys[:, :n] = store.keys[:, rows]
@@ -497,6 +644,47 @@ def multi_erase(store: MultiStore, queries, qvalid, aux=None):
         vals.append(out)
     new_size = torch.tensor(n, dtype=torch.int32, device=dev)
     return MultiStore(keys, *vals, new_size), store.size - new_size
+
+
+def multi_erase(store: MultiStore, queries, qvalid, aux=None, pred=None):
+    """Remove the pairs whose key equals a valid query key — all of them,
+    or with `pred` (as in `_multi_pred`) those satisfying it (the keyed
+    erase_if); the kept pairs stay in order.  aux: the store's
+    `multi_query_aux`, if cached.  Returns (new_store, n_erased 0-d)."""
+    cap = store.capacity
+    dev = store.keys.device
+    lo, hi = (multi_lookup_ranges(store, queries) if aux is None
+              else multi_lookup_ranges_aux(store, *aux, queries))
+    one = qvalid.to(torch.int32)
+    # mark the [lo, hi) ranges: +1 / -1 at their ends, then a prefix sum
+    diff = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
+    diff.index_add_(0, torch.where(qvalid, lo, 0), one)
+    diff.index_add_(0, torch.where(qvalid, hi, 0), -one)
+    covered = torch.cumsum(diff[:cap], 0) > 0
+    if pred is not None:
+        covered &= _multi_pred(store, pred)
+    return multi_keep(store, ~covered)
+
+
+def multi_filter(store: MultiStore, keep_pred):
+    """One shard without the pairs failing keep_pred (as in
+    `_multi_pred`).  Returns (new_store, n_removed 0-d)."""
+    return multi_keep(store, _multi_pred(store, keep_pred))
+
+
+def multi_select(store: MultiStore, pred):
+    """(keys int32[t, w], matches int64[t]): each distinct key of one shard
+    with at least one pair satisfying pred (as in `_multi_pred`), in key
+    order, with its number of such pairs."""
+    live = _live(store.size, store.capacity, store.keys.device)
+    match = _multi_pred(store, pred) & live
+    neq_prev, _ = _adjacent_neq(store.keys)
+    head = neq_prev & live
+    run_id = torch.cumsum(head, 0) - 1
+    heads = torch.nonzero(head).squeeze(1)
+    matches = torch.bincount(run_id[match], minlength=heads.shape[0])
+    sel = matches > 0
+    return store.keys[:, heads[sel]].t(), matches[sel]
 
 
 def multi_distinct(store: MultiStore) -> torch.Tensor:

@@ -20,7 +20,8 @@ tensors, launches its kernel or raises: nothing falls back.  It checks
 device, dtype, shape and contiguity, allocates outputs with `torch.empty`,
 launches on the current stream, raises on a non-zero ``cudaGetLastError()``
 and adds one to ``LAUNCHES[name]`` per call that launched (K1 also to
-``K1_LAUNCHES[variant]``, the kernel it picked).
+``K1_LAUNCHES[variant]``, the kernel it picked; K2 also to
+``K2_PAYLOAD_LAUNCHES[npay]``, by its number of payload columns).
 
 The sources are compiled by ``nvcc`` for ``sm_90a`` — one process per
 source, all at once, then one link — into a shared library with a plain C
@@ -47,7 +48,8 @@ from ..kmer import KmerSpec
 from . import packing
 from .keys import SENTINEL, biased, lex_argsort
 
-__all__ = ["LAUNCHES", "K1_LAUNCHES", "KERNELS", "build", "reset_launches",
+__all__ = ["LAUNCHES", "K1_LAUNCHES", "K2_PAYLOAD_LAUNCHES", "KERNELS",
+           "build", "reset_launches",
            "extract_canonical", "k1_kernel",
            "merge_runs_cols", "merge_runs_cols_plain",
            "merge_sorted_runs", "merge_sorted_runs_plain",
@@ -91,6 +93,9 @@ _K1_KERNELS = ("rolling64", "rolling128", "wide")
 #: K1's launches by the kernel each picked (they sum to
 #: LAUNCHES["extract_canonical"])
 K1_LAUNCHES = {name: 0 for name in _K1_KERNELS}
+#: K2's (`merge_runs_cols`) launches by payload count (keys only: 0; a
+#: count index's weights: 1; the multimaps' ids and quality: 2-3)
+K2_PAYLOAD_LAUNCHES: dict = {}
 
 _lib = None
 _build_lock = threading.Lock()
@@ -103,6 +108,7 @@ def reset_launches():
     for counts in (LAUNCHES, K1_LAUNCHES):
         for name in counts:
             counts[name] = 0
+    K2_PAYLOAD_LAUNCHES.clear()
 
 
 def _nvcc() -> str:
@@ -338,6 +344,8 @@ def _merge(name, a_keys, a_payloads, b_keys, b_payloads, row_major):
         ctypes.cast(table, _vp), npay, out_keys.data_ptr(), n,
         scratch.data_ptr(), _stream(dev))
     _launched(name, rc)
+    if not row_major:
+        K2_PAYLOAD_LAUNCHES[npay] = K2_PAYLOAD_LAUNCHES.get(npay, 0) + 1
     return out_keys, out_pays
 
 

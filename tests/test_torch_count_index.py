@@ -137,7 +137,8 @@ def test_convert_jax_runs(reads_path):
 
 
 def test_port_import_leaves_jax_out():
-    code = ("import sys, kmerind_tpu_torch, kmerind_tpu_torch.index.convert;"
+    code = ("import sys, kmerind_tpu_torch, kmerind_tpu_torch.index.convert,"
+            " kmerind_tpu_torch.utils.checkpoint;"
             " assert 'jax' not in sys.modules, 'jax imported'")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -640,3 +640,107 @@ def test_count_index_wide_cuda_matches_cpu(dev, tmp_path, k):
     np.testing.assert_array_equal(idx[dev].count(q), idx["cpu"].count(q))
     assert idx[dev].to_dict() == idx["cpu"].to_dict()
     assert idx[dev].size() == idx["cpu"].size()
+
+
+@pytest.mark.parametrize("na,nb,zeros", [
+    (5 * MERGE_TILE + 17, 3 * MERGE_TILE - 1, 0.0),
+    (200_003, 150_001, 0.3), (1, 40_000, 0.5)])
+def test_merge_weighted_count_runs(dev, na, nb, zeros):
+    """K2 with ONE payload, the count index's weights, on runs whose
+    weights are not all 1 (0 where a row was erased, else 1-1000): bitwise
+    equal to the plain version, counted under one payload; the merged
+    store's prefix sum (K3) equals the CPU's."""
+    from kmerind_tpu_torch.index import store as st
+    rng = np.random.default_rng(na + nb)
+
+    def run(n):
+        keys = words_t(_tied_run(rng, 2, n, 0, 3000, n // 50))
+        w = rng.integers(1, 1001, n).astype(np.int32)
+        w[rng.random(n) < zeros] = 0
+        w[n - n // 50:] = 0                    # sentinel tail: weight 0
+        return keys, torch.from_numpy(w)
+
+    (ak, aw), (bk, bw) = run(na), run(nb)
+    before = kernels.K2_PAYLOAD_LAUNCHES.get(1, 0)
+    got = st.run_merge(st.run_from_sorted(ak.to(dev), aw.to(dev)),
+                       bk.to(dev), bw.to(dev))
+    torch.cuda.synchronize()
+    assert kernels.K2_PAYLOAD_LAUNCHES[1] == before + 1
+    want = st.run_merge(st.run_from_sorted(ak, aw), bk, bw)
+    for f in ("keys", "weights", "csum"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("n,hi", [(SCAN_TILE * 3 + 1, 1001),
+                                  (1 << 22, 1 << 10), (777_777, 2)])
+def test_prefix_sum_nonnegative_weights(dev, n, hi):
+    """K3 on arbitrary non-negative weights (zeros among them, as erase and
+    filter leave): bitwise equal to the plain version."""
+    w = np.random.default_rng(n).integers(0, hi, n).astype(np.int32)
+    w[::7] = 0
+    x = torch.from_numpy(w)
+    got = kernels.prefix_sum_i32(x.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), kernels.prefix_sum_i32_plain(x))
+
+
+@pytest.mark.parametrize("p", [1, 4])
+def test_count_surface_cuda_matches_cpu(dev, tmp_path, p):
+    """insert_counts, erase, a build after it, filter, count_if, histogram,
+    saturate and the npz / checkpoint round trips on the card give the
+    CPU's answers; K2 merged with the weights as its one payload and K3
+    ran."""
+    from kmerind_tpu_torch.utils.checkpoint import load_index, save_index
+    path = tmp_path / "reads.fastq"
+    reads = write_reads(path, 400, 150, 3000, seed=9, n_rate=0.002)
+    spec = kp.KmerSpec(21, kp.DNA)
+    q = [r[i:i + 21] for r in reads[:80] for i in (0, 40, 129)]
+    cnt = np.arange(len(q)) % 997
+    kernels.reset_launches()
+    answers = {}
+    for d in ("cpu", dev):
+        idx = kp.CountIndex(spec, device=d, nparts=p, max_runs=2)
+        idx.insert_batch(read_file(path, kp.DNA), chunk_bases=7000)
+        idx.insert_counts(q, cnt)
+        a = [idx.count(q), idx.erase(q[:60])]
+        idx.insert_batch(read_file(path, kp.DNA), chunk_bases=7000)
+        a += [idx.filter(lambda k, c: c >= 2), idx.histogram(50),
+              sorted(idx.count_if(lambda k, c: c > 20)), idx.count(q)]
+        idx.save(tmp_path / f"{p}.npz")
+        a.append(kp.CountIndex.load(tmp_path / f"{p}.npz", d).count(q))
+        save_index(idx, tmp_path / f"ck{p}")
+        a.append(load_index(tmp_path / f"ck{p}", d).to_dict())
+        sat = kp.CountIndex(spec, device=d, nparts=p, saturate=4)
+        sat.insert_batch(read_file(path, kp.DNA), chunk_bases=7000)
+        a += [sat.count(q), sat.histogram(8), sat.to_dict()]
+        answers[d] = a
+    for got, want in zip(answers[dev], answers["cpu"]):
+        if isinstance(want, np.ndarray):
+            np.testing.assert_array_equal(got, want)
+        else:
+            assert got == want
+    assert kernels.K2_PAYLOAD_LAUNCHES.get(1, 0) > 0
+    assert kernels.LAUNCHES["prefix_sum_i32"] > 0
+
+
+def test_multimap_predicates_cuda_matches_cpu(dev, tmp_path):
+    """PositionQualityIndex and SortedPositionIndex predicates on the card:
+    count_if, erase_if on window quality, keyed erase_if and filter give
+    the CPU's answers."""
+    path = tmp_path / "reads.fastq"
+    reads = write_reads(path, 300, 150, 3000, seed=10, n_rate=0.002,
+                        varied_quality=True)
+    spec = kp.KmerSpec(21, kp.DNA)
+    q = [r[i:i + 21] for r in reads[:40] for i in (0, 100)]
+    for cls in (kp.PositionQualityIndex, kp.SortedPositionIndex):
+        answers = {}
+        for d in ("cpu", dev):
+            idx = cls(spec, device=d, nparts=4, canonical=True)
+            idx.insert_batch(read_file(path, kp.DNA), chunk_bases=7000)
+            answers[d] = [
+                idx.count_if(lambda k, h, l, x: (l & 1) == 0),
+                idx.erase_if(lambda k, h, l, x: x < 0.9),
+                idx.erase_if(lambda k, h, l, x: (l & 3) == 1, q),
+                idx.filter(lambda k, h, l, x: (k[:, 0] >> 31) == 0),
+                idx.size()]
+        assert answers[dev] == answers["cpu"]

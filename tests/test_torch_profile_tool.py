@@ -6,6 +6,7 @@ import json
 import pathlib
 import sys
 
+import numpy as np
 import pytest
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent
@@ -66,7 +67,7 @@ def test_phases_of_both_runs():
     (position+quality index: build, the last flush, two finds) each name
     a step for every phase they report."""
     steps = {run: profile_p4.phase_steps(run, _FakeIndex(), "p.fastq", "q")
-             for run in profile_p4.PHASES}
+             for run in profile_p4.PHASES if run != "p8"}
     assert profile_p4.PHASES["p5"] == ("build", "flush", "count1", "count2")
     for run, fns in steps.items():
         assert tuple(fns) == profile_p4.PHASES[run]
@@ -79,7 +80,28 @@ def test_phases_of_both_runs():
     calls = [fn() for fn in steps["p7"].values()]
     assert calls == [("build", "p.fastq"), ("count", "q"), ("count", "q"),
                      ("items",)]
-    assert profile_p4.RUN_K == {"p4": 21, "p5": 21, "p6": 21, "p7": 127}
+    assert profile_p4.RUN_K == {"p4": 21, "p5": 21, "p6": 21, "p7": 127,
+                                "p8": 21}
+
+
+def test_p8_phases_drive_the_count_surface(tmp_path):
+    """P8's steps: the surface calls in order, insert_counts of the first
+    half of the queries and as many random rows, erase of the second
+    half, the npz beside the FASTQ."""
+    queries = np.arange(40, dtype=np.uint32).reshape(20, 2)
+    fns = profile_p4.phase_steps("p8", _FakeIndex(), tmp_path / "p.fastq",
+                                 queries)
+    assert tuple(fns) == profile_p4.PHASES["p8"]
+    calls = {name: fn() for name, fn in fns.items()}
+    kind, pairs, counts = calls["insert_counts"]
+    assert kind == "insert_counts" and pairs.shape == (20, 2)
+    np.testing.assert_array_equal(pairs[:10], queries[:10])
+    assert counts.shape == (20,) and 1 <= counts.min() <= counts.max() <= 1000
+    np.testing.assert_array_equal(calls["erase"][1], queries[10:])
+    assert calls["histogram"] == ("histogram", 255)
+    assert calls["save"] == ("save", tmp_path / "p8.npz")
+    assert [calls[n][0] for n in ("size", "filter", "count_if")] == [
+        "size", "filter", "count_if"]
 
 
 class _FakeIndex:
@@ -102,6 +124,24 @@ class _FakeIndex:
 
     def compact(self):
         return ("compact",)
+
+    def histogram(self, max_count):
+        return ("histogram", max_count)
+
+    def insert_counts(self, kmers, counts):
+        return ("insert_counts", kmers, counts)
+
+    def erase(self, kmers):
+        return ("erase", kmers)
+
+    def filter(self, pred):
+        return ("filter", pred)
+
+    def count_if(self, pred):
+        return ("count_if", pred)
+
+    def save(self, path):
+        return ("save", path)
 
 
 def test_p5_dry_run_on_the_cpu(capsys):
@@ -135,3 +175,12 @@ def test_p7_dry_run_on_the_cpu(capsys):
     assert list(record["runs"]) == ["p7"]
     assert list(record["runs"]["p7"]) == ["build", "count1", "count2",
                                           "items"]
+
+
+def test_p8_dry_run_on_the_cpu(capsys):
+    """--run p8 on the CPU: the count surface's phases."""
+    assert profile_p4.main(["--run", "p8", "--device", "cpu", "--genome",
+                            "20000", "--coverage", "2"]) == 0
+    record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(record["runs"]) == ["p8"]
+    assert list(record["runs"]["p8"]) == list(profile_p4.PHASES["p8"])

@@ -60,3 +60,39 @@ def test_limb_counter_counts_exactly():
     for f, c, r in zip(first, cnt, q):
         got = limbs[ref.order[f:f + c]]
         assert (got == r).all()
+
+
+def test_p8_spectrum_and_counts_model():
+    """P8's numpy model: distinct_counts and spectrum of sorted codes
+    against collections.Counter, add_counts against a summed Counter."""
+    rng = np.random.default_rng(8)
+    codes = np.sort(rng.integers(0, 300, 5000).astype(np.uint64))
+    counter = collections.Counter(codes.tolist())
+    keys, cnts = chip_smoke.distinct_counts(codes)
+    assert dict(zip(keys.tolist(), cnts.tolist())) == counter
+    assert keys.tolist() == sorted(counter)
+    want = np.zeros(31, np.int64)
+    for c in counter.values():
+        want[min(c, 30)] += 1
+    np.testing.assert_array_equal(chip_smoke.spectrum(cnts, 30), want)
+    add_keys = rng.integers(200, 400, 700).astype(np.uint64)
+    add_cnts = rng.integers(1, 1001, 700)
+    total = collections.Counter(counter)
+    for k, c in zip(add_keys.tolist(), add_cnts.tolist()):
+        total[k] += c
+    keys2, cnts2 = chip_smoke.add_counts(keys, cnts, add_keys, add_cnts)
+    assert keys2.tolist() == sorted(total)
+    assert dict(zip(keys2.tolist(), cnts2.tolist())) == total
+
+
+def test_code_rows_is_the_kmer_layout():
+    """P8's 2-bit code -> word rows: the rows pack_rows gives the codes'
+    bases, and the code is the port's to_ints value."""
+    rng = np.random.default_rng(9)
+    codes = rng.integers(0, 4, (50, 21)).astype(np.uint8)
+    value = np.zeros(50, np.uint64)
+    for j in range(21):
+        value = (value << np.uint64(2)) | codes[:, j].astype(np.uint64)
+    rows = chip_smoke.code_rows(value)
+    np.testing.assert_array_equal(rows, chip_smoke.pack_rows(codes))
+    np.testing.assert_array_equal(KmerSpec(21, DNA).to_ints(rows), value)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Device-busy profile of the smoke's full-size runs (chip_smoke.py P4-P7).
+"""Device-busy profile of the smoke's full-size runs (chip_smoke.py P4-P8).
 
-    python3 tools/profile_p4.py [--run p4|p5|p6|p7|all] [--coverage 30]
+    python3 tools/profile_p4.py [--run p4|p5|p6|p7|p8|all] [--coverage 30]
                                 [--genome 4641652] [--trace trace.json]
 
 Makes the P4 data of chip_smoke.py (150 bp reads at 30x coverage of a
@@ -16,7 +16,11 @@ insert (the build, whose chunks flush into the store every 2^24 pending
 rows), merge (the first size(), which flushes the last pending rows),
 find(with_quality=True) of the 1M queries twice.  P7, the hash CountIndex
 at k = 127 (K1's wide kernel, K2 at 8 key words; max_runs=8): build,
-count() of 1M 127-mer queries twice, items().  The first pass runs
+count() of 1M 127-mer queries twice, items().  P8, the hash CountIndex's
+surface: build, histogram(255), insert_counts of 1M pairs (the first 500k
+queries, 500k random k-mers; counts 1-1000), count() of the 1M queries,
+erase of the last 500k queries, size(), filter(c >= 2), count_if(c >= 36)
+and an npz save.  The first pass runs
 without the profiler and gives each
 phase's wall seconds; it also warms the native parser, the kernels and the
 allocator.  The second pass runs under torch.profiler, each phase in a
@@ -59,9 +63,11 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 PHASES = {"p4": ("build", "count1", "count2", "items", "compact"),
           "p5": ("build", "flush", "count1", "count2"),
           "p6": ("insert", "merge", "find1", "find2"),
-          "p7": ("build", "count1", "count2", "items")}
+          "p7": ("build", "count1", "count2", "items"),
+          "p8": ("build", "histogram", "insert_counts", "count", "erase",
+                 "size", "filter", "count_if", "save")}
 #: run -> its k
-RUN_K = {"p4": K, "p5": K, "p6": K, "p7": K_WIDE}
+RUN_K = {"p4": K, "p5": K, "p6": K, "p7": K_WIDE, "p8": K}
 #: the port's kernels -> the CUDA kernel names (ops/csrc) of their launches
 PORT_KERNELS = {
     "extract_canonical": ("extract_rolling_kernel", "extract_wide_kernel"),
@@ -84,6 +90,22 @@ def phase_steps(run: str, idx, path, queries) -> dict:
                 "count1": lambda: idx.count(queries),
                 "count2": lambda: idx.count(queries),
                 "items": idx.items}
+    if run == "p8":
+        rng = np.random.default_rng(8)
+        half = queries.shape[0] // 2
+        pairs = np.concatenate([queries[:half], pack_rows(rng.integers(
+            0, 4, (half, RUN_K[run]), dtype=np.uint8))])
+        counts = rng.integers(1, 1001, pairs.shape[0])
+        return {"build": lambda: idx.build(path),
+                "histogram": lambda: idx.histogram(255),
+                "insert_counts": lambda: idx.insert_counts(pairs, counts),
+                "count": lambda: idx.count(queries),
+                "erase": lambda: idx.erase(queries[half:]),
+                "size": idx.size,
+                "filter": lambda: idx.filter(lambda k, c: c >= 2),
+                "count_if": lambda: idx.count_if(lambda k, c: c >= 36),
+                "save": lambda: idx.save(pathlib.Path(path).with_name(
+                    "p8.npz"))}
     if run == "p6":
         return {"insert": lambda: idx.build(path),
                 "merge": idx.size,
@@ -211,7 +233,8 @@ def main(argv=None) -> int:
                   "p6": lambda: PositionQualityIndex(spec, device=dev,
                                                      canonical=True),
                   "p7": lambda: CountIndex(KmerSpec(K_WIDE, DNA),
-                                           device=dev, max_runs=8)}
+                                           device=dev, max_runs=8),
+                  "p8": lambda: CountIndex(spec, device=dev)}
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if on_gpu else [])
     out = {"card": smi, "runs": {}}
