@@ -31,8 +31,12 @@ and power limit as nvidia-smi reports them):
       8,388,628 + 8,388,628 rows of 8 key words (k = 127), 2^26 + 2^24
       rows of 8 words with 3 payloads, and 2^22 + 2^22 rows of 33 (DNA k =
       512 full words and the flag) with 4 payloads, past the key words
-      compared in registers.  K2′ (the row-major merge, which no index
-      calls) runs only here, at w = 2 and w = 8 with one payload.
+      compared in registers; and in P9's: 8,388,628 + 8,388,628 rows of 2
+      words with edge bytes (0-255) as the one payload of a unit merge and
+      with (edge byte, weight) as 2.  K3 also runs on a 2^28 edge-bit
+      stream (0 / 1, a quarter ones) of the graph's counter tables.  K2′
+      (the row-major merge, which no index calls) runs only here, at w = 2
+      and w = 8 with one payload.
 * P3  exact reference: ~12M bases of synthetic reads indexed through
       CountIndex.insert_batch in 2^20-base chunks with max_runs=2 (many K2
       merges), then compact(); to_dict() must equal an independent numpy
@@ -104,15 +108,37 @@ and power limit as nvidia-smi reports them):
       Counters zeroed just before, read just after: K2 and K3 ran, K2 at
       least once with one payload (the weights; `kernels.
       K2_PAYLOAD_LAUNCHES` counts K2's launches by payload count).
+* P9  the de Bruijn graphs over P4's FASTQ (after P8, while its queries
+      are held; `phase_p9`), held exactly against a numpy model of every
+      node's 9 counters under the dual-LUT rule (`graph_windows`: the
+      k-mer reads N as A, an edge nibble is the neighbour's DNA16 code, N
+      -> 0xF, flipped with the canonical strand).
+      DeBruijnGraph(KmerSpec(21, DNA), max_runs=8).build (the streaming
+      path): size() == the numpy node count; node_counts of P4's 1M
+      queries == numpy (twice: the first call builds the counter tables
+      and the query aux); items() == every numpy node and its counters,
+      the self counters summing to the window count; edge_exists and
+      neighbors of 1,000 nodes; compact(), then the same counts; an npz
+      save / load round trip; a build of the first 50,000 reads again and
+      its merge with the compacted run (counts == numpy's sum).
+      QualityDeBruijnGraph on the same file: node_counts exact,
+      node_quality of 10,000 nodes at rtol 1e-5 against float64 numpy
+      window qualities.  Counters zeroed before each build and read after:
+      K1 once per chunk, K2 with 1 payload (unit merges of the edge byte)
+      at least once per merge of the first build, K3 at least 8 per
+      counter table, K2 with 2 payloads (edge byte, weight) after the
+      compaction and the further ingest, and the quality graph's unit merges
+      with 2 (edge byte, quality bits).
 
 Exits non-zero, printing no result, when there is no CUDA device, a build
 fails or any check fails.  The last line of standard output is the
 contract JSON; the line before it lists the kernels with their launches
-in the main-path runs P4 + P5 + P6 + P7 + P8.
+in the main-path runs P4 + P5 + P6 + P7 + P8 + P9.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import pathlib
@@ -1046,6 +1072,266 @@ def phase_p8(dev, path, tmp, qcodes, queries, keys, cnts, want_counts,
     return launches
 
 
+DNA16_NIBBLE = np.array([1, 2, 4, 8, 15], np.uint8)   # A C G T N
+
+
+def rev4(x: np.ndarray) -> np.ndarray:
+    """4-bit reversal of DNA16 nibbles (their complement)."""
+    return ((x & 1) << 3) | ((x & 2) << 1) | ((x & 4) >> 1) | ((x & 8) >> 3)
+
+
+def graph_windows(codes: np.ndarray, k: int = K) -> np.ndarray:
+    """uint64[n_reads * (READ_LEN - k + 1)] canonical 2-bit code << 8 |
+    edge byte of every k-window of the reads, in window order, by the
+    de Bruijn graph's dual-LUT rule: the k-mer reads N as A, the edge
+    nibbles are the neighbours' DNA16 codes (A 1, C 2, G 4, T 8, N 0xF; 0
+    past the read's ends), the left one in the high half; where the
+    reverse complement is the smaller strand, the halves swap and each is
+    4-bit reversed.  Blocks of 100,000 reads keep the temporaries small."""
+    nwin = codes.shape[1] - k + 1
+    out = np.empty(codes.shape[0] * nwin, np.uint64)
+    two = np.uint64(2)
+    for lo in range(0, codes.shape[0], 100_000):
+        raw = codes[lo:lo + 100_000]
+        c = raw.astype(np.uint64)
+        c[c == 4] = 0
+        fwd = np.zeros((c.shape[0], nwin), np.uint64)
+        rc = np.zeros_like(fwd)
+        for j in range(k):
+            fwd = (fwd << two) | c[:, j:j + nwin]
+        for j in range(k - 1, -1, -1):
+            rc = (rc << two) | (np.uint64(3) - c[:, j:j + nwin])
+        nib = DNA16_NIBBLE[raw]
+        left = np.zeros(fwd.shape, np.uint8)
+        right = np.zeros(fwd.shape, np.uint8)
+        left[:, 1:] = nib[:, :nwin - 1]
+        right[:, :nwin - 1] = nib[:, k:k + nwin - 1]
+        flip = rc < fwd
+        eb = np.where(flip, (rev4(right) << 4) | rev4(left),
+                      (left << 4) | right).astype(np.uint64)
+        out[lo * nwin:(lo + c.shape[0]) * nwin] = (
+            (np.minimum(fwd, rc) << np.uint64(8)) | eb).ravel()
+    return out
+
+
+def graph_nodes(windows: np.ndarray):
+    """(sorted distinct canonical codes, int64 [nodes, 9] counters) of the
+    `graph_windows` output: out A, C, G, T, in A, C, G, T (one per set
+    edge bit of each window) and self (the windows)."""
+    srt = np.sort(windows)
+    keys = srt >> np.uint64(8)
+    starts = np.concatenate([[0], np.flatnonzero(keys[1:] != keys[:-1]) + 1])
+    cnt = np.empty((starts.size, 9), np.int64)
+    for j in range(8):
+        bits = ((srt >> np.uint64(j)) & np.uint64(1)).astype(np.uint8)
+        cnt[:, j] = np.add.reduceat(bits, starts, dtype=np.int64)
+    cnt[:, 8] = np.diff(np.append(starts, srt.size))
+    return keys[starts], cnt
+
+
+def node_lookup(node_keys: np.ndarray, cnt: np.ndarray, q: np.ndarray):
+    """([m, 9] counters of the canonical codes q, zeros where absent;
+    found bool[m])."""
+    pos = np.searchsorted(node_keys, q).clip(max=node_keys.size - 1)
+    hit = node_keys[pos] == q
+    return np.where(hit[:, None], cnt[pos], 0), hit
+
+
+def code_string(code: int, k: int = K) -> str:
+    """The k-mer string of a 2-bit code (base 0 most significant)."""
+    return "".join("ACGT"[(code >> (2 * (k - 1 - i))) & 3] for i in range(k))
+
+
+def phase_p9(dev, path, tmp, codes, quals, qcodes, queries, smi,
+             n_nbr: int = 1000, n_sample: int = 10_000,
+             n_more: int = 50_000) -> dict:
+    """P9: the de Bruijn graphs over P4's FASTQ (the module docstring),
+    checked exactly against a numpy model of every node's 9 counters under
+    the dual-LUT rule.  Returns the kernel launches of its runs, with K2's
+    by payload count under "K2 payloads"; raises on any difference from
+    numpy."""
+    import torch
+    from kmerind_tpu_torch import (DNA, DeBruijnGraph, KmerSpec,
+                                   QualityDeBruijnGraph)
+    from kmerind_tpu_torch.ops import kernels
+    spec = KmerSpec(K, DNA)
+    nwin = READ_LEN - K + 1
+    n_windows = codes.shape[0] * nwin
+    times, k2p = {}, collections.Counter()
+
+    def check(cond, what):
+        if not cond:
+            raise AssertionError(f"P9: {what}")
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        times[name] = time.perf_counter() - t0
+        return out
+
+    t0 = time.perf_counter()
+    windows = graph_windows(codes)
+    node_keys, cnt = graph_nodes(windows)
+    qcanon = window_codes(qcodes)[:, 0]
+    want, want_found = node_lookup(node_keys, cnt, qcanon)
+    log(f"P9 numpy reference: {n_windows} windows, {node_keys.size} nodes, "
+        f"{time.perf_counter() - t0:.2f} s [{smi}]")
+    check(int(cnt[:, 8].sum()) == n_windows, "numpy self counters")
+
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    g = DeBruijnGraph(spec, device=dev, max_runs=8)
+    timed("build", lambda: g.build(path))
+    chunks, merges = g.timer.count("insert"), g.timer.count("merge")
+    got = [timed(f"count{i}", lambda: g.node_counts(queries))
+           for i in range(2)]
+    for vals, found in got:
+        check(np.array_equal(vals, want) and np.array_equal(found,
+                                                            want_found),
+              f"node_counts of {queries.shape[0]}: "
+              f"{int((vals != want).any(1).sum())} differ from numpy")
+    tables = g.timer.count("table")
+    build = dict(kernels.LAUNCHES)
+    k2p.update(kernels.K2_PAYLOAD_LAUNCHES)
+    size = timed("size", g.size)
+    check(size == node_keys.size, f"size {size} != {node_keys.size} nodes")
+    words, vecs = timed("items", g.items)
+    order = np.argsort((words[:, 0].astype(np.uint64) << np.uint64(10))
+                       | words[:, 1])
+    check(np.array_equal(code_rows(node_keys), words[order])
+          and np.array_equal(vecs[order], cnt),
+          "items() != the numpy nodes and counters")
+    check(int(vecs[:, 8].sum()) == n_windows, "self counters != windows")
+    del words, vecs, order
+    # edge_exists and neighbors of n_nbr present nodes
+    pick = np.random.default_rng(9).choice(node_keys.size, n_nbr,
+                                           replace=False)
+    strs = [code_string(int(c)) for c in node_keys[pick]]
+    flags = timed("edge_exists", lambda: g.edge_exists(strs))
+    check(np.array_equal(flags, cnt[pick, :8] > 0), "edge_exists")
+    t0 = time.perf_counter()
+    for s_, c in zip(strs, cnt[pick]):
+        outs = [(s_[1:] + "ACGT"[b], int(c[b])) for b in range(4) if c[b]]
+        ins = [("ACGT"[b] + s_[:-1], int(c[4 + b])) for b in range(4)
+               if c[4 + b]]
+        check(g.neighbors(s_) == (ins, outs), f"neighbors of {s_}")
+    times["neighbors"] = time.perf_counter() - t0
+    # compact, then the same answers; more ingest and a merge with the
+    # compacted (weighted) run: K2 with 2 payloads
+    timed("compact", g.compact)
+    check(np.array_equal(g.node_counts(queries)[0], want),
+          "node_counts after compact()")
+    kernels.reset_launches()
+    timed("save", lambda: g.save(tmp / "p9.npz"))
+    back = timed("load", lambda: DeBruijnGraph.load(tmp / "p9.npz", dev))
+    check(np.array_equal(back.node_counts(queries)[0], want)
+          and back.size() == node_keys.size, "npz reload's answers")
+    del back
+    # more ingest: the first n_more reads again, as their own FASTQ
+    more_path = tmp / "p9_more.fastq"
+    write_fastq(codes[:n_more], quals[:n_more], more_path)
+    more, _ = node_lookup(*graph_nodes(graph_windows(codes[:n_more])),
+                          qcanon)
+    timed("ingest", lambda: g.build(more_path))
+    timed("merge", g.size)
+    check(np.array_equal(g.node_counts(queries)[0], want + more)
+          and g.size() == node_keys.size,
+          "node_counts after more ingest != numpy")
+    again = dict(kernels.LAUNCHES)
+    k2p_again = dict(kernels.K2_PAYLOAD_LAUNCHES)
+    k2p.update(k2p_again)
+    peak = peak_bytes(dev)
+    log(f"P9 DeBruijnGraph k={K}, 1 shard, max_runs=8: build "
+        f"{times['build']:.3f} s = {n_windows / times['build']:.0f} "
+        f"windows/s, {chunks} chunks, {merges} merges; node_counts of "
+        f"{queries.shape[0]}: first (tables, aux) {times['count0']:.3f} s, "
+        f"second {times['count1']:.3f} s = "
+        f"{queries.shape[0] / times['count1']:.0f} q/s == numpy; size "
+        f"{times['size']:.3f} s ({size} nodes); items {times['items']:.3f} "
+        f"s == numpy, self sum == {n_windows} windows; edge_exists of "
+        f"{n_nbr} {times['edge_exists']:.3f} s, {n_nbr} neighbors "
+        f"{times['neighbors']:.3f} s == numpy; compact "
+        f"{times['compact']:.3f} s; npz save {times['save']:.3f} s, load "
+        f"{times['load']:.3f} s; ingest of {n_more} more reads "
+        f"{times['ingest']:.3f} s, merge with the compacted run "
+        f"{times['merge']:.3f} s, counts == numpy; peak device memory "
+        f"{peak} bytes [{smi}]")
+    log("P9 DeBruijnGraph phases:\n" + g.timer.report("P9"))
+    log(f"P9 launches, build + first queries: {build}; K3 per table: "
+        f"{tables} tables; after compact (save, load, more ingest, merge): "
+        f"{again}, K2 by payloads {k2p_again}")
+    # the launch checks come last, after the quality graph's answers
+    launch_checks = [
+        (build["extract_canonical"] == chunks,
+         f"K1 launches {build['extract_canonical']} != {chunks} chunks"),
+        (merges and k2p.get(1, 0) >= merges,
+         f"K2 with 1 payload < {merges} unit merges: {dict(k2p)}"),
+        (build["prefix_sum_i32"] >= 8 * tables > 0,
+         f"K3 launches {build['prefix_sum_i32']} < 8 x {tables} tables"),
+        (k2p_again.get(2, 0) > 0,
+         f"K2 never merged with (edge byte, weight) payloads: {k2p_again}")]
+    del g
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the quality graph: counters exact, node_quality of n_sample nodes
+    # against float64 numpy window qualities
+    sample = node_keys[np.random.default_rng(10).choice(
+        node_keys.size, n_sample, replace=False)]
+    uq = np.sort(sample)
+    canon = windows >> np.uint64(8)
+    del windows
+    pos = np.searchsorted(uq, canon).clip(max=uq.size - 1)
+    hit = uq[pos] == canon
+    del canon
+    wq = window_quality(quals).reshape(-1)
+    q_sum = np.bincount(pos[hit], weights=wq[hit], minlength=uq.size)
+    q_n = np.bincount(pos[hit], minlength=uq.size)
+    del pos, hit, wq
+    kernels.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    qg = QualityDeBruijnGraph(spec, device=dev, max_runs=8)
+    timed("qbuild", lambda: qg.build(path))
+    qchunks = qg.timer.count("insert")
+    vals, _ = timed("qcount", lambda: qg.node_counts(queries))
+    check(np.array_equal(vals, want), "quality graph node_counts")
+    ustr = [code_string(int(c)) for c in uq]
+    mean, n, found = timed("qmean", lambda: qg.node_quality(ustr))
+    want_mean = q_sum / q_n
+    check(found.all() and np.array_equal(n, q_n), "node_quality windows")
+    check(np.allclose(mean, want_mean, rtol=1e-5, atol=0),
+          "node_quality off by more than rtol 1e-5")
+    live = want_mean > 0
+    worst = float(np.max(np.abs(mean[live] - want_mean[live])
+                         / want_mean[live]))
+    ql = dict(kernels.LAUNCHES)
+    qk2 = dict(kernels.K2_PAYLOAD_LAUNCHES)
+    k2p.update(qk2)
+    qpeak = peak_bytes(dev)
+    log(f"P9 QualityDeBruijnGraph, 1 shard: build {times['qbuild']:.3f} s "
+        f"= {n_windows / times['qbuild']:.0f} windows/s, {qchunks} chunks, "
+        f"{qg.timer.count('merge')} merges; node_counts of "
+        f"{queries.shape[0]} {times['qcount']:.3f} s == numpy; node_quality "
+        f"of {n_sample} nodes {times['qmean']:.3f} s, max rel err "
+        f"{worst:.3e} (rtol 1e-5); peak device memory {qpeak} bytes; "
+        f"launches {ql}, K2 by payloads {qk2} [{smi}]")
+    log("P9 QualityDeBruijnGraph phases:\n" + qg.timer.report("P9q"))
+    del qg
+    launch_checks += [
+        (ql["extract_canonical"] == qchunks, "quality graph: K1 launches"),
+        (qk2.get(2, 0) > 0, "quality graph: K2 never ran on its unit "
+         "merges (edge byte, quality bits)")]
+    for cond, what in launch_checks:
+        check(cond, what)
+    launches = {kn: build[kn] + again[kn] + ql[kn] for kn in build}
+    launches["K2 payloads"] = dict(k2p)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1177,19 +1463,26 @@ def main() -> int:
             cols = torch.cat([(~s_valid).to(torch.int32)[None], cols])
         return cols
 
-    for na, nb, npay in ((CHUNK, CHUNK, 0), (1 << 26, CHUNK, 0),
-                         (CHUNK, CHUNK, 1)):
+    # keys only, a count index's weights (0..99), and the de Bruijn
+    # graph's edge bytes (0-255) as the one payload of a unit merge and
+    # (edge byte, weight) of a weighted one: each payload column's values
+    # drawn below its bound in `highs`
+    for na, nb, highs, what in (
+            (CHUNK, CHUNK, (), ""), (1 << 26, CHUNK, (), ""),
+            (CHUNK, CHUNK, (100,), ""),
+            (CHUNK, CHUNK, (256,), " de Bruijn (edge byte)"),
+            (CHUNK, CHUNK, (256, 1000), " de Bruijn (edge byte, weight)")):
+        npay = len(highs)
         a, b = sorted_run(na), sorted_run(nb)
-        pa = tuple(torch.randint(0, 100, (na,), dtype=torch.int32, device=dev,
-                                 generator=gen) for _ in range(npay))
-        pb = tuple(torch.randint(0, 100, (nb,), dtype=torch.int32, device=dev,
-                                 generator=gen) for _ in range(npay))
+        pa, pb = (tuple(torch.randint(0, hi, (n,), dtype=torch.int32,
+                                      device=dev, generator=gen)
+                        for hi in highs) for n in (na, nb))
         gk, gp = kernels.merge_runs_cols(a, pa, b, pb)
         wk, wp = kernels.merge_runs_cols_plain(a, pa, b, pb)
         err = max([err_of(gk, wk)] + [err_of(x, y) for x, y in zip(gp, wp)])
         n_out = gk.shape[1]
         del gk, gp, wk, wp
-        record("merge_runs_cols", f"{na}+{nb} w=2 payloads={npay}",
+        record("merge_runs_cols", f"{na}+{nb} w=2 payloads={npay}{what}",
                lambda: kernels.merge_runs_cols(a, pa, b, pb),
                lambda: kernels.merge_runs_cols_plain(a, pa, b, pb),
                err, kernel_bytes("merge_runs_cols", na=na, nb=nb,
@@ -1254,11 +1547,16 @@ def main() -> int:
                packed_sort(a[:, :2].t(), b[:, :2].t()), slow_plain=w > 2)
         del a, b, pa, pb
 
-    for hi in (2, 101):
+    # values 0..1 and 0..100, and one edge-bit stream of the graph's
+    # counter tables (an out-edge bit: 1 in 4 rows)
+    for hi, case in ((2, "values 0..1"), (101, "values 0..100"),
+                     (4, "edge-bit stream (1 where 0 of 0..3)")):
         x = torch.randint(0, hi, (1 << 28,), dtype=torch.int32, device=dev,
                           generator=gen)
+        if hi == 4:
+            x = (x == 0).to(torch.int32)
         err = err_of(kernels.prefix_sum_i32(x), kernels.prefix_sum_i32_plain(x))
-        record("prefix_sum_i32", f"n=2^28 values 0..{hi - 1}",
+        record("prefix_sum_i32", f"n=2^28 {case}",
                lambda: kernels.prefix_sum_i32(x),
                lambda: kernels.prefix_sum_i32_plain(x), err,
                kernel_bytes("prefix_sum_i32", n=x.shape[0]),
@@ -1523,7 +1821,15 @@ def main() -> int:
         launches["P8"] = phase_p8(dev, path, tmp, qcodes, queries, ref_keys,
                                   ref_cnts, want_counts, smi)
         log(f"P8 seconds {time.perf_counter() - t0:.2f} [{smi}]")
-        del qcodes, queries, want_counts, ref_keys, ref_cnts
+        del want_counts, ref_keys, ref_cnts
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------------------ P9
+        t0 = time.perf_counter()
+        launches["P9"] = phase_p9(dev, path, tmp, codes, quals, qcodes,
+                                  queries, smi)
+        log(f"P9 seconds {time.perf_counter() - t0:.2f} [{smi}]")
+        del qcodes, queries
         torch.cuda.empty_cache()
 
         # ------------------------------------------------------------ P7
@@ -1534,10 +1840,10 @@ def main() -> int:
     log(f"total seconds {time.perf_counter() - t_all:.2f} [{smi}]")
     entries = []
     for kname, (src, replaces) in kernels.KERNELS.items():
-        # main-path launches (P4 + P5 + P6 + P7 + P8, and per run); K2′ is
-        # on no index's path: P2's
+        # main-path launches (P4 + P5 + P6 + P7 + P8 + P9, and per run);
+        # K2′ is on no index's path: P2's
         by_run = {r: launches[r][kname]
-                  for r in ("P4", "P5", "P6", "P7", "P8")}
+                  for r in ("P4", "P5", "P6", "P7", "P8", "P9")}
         n = (k2r_launches if kname == "merge_sorted_runs"
              else sum(by_run.values()))
         entries.append({"name": kname, "route": "cuda", "source": src,

@@ -13,6 +13,8 @@ Hopper (``ops/csrc``).  It mirrors the JAX package's module layout:
   `PositionIndex`, `PositionQualityIndex` (hash-partitioned) and
   `SortedCountIndex`, `SortedPositionIndex`, `SortedPositionQualityIndex`
   (range-partitioned), each over p shards stacked on one device;
+* ``debruijn`` — the de Bruijn graphs `DeBruijnGraph` and
+  `QualityDeBruijnGraph` on the same machinery;
 * ``quality``  — the phred codec and windowed k-mer quality;
 * ``config``   — `IndexConfig`, every index's knobs in one dataclass;
 * ``utils.checkpoint`` — sharded `save_index` / `load_index` (each index
@@ -26,6 +28,7 @@ lives on ``device="cuda"`` unless the caller names another (the tests pass
 from . import alphabets
 from .alphabets import ASCII, DNA, DNA5, DNA6, DNA16, DNA_IUPAC, RNA, RNA5, RNA6
 from .config import IndexConfig
+from .debruijn import DeBruijnGraph, QualityDeBruijnGraph
 from .index.api import CountIndex, PositionIndex, PositionQualityIndex
 from .index.sorted_api import (SortedCountIndex, SortedPositionIndex,
                                SortedPositionQualityIndex)
@@ -33,5 +36,6 @@ from .kmer import KmerSpec
 
 __all__ = ["alphabets", "KmerSpec", "IndexConfig", "CountIndex", "PositionIndex",
            "PositionQualityIndex", "SortedCountIndex", "SortedPositionIndex",
-           "SortedPositionQualityIndex", "DNA", "DNA5", "DNA6", "DNA16",
+           "SortedPositionQualityIndex", "DeBruijnGraph",
+           "QualityDeBruijnGraph", "DNA", "DNA5", "DNA6", "DNA16",
            "DNA_IUPAC", "RNA", "RNA5", "RNA6", "ASCII"]

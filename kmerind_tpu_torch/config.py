@@ -9,18 +9,16 @@ package (e.g. a checkpoint's JSON) builds the same index here.
 | reference macro          | field        | values                        |
 |--------------------------|--------------|-------------------------------|
 | pPARSER FASTQ/FASTA      | fmt          | "fastq" / "fasta" (or sniffed) |
-| pINDEX COUNT/POS/POSQUAL | index        | "count" / "position" / "posqual" |
+| pINDEX COUNT/POS/POSQUAL | index        | "count" / "position" / "posqual" / "debruijn" |
 | pMAP DENSEHASH/SORTED    | distribution | "hash" / "range"              |
-| pKmerParser canonical    | strands      | "canonical" / "single"        |
+| pKmerParser canonical    | strands      | "canonical" / "single" / "lex_greater" / "xor_rev_comp" |
 | pDistHash MURMUR/FARM    | hash_name    | "murmur" / "farm" / "std" ... |
 | pDNA 4/5/16              | alphabet     | "DNA" / "DNA5" / "DNA16" ...  |
 | pK 21/31/63              | k            | any                           |
 
 Families the port does not have yet raise NotImplementedError with their
-ROADMAP item: the de Bruijn graphs (index="debruijn", queue 1 item 14),
-the Bimolecule preset (strands="bimolecule", item 12) and the value maps
-(index="value", item 13); the lex_greater / xor_rev_comp strands raise in
-the index (item 3).
+ROADMAP item: the Bimolecule preset (strands="bimolecule", queue 1 item
+12) and the value maps (index="value", item 13).
 """
 
 from __future__ import annotations
@@ -32,8 +30,7 @@ from .kmer import KmerSpec
 
 __all__ = ["IndexConfig"]
 
-_NOT_PORTED = {"debruijn": "14 (de Bruijn graphs)",
-               "bimolecule": "12 (Bimolecule)",
+_NOT_PORTED = {"bimolecule": "12 (Bimolecule)",
                "value": "13 (value maps)"}
 
 
@@ -49,10 +46,11 @@ class IndexConfig:
 
     k: int = 21
     alphabet: str = "DNA"
-    index: str = "count"           # count | position | posqual
+    index: str = "count"           # count | position | posqual | debruijn
     canonical: bool = True         # Canonical vs SingleStrand presets
-    strands: str | None = None     # "canonical" | "single"; overrides
-    #                                `canonical` when set
+    strands: str | None = None     # "canonical" | "single" |
+    #                                "lex_greater" | "xor_rev_comp";
+    #                                overrides `canonical` when set
     distribution: str = "hash"     # "hash" (densehash) | "range" (sorted)
     hash_name: str = "murmur"      # DistHash preset (hash distribution)
     id_kind: str = "short"         # short (FASTQ) | long (FASTA)
@@ -70,6 +68,7 @@ class IndexConfig:
     def make_index(self, device="cuda", nparts: int | None = None):
         """The configured index on `device`, with `nparts` shards (default:
         `devices`, else 1)."""
+        from .debruijn import DeBruijnGraph
         from .index.api import CountIndex, PositionIndex, PositionQualityIndex
         from .index.sorted_api import (SortedCountIndex, SortedPositionIndex,
                                        SortedPositionQualityIndex)
@@ -86,8 +85,23 @@ class IndexConfig:
             raise _not_ported(self.index)
         if strands == "bimolecule":
             raise _not_ported("bimolecule")
-        canonical = (strands if strands in ("lex_greater", "xor_rev_comp")
-                     else strands != "single")
+        transform = strands in ("lex_greater", "xor_rev_comp")
+        if self.index == "debruijn":
+            if transform:
+                raise ValueError(
+                    "the de Bruijn graph defines edges on the lex_less "
+                    "canonical strand (the reference's driver config)")
+            if self.distribution != "hash":
+                raise ValueError("range distribution has no 'debruijn' "
+                                 "index")
+            g = DeBruijnGraph(self.spec(), device,
+                              canonical=strands != "single",
+                              nparts=nparts or self.devices or 1,
+                              hash_name=self.hash_name,
+                              saturate=self.saturate)
+            g.fill_factor = self.fill_factor
+            return g
+        canonical = strands if transform else strands != "single"
         range_cls = {"count": SortedCountIndex,
                      "position": SortedPositionIndex,
                      "posqual": SortedPositionQualityIndex}

@@ -93,7 +93,7 @@ class _IndexBase:
         self.device = torch.device(device)
         self.nparts = nparts
         self.canonical = canonical
-        transform_name(canonical)  # rejects transforms not ported yet
+        transform_name(canonical)  # rejects unknown transforms
         self.timer = timer if timer is not None else PhaseTimer()
         self._marshal_pool: dict = {}
         self._ids_pool: dict = {}
@@ -121,10 +121,29 @@ class _IndexBase:
     def _maybe_canonicalize_queries(self, words: torch.Tensor) -> torch.Tensor:
         """Canonical presets transform queries too (transform_input on the
         query path, distributed_map_base.hpp:286-301)."""
-        if self.transform == "single":
+        t = self.transform
+        if t == "single":
             return words
         rc = bitops.revcomp(words, self.spec)
-        return torch.where(packing.lex_less(rc, words)[:, None], rc, words)
+        if t == "xor_rev_comp":
+            return words ^ rc
+        less = packing.lex_less(rc, words)[:, None]
+        if t == "lex_greater":
+            return torch.where(less, words, rc)
+        return torch.where(less, rc, words)
+
+    def _chunk_halo(self) -> tuple[int, int]:
+        """(halo, halo_left): the context bases each chunk carries after and
+        before the bases it owns — the k-1 window lookahead
+        (kmer_file_helper.hpp:361); the de Bruijn graph needs one more base
+        on each side for the edges."""
+        return self.spec.k - 1, 0
+
+    @property
+    def parse_alphabet(self):
+        """The alphabet the build paths parse files with: the k-mer
+        alphabet; the de Bruijn graph parses raw ASCII bytes."""
+        return self.spec.alphabet
 
     def _shard_rows(self, rows: torch.Tensor, extra=()):
         """[m, ...] rows -> ([p, mq, ...] tensors, valid bool[p, mq], m):
@@ -229,25 +248,29 @@ class _IndexBase:
         """Host work only (runs on the feeding thread): split a chunk's
         per-base columns over the shards into pooled buffers — the JAX
         package's `_batch_to_stacked`.  Shard s owns bases
-        [s * owned, (s + 1) * owned) and also gets the k-1 bases after them
-        (valid, not owned), so every window lies whole on one shard; short
-        shards are padded (invalid, seg_id -1).  One shard takes the chunk
-        as it is: it already carries its halo."""
+        [s * owned, (s + 1) * owned) and also gets the `halo` bases after
+        them and the `halo_left` before them (valid, not owned;
+        `_chunk_halo`), so every window and its edge context lie whole on
+        one shard; short shards are padded (invalid, seg_id -1).  One shard
+        takes the chunk as it is: it already carries its context."""
         with self.timer.phase("marshal"):
             p, n = self.nparts, batch.num_bases
-            halo = self.spec.k - 1
+            halo, halo_left = self._chunk_halo()
             owned = -(-n // p)
             srcs = self._marshal_sources(batch)
             bufs = self._marshal_bufs(
-                owned + (halo if p > 1 else 0),
+                owned + (halo_left + halo if p > 1 else 0),
                 tuple((nm, a.dtype) for nm, a, _ in srcs))
             for s in range(p):
-                lo = min(s * owned, n)
-                ln = min(lo + owned + halo, n) - lo
+                own_start = min(s * owned, n)
+                lo = max(0, own_start - halo_left)
+                left = own_start - lo
+                ln = min(own_start + owned + halo, n) - lo
                 for nm, src, fill in srcs:
                     bufs[nm][s, :ln] = src[lo:lo + ln]
                     bufs[nm][s, ln:] = fill
-                bufs["owned"][s, owned:] = False
+                bufs["owned"][s, :left] = False
+                bufs["owned"][s, left + owned:] = False
             return bufs
 
     def _to_device(self, cols: dict) -> DeviceBases:
@@ -318,11 +341,11 @@ class _IndexBase:
     def insert_batch(self, batch: ReadBatch, chunk_bases: int | None = None):
         """Insert a parsed batch's k-mers, streamed through the device in
         chunks of `chunk_bases` bases (a k-1 lookahead keeps the windows
-        that span a chunk boundary)."""
+        that span a chunk boundary; `_chunk_halo`)."""
         if chunk_bases is None:
             chunk_bases = self.default_chunk_bases
         if batch.num_bases > chunk_bases:
-            chunks = list(batch.iter_chunks(chunk_bases, self.spec.k - 1))
+            chunks = list(batch.iter_chunks(chunk_bases, *self._chunk_halo()))
         else:
             chunks = [batch]
         self._stream_chunks_iter(iter(chunks), self._marshal_chunk,
@@ -339,7 +362,7 @@ class _IndexBase:
         if file_size(path) > self.stream_threshold_bytes:
             return self.build_stream(path, fmt, file_id)
         with self.timer.phase("read"):
-            batch = read_file(path, self.spec.alphabet, fmt, file_id,
+            batch = read_file(path, self.parse_alphabet, fmt, file_id,
                               reuse=True)
         return self.insert_batch(batch)
 
@@ -350,7 +373,7 @@ class _IndexBase:
         (the reference's read_block loop, kmer_file_helper.hpp:293-331 +
         file.hpp:1216-1432).  Every chunk has one shape."""
         fmt = fmt or sniff_format(path)
-        halo = self.spec.k - 1
+        halo, halo_left = self._chunk_halo()
         if block_bytes is None:
             # FASTQ bytes ~ 2.2x bases (quality + headers); FASTA ~ 1.01x
             block_bytes = self.default_chunk_bases * (
@@ -358,7 +381,7 @@ class _IndexBase:
         # a block never yields more than block_bytes bases
         chunk_bases = min(self.default_chunk_bases, block_bytes)
         nblocks = max(1, -(-file_size(path) // block_bytes))
-        alphabet = self.spec.alphabet
+        alphabet = self.parse_alphabet
 
         def chunks():
             for p in range(nblocks):
@@ -369,9 +392,9 @@ class _IndexBase:
                     else:
                         b = read_fasta_block(path, alphabet, p, nblocks,
                                              file_id=file_id, halo=halo,
-                                             reuse=True)
+                                             halo_left=halo_left, reuse=True)
                 if b.num_bases:
-                    yield from b.iter_chunks(chunk_bases, halo)
+                    yield from b.iter_chunks(chunk_bases, halo, halo_left)
 
         self._stream_chunks_iter(chunks(), self._marshal_chunk,
                                  self._insert_cols)

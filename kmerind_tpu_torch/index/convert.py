@@ -12,6 +12,8 @@
   -> the port's index of the same kind and as many shards: the same pairs
   on the same shards, routed by the same owner hash (digest-equal, see
   ``ops/hashing.py``) or the same splitters.
+* A JAX DeBruijnGraph / QualityDeBruijnGraph's run -> the port's graph of
+  as many shards: the same rows, weights included, on the same shards.
 
 Every function takes the state as numpy arrays.
 """
@@ -21,15 +23,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..debruijn import DeBruijnGraph, QualityDeBruijnGraph
 from ..kmer import KmerSpec
 from ..ops.keys import from_numpy_u32
+from . import distributed as dx
 from .api import CountIndex, PositionIndex, PositionQualityIndex
 from .sorted_api import (SortedCountIndex, SortedPositionIndex,
                          SortedPositionQualityIndex)
 from .store import CountStore, MultiStore, RunCountStore, stack_run_stores
 
 __all__ = ["count_index_from_runs", "sorted_count_index_from_state",
-           "position_index_from_state", "sorted_position_index_from_state"]
+           "position_index_from_state", "sorted_position_index_from_state",
+           "debruijn_graph_from_state"]
 
 
 def count_index_from_runs(runs, spec: KmerSpec, device="cuda",
@@ -128,3 +133,29 @@ def sorted_position_index_from_state(keys, val_hi, val_lo, val_q, sizes,
     idx._has_q = with_quality or bool(idx.store.val_q.any())
     idx.splitters = from_numpy_u32(np.asarray(splitters)[0], idx.device)
     return idx
+
+
+def debruijn_graph_from_state(keys, ebytes, weights, qsums=None, *,
+                              spec: KmerSpec, device="cuda", canonical=True,
+                              hash_name: str = "murmur",
+                              saturate: int | None = None):
+    """Port DeBruijnGraph (QualityDeBruijnGraph when `qsums` is given) of p
+    shards holding the rows of one JAX graph run: keys uint32[p, w, cap]
+    (sorted per shard, sentinel padded), ebytes int32[p, cap], weights
+    int32[p, cap], qsums float32[p, cap] — ``np.asarray`` of a run's fields
+    (``g.runs[0]`` after a consolidating call such as ``size()``).  Each
+    shard's rows stay on their shard as one weighted run (the JAX graph
+    must use the same `hash_name`), its counter table built at once."""
+    keys = np.asarray(keys, dtype=np.uint32)
+    cls = DeBruijnGraph if qsums is None else QualityDeBruijnGraph
+    g = cls(spec, device, canonical=canonical, nparts=keys.shape[0],
+            hash_name=hash_name, saturate=saturate)
+
+    def put(a, dt):
+        return torch.from_numpy(np.array(a, dt)).to(g.device)
+
+    run = dx.run_vec_adopt_step(
+        from_numpy_u32(keys, g.device), put(ebytes, np.int32),
+        put(weights, np.int32),
+        None if qsums is None else put(qsums, np.float32))
+    return g.adopt_runs([run])

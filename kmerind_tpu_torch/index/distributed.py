@@ -1,5 +1,5 @@
 """Per-shard index steps of the hash-partitioned indexes: the run-layout
-count map and the multimap.
+count map, the multimap and the de Bruijn graphs' node stores.
 
 The port of ``kmerind_tpu.index.distributed``: each ``make_*_step``
 factory there returns a jitted ``shard_map`` program; here each step is a
@@ -19,10 +19,10 @@ from __future__ import annotations
 import torch
 
 from ..io.kmer_parsers import DeviceBases, extract_tuples
-from ..ops import hashing, sortops
+from ..ops import hashing, kernels, packing, sortops
 from ..ops.keys import SENTINEL
 from ..parallel import distribute as dist
-from ..quality import ILLUMINA18
+from ..quality import ILLUMINA18, window_quality
 from . import store as st
 
 __all__ = ["owners_for", "run_ingest_step", "run_insert_step",
@@ -34,7 +34,11 @@ __all__ = ["owners_for", "run_ingest_step", "run_insert_step",
            "multi_insert_step", "multi_aux_step", "multi_ingest_step",
            "multi_merge_step", "unique_size_step", "concat_pending",
            "multi_count_routed", "multi_find_routed", "multi_erase_routed",
-           "multi_filter_step", "multi_select_step"]
+           "multi_filter_step", "multi_select_step",
+           "debruijn_ingest_step", "run_vec_load_step", "run_vec_adopt_step",
+           "run_vec_merge_pair_step", "run_vec_table_step",
+           "run_vec_stats_step", "run_vec_compact_step", "run_vec_aux_step",
+           "runs_vec_query_step", "run_vec_export_step"]
 
 
 def owners_for(words: torch.Tensor, nparts: int, hash_name: str = "murmur",
@@ -382,3 +386,179 @@ def concat_pending(parts, with_q: bool):
         q = torch.cat([t[4].new_zeros(t[4].shape, dtype=torch.float32)
                        if t[3] is None else t[3] for t in parts], dim=1)
     return cat(0), cat(1), cat(2), q, cat(4)
+
+
+# ------------------------------------------------------ de Bruijn node stores
+def _sorted_edge_runs(rw, pays, rvalid, spec, nparts: int):
+    """Each shard's routed (key, payload columns) rows ([p, n, ...]) sorted
+    into an adoptable run: (key columns [p, w, n], sentinel keys after the
+    valid rows; the payloads [p, n] in the same order, 0 on the dead rows;
+    the valid flags [p, n])."""
+    cols, out, valid = [], [[] for _ in pays], []
+    for s in range(nparts):
+        c, s_pays, s_valid = sortops.sort_rows(
+            rw[s], tuple(p[s] for p in pays), rvalid[s], is_stable=False,
+            sentinel_ok=spec.sentinel_safe, as_cols=True)
+        if not spec.sentinel_safe:
+            c = torch.where(s_valid[None, :], c, SENTINEL)
+        cols.append(c)
+        valid.append(s_valid)
+        for o, x in zip(out, s_pays):
+            o.append(torch.where(s_valid, x, 0))
+    return st.stack(cols), [st.stack(o) for o in out], st.stack(valid)
+
+
+def debruijn_ingest_step(bases: DeviceBases, spec, canonical: bool,
+                         nparts: int, capacity: int | None,
+                         hash_name: str = "murmur", raw: bool = True,
+                         codec=None):
+    """De Bruijn ingest of per-base tensors [p, L] (the JAX package's
+    ``make_debruijn_run_ingest_step`` and its quality twin): per shard,
+    the k-mer codes (raw=True: the k-mer alphabet's LUT gathered over the
+    raw ASCII bytes, so 'N' reads as code 0 under DNA and the window stays
+    valid), K1 (`kernels.extract_canonical`; the forward k-mers when not
+    canonical), `window_valid & owned`, the edge bytes (DNA16 nibbles of
+    the raw bytes, 'N' -> 0xF) reverse-complemented where K1 took the
+    reverse strand and, with a `codec` (the quality graph), each window's
+    quality; then the owner exchange with the edge byte (and the quality
+    bits) as payload columns and one sort per shard.
+
+    Returns (key columns int32[p, w, n], edge bytes int32[p, n], weights
+    int32[p, n], quality sums float32[p, n] or None, overflow): a sorted
+    UNIT run per shard."""
+    # imported here: the debruijn package imports the index modules
+    from ..debruijn.edges import edge_bytes_for_windows, revcomp_edge_byte
+    lut = (torch.tensor(spec.alphabet.from_ascii, device=bases.codes.device)
+           if raw else None)
+    words, edges, quals, wvalid = [], [], [], []
+    for s in range(bases.codes.shape[0]):
+        b = bases.shard(s)
+        kcodes = lut[b.codes.to(torch.int64)] if raw else b.codes
+        if canonical:
+            w, was_rc = kernels.extract_canonical(kcodes, spec)
+        else:
+            w = packing.extract_kmers(kcodes, spec)
+            was_rc = torch.zeros(kcodes.shape[0], dtype=torch.bool,
+                                 device=kcodes.device)
+        e = edge_bytes_for_windows(b.codes, b.valid, b.seg_id, spec.k,
+                                   spec.alphabet, raw=raw)
+        words.append(w)
+        edges.append(torch.where(was_rc, revcomp_edge_byte(e), e)
+                     .to(torch.int32))
+        wvalid.append(packing.window_valid(b.valid, b.seg_id, spec.k)
+                      & b.owned)
+        if codec is not None:
+            quals.append(window_quality(b.qual, spec.k, codec).view(
+                torch.int32))
+    words = st.stack(words)
+    cols = (words, st.stack(edges)) + ((st.stack(quals),) if quals else ())
+    owner = owners_for(words, nparts, hash_name)
+    (rw, *pays), rvalid, route = dist.distribute(
+        cols, owner, st.stack(wvalid), nparts, capacity)
+    kc, pays, valid = _sorted_edge_runs(rw, pays, rvalid, spec, nparts)
+    qs = pays[1].view(torch.float32) if quals else None
+    return kc, pays[0], valid.to(torch.int32), qs, route.overflow
+
+
+def run_vec_load_step(words, ebytes, weights, qsums, valid, nparts: int,
+                      capacity: int | None, spec, hash_name: str = "murmur"):
+    """Explicit (node, edge byte, weight[, quality sum]) rows [p, m, ...]
+    (a saved graph's rows): route to their owners and sort each shard's
+    into an adoptable WEIGHTED run.  Returns (key columns [p, w, n], edge
+    bytes [p, n], weights [p, n], quality sums [p, n] or None,
+    overflow)."""
+    cols = (words, ebytes, weights) + (
+        () if qsums is None else (qsums.to(torch.float32).view(torch.int32),))
+    owner = owners_for(words, nparts, hash_name)
+    (rw, *pays), rvalid, route = dist.distribute(cols, owner, valid, nparts,
+                                                 capacity)
+    kc, pays, _ = _sorted_edge_runs(rw, pays, rvalid, spec, nparts)
+    qs = pays[2].view(torch.float32) if qsums is not None else None
+    return kc, pays[0], pays[1], qs, route.overflow
+
+
+def run_vec_adopt_step(words, ebytes, weights, qsums=None,
+                       unit: bool = False, table: bool = True):
+    """Adopt a sorted edge run per shard (words [p, w, n], the rest [p, n];
+    qsums for the quality graph) as a stacked store: unit=True (file
+    ingest) with the closed-form weights, table=False a LAZY run."""
+    out = []
+    for s in range(words.shape[0]):
+        if qsums is None:
+            adopt = st.run_vec_from_sorted_unit if unit \
+                else st.run_vec_from_sorted
+            out.append(adopt(words[s], ebytes[s], weights[s], table=table))
+        else:
+            adopt = st.run_vecq_from_sorted_unit if unit \
+                else st.run_vecq_from_sorted
+            out.append(adopt(words[s], ebytes[s], weights[s], qsums[s],
+                             table=table))
+    return st.stack_stores(out)
+
+
+def run_vec_merge_pair_step(a, b, unit: bool = False, table: bool = True):
+    """Merge two stacked edge runs shard by shard (the LSM level merge):
+    K2 with the edge byte (and quality bits) for two UNIT runs, with the
+    weights too otherwise; table=False leaves the output LAZY."""
+    merge = st.run_vec_merge_unit if unit else st.run_vec_merge
+    return st.stack_stores([merge(a.shard(s), b.shard(s), table=table)
+                            for s in range(a.keys.shape[0])])
+
+
+def run_vec_table_step(store, unit: bool = False):
+    """A LAZY stacked run with its tables built on every shard (a UNIT run's
+    with the closed-form self stream)."""
+    return st.stack_stores([st.run_vec_with_table(sh, unit)
+                            for sh in _shards(store)])
+
+
+def run_vec_stats_step(store) -> list[int]:
+    """Distinct live nodes per shard."""
+    return [int(st.run_vec_distinct(sh)) for sh in _shards(store)]
+
+
+def run_vec_compact_step(store, new_cap: int):
+    """(compacted stacked store, the largest shard overflow) — see
+    store.run_vec_compact."""
+    out = [st.run_vec_compact(sh, new_cap) for sh in _shards(store)]
+    return st.stack_stores([o[0] for o in out]), max(o[1] for o in out)
+
+
+def run_vec_aux_step(store) -> list:
+    """Each shard's query-aux metadata of one run (store.run_vec_query_aux)."""
+    return [st.run_vec_query_aux(sh) for sh in _shards(store)]
+
+
+def runs_vec_query_step(queries: torch.Tensor, qvalid: torch.Tensor, runs,
+                        aux, nparts: int = 1, capacity: int | None = None,
+                        hash_name: str = "murmur",
+                        saturate: int | None = None):
+    """Node query over a list of edge runs (the node_counts surface,
+    de_bruijn_node_trait.hpp:186-280): route once, look up in each run,
+    sum, clamp at `saturate`, reply.  queries [p, m, w], qvalid [p, m];
+    aux: each run's per-shard aux.  Returns (counters int32[p, m, 9],
+    quality sums float64[p, m] — None unless the runs are quality stores
+    —, overflow)."""
+    owner = owners_for(queries, nparts, hash_name)
+    (rq,), rvalid, route = dist.distribute((queries,), owner, qvalid, nparts,
+                                           capacity)
+    counts, qsums = [], []
+    for s in range(nparts):
+        parts = [st.run_vec_lookup(run.shard(s), rq[s], run_aux[s])
+                 for run, run_aux in zip(runs, aux)]
+        total = sum(c for c, _ in parts)
+        if saturate is not None:
+            total = total.clamp(max=saturate)
+        counts.append(torch.where(rvalid[s][:, None], total, 0))
+        if parts[0][1] is not None:
+            qsums.append(torch.where(rvalid[s], sum(q for _, q in parts),
+                                     0.0))
+    back = dist.undistribute((st.stack(counts),) + (
+        (st.stack(qsums),) if qsums else ()), route, nparts, capacity)
+    return back[0], back[1] if qsums else None, route.overflow
+
+
+def run_vec_export_step(store, saturate: int | None = None) -> list:
+    """Per shard, (keys int32[t, w], counters int32[t, 9], quality sums
+    float64[t] or None) of every node (store.run_vec_export)."""
+    return [st.run_vec_export(sh, saturate) for sh in _shards(store)]

@@ -52,7 +52,14 @@ __all__ = ["CountStore", "empty_count_store", "stack_count_stores",
            "multi_lookup_ranges_aux", "multi_lookup_ranges", "multi_count",
            "multi_gather", "multi_keep", "multi_erase", "multi_filter",
            "multi_select",
-           "multi_distinct"]
+           "multi_distinct",
+           "RunVecStore", "RunVecQStore", "empty_run_vec_store",
+           "empty_run_vecq_store", "stack_stores", "run_vec_from_sorted",
+           "run_vec_from_sorted_unit", "run_vec_merge", "run_vec_merge_unit",
+           "run_vecq_from_sorted", "run_vecq_from_sorted_unit",
+           "run_vecq_merge", "run_vecq_merge_unit", "run_vec_with_table",
+           "run_vec_distinct", "run_vec_query_aux", "run_vec_lookup",
+           "run_vec_export", "run_vec_compact", "run_vec_grow"]
 
 
 def stack(ts) -> torch.Tensor:
@@ -562,19 +569,24 @@ def multi_merge_flush_flagged(store: MultiStore, words, val_hi, val_lo,
     return _cut(store, keys, m_pays, total, q)
 
 
-def multi_query_aux(store: MultiStore, tbits: int = 16):
-    """Per-store-version query metadata: (ext int32[w + 1, cap] — the key
-    columns plus each row's key-run length, bstart int32[2^tbits + 1] —
-    prefix-bucket starts of word 0).  Run lengths come from the head flags
-    through a cumsum and gathers (the JAX package's cummax / cummin pair is
-    a slow single-block scan on CUDA)."""
-    cap = store.capacity
-    neq_prev, neq_next = _adjacent_neq(store.keys)
-    idx = torch.arange(cap, device=store.keys.device)
+def _runlen_aux(kcols: torch.Tensor, tbits: int = 16):
+    """Query metadata of sorted key columns [w, cap]: (ext int32[w + 1,
+    cap] — the key columns plus each row's key-run length, bstart
+    int32[2^tbits + 1] — prefix-bucket starts of word 0).  Run lengths come
+    from the head flags through a cumsum and gathers (the JAX package's
+    cummax / cummin pair is a slow single-block scan on CUDA)."""
+    cap = kcols.shape[1]
+    neq_prev, neq_next = _adjacent_neq(kcols)
+    idx = torch.arange(cap, device=kcols.device)
     run_id = torch.cumsum(neq_prev, 0) - 1
     runlen = ((idx + 1)[neq_next] - idx[neq_prev])[run_id]
-    ext = torch.cat([store.keys, runlen.to(torch.int32)[None]])
-    return ext, sortops._prefix_starts(store.keys[0], tbits)
+    ext = torch.cat([kcols, runlen.to(torch.int32)[None]])
+    return ext, sortops._prefix_starts(kcols[0], tbits)
+
+
+def multi_query_aux(store: MultiStore, tbits: int = 16):
+    """Per-store-version query metadata (`_runlen_aux` of the keys)."""
+    return _runlen_aux(store.keys, tbits)
 
 
 def multi_lookup_ranges_aux(store: MultiStore, ext: torch.Tensor,
@@ -692,3 +704,322 @@ def multi_distinct(store: MultiStore) -> torch.Tensor:
     neq_prev, _ = _adjacent_neq(store.keys)
     live = torch.arange(store.capacity, device=store.keys.device) < store.size
     return (neq_prev & live).sum()
+
+
+# --------------------------------------------------- de Bruijn node stores
+@dataclasses.dataclass
+class RunVecStore:
+    """De Bruijn node store in RUN layout (``kmerind_tpu.index.store.
+    RunVecStore``): keys sorted over all rows with duplicates allowed,
+    per-row (edge byte, weight) payloads and a [9, cap] INCLUSIVE
+    prefix-sum table of the counter contributions, one stream per counter.
+
+    Row i adds ``weights[i] * bit_j(ebytes[i])`` to counter j (j < 8: out
+    A, C, G, T, in A, C, G, T — one increment per set DNA16 bit,
+    edge_counts::update, de_bruijn_node_trait.hpp:195-245) and
+    ``weights[i]`` to the self counter (j = 8); a node's counters are the
+    table's difference across its key run.  Padding rows hold the all-ones
+    sentinel with weight 0 and edge byte 0 (weight-0 rows change no
+    counter).
+
+    One shard: keys int32[w, cap] (uint32 words, column-major), ebytes /
+    weights int32[cap], bsum int32[9, cap] — or None on a LAZY run (an
+    intermediate LSM run; `run_vec_with_table` builds it when a query,
+    export or save needs it).  p shards stack [p, ...] (`stack_stores`)."""
+
+    keys: torch.Tensor
+    ebytes: torch.Tensor
+    weights: torch.Tensor
+    bsum: torch.Tensor | None
+
+    @property
+    def capacity(self) -> int:
+        return self.keys.shape[-1]
+
+    def shard(self, s: int):
+        return type(self)(**{f.name: None if getattr(self, f.name) is None
+                             else getattr(self, f.name)[s]
+                             for f in dataclasses.fields(self)})
+
+
+@dataclasses.dataclass
+class RunVecQStore(RunVecStore):
+    """`RunVecStore` with each row's windowed-quality sum (qsums
+    float32[cap]) and its INCLUSIVE prefix sum (qcsum, None on a lazy run)
+    — the quality de Bruijn graph's node store.  The JAX package keeps
+    qcsum in float32: a node's sum is the difference of two prefixes whose
+    float32 spacing grows with the run's total until it rivals the node's
+    sum; the port keeps it in float64."""
+
+    qsums: torch.Tensor
+    qcsum: torch.Tensor | None
+
+
+def stack_stores(stores):
+    """Per-shard stores of one kind and capacity -> the stacked [p, ...]
+    store (a lazy run's None tables stay None)."""
+    first = stores[0]
+    return type(first)(**{
+        f.name: None if getattr(first, f.name) is None
+        else stack([getattr(x, f.name) for x in stores])
+        for f in dataclasses.fields(first)})
+
+
+def empty_run_vec_store(capacity: int, nwords: int, device) -> RunVecStore:
+    zeros = torch.zeros(capacity, dtype=torch.int32, device=device)
+    return RunVecStore(
+        keys=torch.full((nwords, capacity), SENTINEL, dtype=torch.int32,
+                        device=device),
+        ebytes=zeros, weights=zeros.clone(),
+        bsum=torch.zeros((9, capacity), dtype=torch.int32, device=device))
+
+
+def empty_run_vecq_store(capacity: int, nwords: int, device) -> RunVecQStore:
+    base = empty_run_vec_store(capacity, nwords, device)
+    return RunVecQStore(
+        **vars(base),
+        qsums=torch.zeros(capacity, dtype=torch.float32, device=device),
+        qcsum=torch.zeros(capacity, dtype=torch.float64, device=device))
+
+
+def _vec_bsum(ebytes: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """int32[9, cap] inclusive prefix sums of the rows' counter
+    contributions: nine K3 launches, one per stream."""
+    cols = [_cumsum_i32(((ebytes >> j) & 1) * weights) for j in range(8)]
+    return torch.stack(cols + [_cumsum_i32(weights)])
+
+
+def _vec_bsum_unit(ebytes: torch.Tensor, n_live) -> torch.Tensor:
+    """[9, cap] table of a UNIT run (weight 1 per live row, the live rows
+    first, dead rows with edge byte 0): eight K3 launches over the bit
+    streams, no weight multiply, and the closed-form self stream
+    min(i + 1, n_live)."""
+    n = ebytes.shape[0]
+    cols = [_cumsum_i32((ebytes >> j) & 1) for j in range(8)]
+    idx = torch.arange(1, n + 1, dtype=torch.int32, device=ebytes.device)
+    return torch.stack(cols + [torch.minimum(idx, n_live.to(torch.int32))])
+
+
+def _qcsum(qsums: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(qsums.to(torch.float64), 0)
+
+
+def run_vec_from_sorted(kcols, ebytes, weights,
+                        table: bool = True) -> RunVecStore:
+    """Adopt an already-sorted (sentinel-padded) weighted edge run; its
+    table is built now (K3) or, table=False, deferred."""
+    eb, wt = ebytes.to(torch.int32), weights.to(torch.int32)
+    return RunVecStore(keys=kcols, ebytes=eb, weights=wt,
+                       bsum=_vec_bsum(eb, wt) if table else None)
+
+
+def run_vecq_from_sorted(kcols, ebytes, weights, qsums,
+                         table: bool = True) -> RunVecQStore:
+    """`run_vec_from_sorted` with the quality sums."""
+    qs = qsums.to(torch.float32)
+    return RunVecQStore(**vars(run_vec_from_sorted(kcols, ebytes, weights,
+                                                   table)),
+                        qsums=qs, qcsum=_qcsum(qs) if table else None)
+
+
+def _unit_run(kcols, ebytes, n_live, table: bool) -> RunVecStore:
+    """A UNIT edge run: weight 1 on the first n_live rows."""
+    eb = ebytes.to(torch.int32)
+    n = kcols.shape[1]
+    live = torch.arange(n, device=kcols.device) < n_live
+    return RunVecStore(keys=kcols, ebytes=eb, weights=live.to(torch.int32),
+                       bsum=_vec_bsum_unit(eb, n_live) if table else None)
+
+
+def run_vec_from_sorted_unit(kcols, ebytes, weights,
+                             table: bool = True) -> RunVecStore:
+    """Adopt a sorted UNIT edge run (file-ingest output: weight 1 per live
+    row, sentinel tail, dead edge bytes 0)."""
+    return _unit_run(kcols, ebytes, weights.to(torch.int32).sum(), table)
+
+
+def run_vecq_from_sorted_unit(kcols, ebytes, weights, qsums,
+                              table: bool = True) -> RunVecQStore:
+    """`run_vec_from_sorted_unit` with the quality sums (0.0 on dead
+    rows)."""
+    qs = qsums.to(torch.float32)
+    return RunVecQStore(**vars(run_vec_from_sorted_unit(kcols, ebytes,
+                                                        weights, table)),
+                        qsums=qs, qcsum=_qcsum(qs) if table else None)
+
+
+def run_vec_merge(a: RunVecStore, b: RunVecStore,
+                  table: bool = True) -> RunVecStore:
+    """Merge two edge runs: K2 with the edge byte and the weight as its 2
+    payloads (3 with the quality bits), then the tables (K3) unless
+    table=False.  Capacity next_pow2(cap_a + cap_b)."""
+    q = isinstance(a, RunVecQStore)
+    pays = lambda r: (r.ebytes, r.weights) + (  # noqa: E731
+        (_qbits(r.qsums),) if q else ())
+    keys, m = sortops.merge_sorted_runs_cols(a.keys, pays(a), b.keys, pays(b))
+    if q:
+        return run_vecq_from_sorted(keys, m[0], m[1],
+                                    m[2].view(torch.float32), table)
+    return run_vec_from_sorted(keys, m[0], m[1], table)
+
+
+def run_vec_merge_unit(a: RunVecStore, b: RunVecStore,
+                       table: bool = True) -> RunVecStore:
+    """Merge two UNIT edge runs: the weight column does not ride K2 (1
+    payload, the edge byte; 2 with the quality bits); the weights and the
+    self stream come back in closed form from the operands' live totals
+    (the sums of their weights)."""
+    q = isinstance(a, RunVecQStore)
+    pays = lambda r: (r.ebytes,) + (  # noqa: E731
+        (_qbits(r.qsums),) if q else ())
+    keys, m = sortops.merge_sorted_runs_cols(a.keys, pays(a), b.keys, pays(b))
+    run = _unit_run(keys, m[0], a.weights.sum() + b.weights.sum(), table)
+    if not q:
+        return run
+    qs = m[1].view(torch.float32)
+    return RunVecQStore(**vars(run), qsums=qs,
+                        qcsum=_qcsum(qs) if table else None)
+
+
+def run_vec_with_table(store: RunVecStore, unit: bool = False) -> RunVecStore:
+    """A LAZY run with its tables built: nine K3 launches, eight for a UNIT
+    run (its self stream in closed form; the JAX package's lazy tables
+    always take nine); a run that has them comes back as it is."""
+    if store.bsum is not None:
+        return store
+    bsum = (_vec_bsum_unit(store.ebytes, store.weights.sum()) if unit
+            else _vec_bsum(store.ebytes, store.weights))
+    fields = dict(vars(store), bsum=bsum)
+    if isinstance(store, RunVecQStore):
+        fields["qcsum"] = _qcsum(store.qsums)
+    return type(store)(**fields)
+
+
+def _run_bounds(kcols: torch.Tensor):
+    """(heads int64[r], lasts int64[r]): the first and last row of every
+    run of equal keys, in order."""
+    neq_prev, neq_next = _adjacent_neq(kcols)
+    return torch.nonzero(neq_prev).squeeze(1), torch.nonzero(neq_next).squeeze(1)
+
+
+def _diff_at(incl: torch.Tensor, heads, lasts) -> torch.Tensor:
+    """Sum over each run [head, last] of the stream whose inclusive prefix
+    is `incl` ([..., cap]): incl at the last row minus incl before the
+    head (0 at row 0)."""
+    before = incl[..., (heads - 1).clamp(min=0)]
+    return incl[..., lasts] - torch.where(heads > 0, before, 0)
+
+
+def run_vec_distinct(store: RunVecStore) -> torch.Tensor:
+    """0-d: distinct keys with a positive total weight (the graph's node
+    count).  Weights are never negative, so a key counts when a row of its
+    run is live: no table needed (a consolidated run may never need
+    one)."""
+    heads, lasts = _run_bounds(store.keys)
+    live = torch.cumsum(store.weights > 0, 0, dtype=torch.int32)
+    return (_diff_at(live, heads, lasts) > 0).sum()
+
+
+def run_vec_query_aux(store: RunVecStore, tbits: int = 16):
+    """Per-run query metadata (`_runlen_aux` of the keys)."""
+    return _runlen_aux(store.keys, tbits)
+
+
+def run_vec_lookup(store: RunVecStore, queries: torch.Tensor, aux=None):
+    """(counts int32[m, 9], qsum float64[m] or None) per query key row
+    [m, w], zeros where absent: one bucket-seeded lower_bound, the run
+    length from the aux row, and one [9, 2m] gather of the table at both
+    run bounds.  qsum: the quality sums' difference likewise (a quality
+    store), else None.  aux: the run's `run_vec_query_aux`, if cached."""
+    ext, bstart = run_vec_query_aux(store) if aux is None else aux
+    w, cap = store.keys.shape
+    m = queries.shape[0]
+    lo = sortops.lower_bound_cols_prebuilt(ext, w, bstart, queries)
+    g = ext[:, lo.clamp(0, cap - 1)]
+    hit = lo < cap
+    for j in range(w):
+        hit &= g[j] == queries[:, j]
+    hi = torch.where(hit, torch.clamp(lo + g[w], max=cap), 0)
+    bounds = torch.cat([torch.where(hit, lo, 0), hi])
+    at = (bounds - 1).clamp(min=0)
+
+    def diff(table):
+        v = torch.where(bounds > 0, table[..., at], 0)
+        return v[..., m:] - v[..., :m]
+
+    counts = torch.where(hit[:, None], diff(store.bsum).t(), 0)
+    qsum = None
+    if isinstance(store, RunVecQStore):
+        qsum = torch.where(hit, diff(store.qcsum), 0.0)
+    return counts, qsum
+
+
+def run_vec_export(store: RunVecStore, saturate: int | None = None):
+    """(keys int32[t, w], counters int32[t, 9], qsum float64[t] or None):
+    every distinct key with a positive self total, in key order, its 9
+    counters summed over its rows (clamped at `saturate`); qsum the
+    quality sum of a quality store."""
+    heads, lasts = _run_bounds(store.keys)
+    totals = _diff_at(store.bsum, heads, lasts)
+    emit = totals[8] > 0
+    if saturate is not None:
+        totals = totals.clamp(max=saturate)
+    qsum = None
+    if isinstance(store, RunVecQStore):
+        qsum = _diff_at(store.qcsum, heads, lasts)[emit]
+    return store.keys[:, lasts[emit]].t(), totals[:, emit].t(), qsum
+
+
+def run_vec_compact(store: RunVecStore, new_cap: int):
+    """Collapse equal (key, edge byte) rows into one weighted row (summing
+    the quality sums too), live rows first in key order, at capacity
+    `new_cap`, as a LAZY run.  The run is sorted by key already, so one
+    int64 sort of (key run index << 8 | edge byte) groups the rows (dead
+    rows last), and each group's sums are differences of prefix sums at
+    its bounds.  Returns (new_store, overflow = groups - new_cap when
+    positive: the store is then cut and the caller retries larger)."""
+    w = store.keys.shape[0]
+    dev = store.keys.device
+    neq_prev, _ = _adjacent_neq(store.keys)
+    live = store.weights > 0
+    group = (torch.cumsum(neq_prev, 0) << 8) | store.ebytes.to(torch.int64)
+    group, order = torch.sort(torch.where(live, group,
+                                          torch.iinfo(torch.int64).max))
+    heads, lasts = _run_bounds(group[None])
+    keep = live[order[lasts]]
+    n_emit = int(keep.sum())
+    heads, lasts = heads[keep][:new_cap], lasts[keep][:new_cap]
+    src = order[lasts]
+    n = src.shape[0]
+    keys = torch.full((w, new_cap), SENTINEL, dtype=torch.int32, device=dev)
+    keys[:, :n] = store.keys[:, src]
+    eb = torch.zeros(new_cap, dtype=torch.int32, device=dev)
+    eb[:n] = store.ebytes[src]
+    wt = torch.zeros_like(eb)
+    wt[:n] = _diff_at(torch.cumsum(store.weights[order], 0), heads,
+                      lasts).to(torch.int32)
+    ovf = max(n_emit - new_cap, 0)
+    if not isinstance(store, RunVecQStore):
+        return run_vec_from_sorted(keys, eb, wt, table=False), ovf
+    qs = torch.zeros(new_cap, dtype=torch.float32, device=dev)
+    qs[:n] = _diff_at(_qcsum(store.qsums[order]), heads, lasts).to(
+        torch.float32)
+    return run_vecq_from_sorted(keys, eb, wt, qs, table=False), ovf
+
+
+def run_vec_grow(store: RunVecStore, pad: int) -> RunVecStore:
+    """The run (one shard or stacked, with its tables) with `pad` more
+    rows: sentinel keys of weight 0, the prefix sums carried flat."""
+    pad_ = torch.nn.functional.pad
+
+    def flat(t):
+        return torch.cat([t, t[..., -1:].expand(t.shape[:-1] + (pad,))], -1)
+
+    fields = dict(vars(store), keys=pad_(store.keys, (0, pad), value=SENTINEL),
+                  ebytes=pad_(store.ebytes, (0, pad)),
+                  weights=pad_(store.weights, (0, pad)),
+                  bsum=flat(store.bsum))
+    if isinstance(store, RunVecQStore):
+        fields.update(qsums=pad_(store.qsums, (0, pad)),
+                      qcsum=flat(store.qcsum))
+    return type(store)(**fields)

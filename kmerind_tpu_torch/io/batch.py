@@ -134,21 +134,25 @@ class ReadBatch:
             qual=self.qual[start:stop],
         )
 
-    def iter_chunks(self, chunk_bases: int, halo: int):
-        """Yield base-stream chunks of ~chunk_bases with `halo` lookahead;
-        window ownership masks guarantee each window appears exactly once.
+    def iter_chunks(self, chunk_bases: int, halo: int, halo_left: int = 0):
+        """Yield base-stream chunks of ~chunk_bases with `halo` lookahead
+        and `halo_left` bases of preceding context (de Bruijn edges need
+        1); window ownership masks guarantee each window appears exactly
+        once.
 
-        Every chunk is padded to the SAME static length (chunk_bases +
-        halo), so every chunk of every file has one shape — bounded device
-        memory for arbitrarily large inputs.
+        Every chunk is padded to the SAME static length (halo_left +
+        chunk_bases + halo), so every chunk of every file has one shape —
+        bounded device memory for arbitrarily large inputs.
         """
         n = self.num_bases
         start = 0
         while start < n:
             stop = min(n, start + chunk_bases)
-            sub = self.slice_bases(start, min(n, stop + halo)).pad_to(
-                chunk_bases + halo)
+            lo = max(0, start - halo_left)
+            sub = self.slice_bases(lo, min(n, stop + halo)).pad_to(
+                halo_left + chunk_bases + halo)
             owned = sub.owned.copy()
-            owned[stop - start:] = False
+            owned[:start - lo] = False
+            owned[stop - lo:] = False
             yield dataclasses.replace(sub, owned=owned)
             start = stop

@@ -268,12 +268,14 @@ def read_fasta_block(
     nparts: int,
     file_id: int = 0,
     halo: int = 0,
+    halo_left: int = 0,
     reuse: bool = False,
 ) -> ReadBatch:
     """Parse the FASTA sequence bases within byte block `part` of `nparts`,
     plus `halo` following bases (k-1 overlap so windows crossing the block
     boundary are produced exactly once, by the left owner —
-    kmer_file_helper.hpp:361, file.hpp:1264-1295).
+    kmer_file_helper.hpp:361, file.hpp:1264-1295) and `halo_left`
+    preceding bases (the de Bruijn edges' left context, not owned).
 
     Record context for a block that begins mid-sequence comes from the
     cached whole-file header table (`fasta_header_table`).  Only
@@ -303,6 +305,11 @@ def read_fasta_block(
     # align the parse start to a line boundary at or before bs, learning
     # whether the line just before it is a header line (run context)
     ps, prev_hdr = _line_context_before(path, bs)
+    # left-context bases (edge_iterator.hpp:56): step the parse start back
+    # one line at a time until bases precede bs (a header line stops the
+    # walk — the left context then does not exist, which seg_id handles)
+    while halo_left > 0 and ps >= bs and ps > 0 and not prev_hdr:
+        ps, prev_hdr = _line_context_before(path, ps - 1)
     leading = None if lead_abs >= ps else lead_abs
     # read the block plus slack until >= halo bases beyond be (or EOF)
     slack = max(halo * 2, 1 << 14)
@@ -337,8 +344,9 @@ def read_fasta_block(
     lo_i = int(np.searchsorted(pos, bs, side="left"))
     if lo_i >= cut:
         return batch.slice_bases(0, 0)
+    lo2 = max(lo_i - halo_left, 0)
     hi_i = min(cut + halo, batch.num_bases)
-    sub = batch.slice_bases(lo_i, hi_i)
-    owned = np.zeros(hi_i - lo_i, bool)
-    owned[:cut - lo_i] = True
+    sub = batch.slice_bases(lo2, hi_i)
+    owned = np.zeros(hi_i - lo2, bool)
+    owned[lo_i - lo2:cut - lo2] = True
     return dataclasses.replace(sub, owned=owned)

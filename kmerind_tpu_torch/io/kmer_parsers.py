@@ -8,7 +8,9 @@ masked, each window carrying its first base's 64-bit position id and, with
 `with_quality`, its windowed quality score.  Canonicalization on ingest (the
 ``lex_less`` InputTransform of the Canonical map presets,
 kmer_index.hpp:436-562) runs in the K1 kernel on the device
-(``ops/kernels.py::extract_canonical``).
+(``ops/kernels.py::extract_canonical``); the ``lex_greater`` and
+``xor_rev_comp`` transforms are torch ops on the same device, as the JAX
+package computes them in XLA outside its Pallas kernel.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from ..kmer import KmerSpec
 from ..ops import kernels, packing
 from ..quality import ILLUMINA18, QualityCodec, window_quality
 
-__all__ = ["DeviceBases", "KmerTuples", "extract_tuples", "transform_name"]
+__all__ = ["DeviceBases", "KmerTuples", "TRANSFORMS", "extract_tuples",
+           "transform_name"]
 
 
 @dataclasses.dataclass
@@ -57,15 +60,16 @@ class KmerTuples:
     qual: torch.Tensor | None = None   # float32[n] windowed quality
 
 
+TRANSFORMS = ("single", "lex_less", "lex_greater", "xor_rev_comp")
+
+
 def transform_name(canonical) -> str:
     """InputTransform name (kmer_transform.hpp:90-145) of a `canonical`
-    argument: a bool (Canonical / SingleStrand preset) or a name.  The port
-    has "lex_less" and "single"; "lex_greater" and "xor_rev_comp" are
-    still to be ported."""
+    argument: a bool (Canonical / SingleStrand preset) or one of
+    `TRANSFORMS`."""
     t = {False: "single", True: "lex_less"}.get(canonical, canonical)
-    if t not in ("lex_less", "single"):
-        raise NotImplementedError(
-            f"transform {t!r} is not ported yet (ROADMAP queue 1, item 3)")
+    if t not in TRANSFORMS:
+        raise ValueError(f"unknown transform {t!r}")
     return t
 
 
@@ -76,10 +80,14 @@ def extract_tuples(bases: DeviceBases, spec: KmerSpec, canonical=True,
     stack): window pack, canonicalize, validity mask; the bases' id
     columns ride along, and with `with_quality` each window's quality
     (`quality.window_quality` of the phred bytes under `codec`)."""
-    if transform_name(canonical) == "lex_less":
+    t = transform_name(canonical)
+    if t == "lex_less":
         words, strand = kernels.extract_canonical(bases.codes, spec)
+    elif t == "lex_greater":
+        words, strand = packing.extract_canonical_greater(bases.codes, spec)
     else:
-        words = packing.extract_kmers(bases.codes, spec)
+        words = (packing.extract_xor_rev_comp if t == "xor_rev_comp"
+                 else packing.extract_kmers)(bases.codes, spec)
         strand = torch.zeros(bases.codes.shape[0], dtype=torch.bool,
                              device=bases.codes.device)
     wvalid = packing.window_valid(bases.valid, bases.seg_id, spec.k) \

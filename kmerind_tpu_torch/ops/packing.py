@@ -25,7 +25,8 @@ from ..kmer import KmerSpec
 from .keys import biased
 
 __all__ = ["extract_kmers", "extract_revcomp", "extract_canonical",
-           "lex_less", "window_valid"]
+           "extract_canonical_greater", "extract_xor_rev_comp", "lex_less",
+           "window_valid"]
 
 _U32 = 0xFFFFFFFF
 
@@ -123,6 +124,28 @@ def extract_canonical(codes: torch.Tensor, spec: KmerSpec):
     less = torch.zeros(codes.shape[0], dtype=torch.bool, device=codes.device)
     for j in reversed(range(spec.nwords)):
         less = torch.where(rc[:, j] != fwd[:, j], rc[:, j] < fwd[:, j], less)
+    return torch.where(less[:, None], rc, fwd).to(torch.int32), less
+
+
+def extract_xor_rev_comp(codes: torch.Tensor, spec: KmerSpec) -> torch.Tensor:
+    """int32[n, nwords]: kmer XOR revcomp(kmer) at every window — the
+    xor_rev_comp transform (kmer_transform.hpp:91-106), a strand-neutral
+    key that collides strands.  Rows past n-k are garbage."""
+    return (_window_words(codes, spec) ^ _revcomp_words(codes, spec)).to(
+        torch.int32)
+
+
+def extract_canonical_greater(codes: torch.Tensor, spec: KmerSpec):
+    """(max(kmer, revcomp(kmer)) int32[n, nwords], was_rc bool[n]) — the
+    lex_greater transform (kmer_transform.hpp:128-145); `was_rc` marks
+    windows where the reverse complement was the larger strand.  Rows past
+    n-k are garbage.  No kernel: the JAX package computes it in XLA too."""
+    fwd = _window_words(codes, spec)
+    rc = _revcomp_words(codes, spec)
+    # int64 words hold uint32 values: signed order is word order
+    less = torch.zeros(codes.shape[0], dtype=torch.bool, device=codes.device)
+    for j in reversed(range(spec.nwords)):
+        less = torch.where(fwd[:, j] != rc[:, j], fwd[:, j] < rc[:, j], less)
     return torch.where(less[:, None], rc, fwd).to(torch.int32), less
 
 

@@ -7,8 +7,11 @@ shard's store as its own `torch.save` file, copied off the device one
 shard at a time, beside a JSON file of the index's config (the
 `IndexConfig` fields the JAX package's ``utils/checkpoint.py`` writes) and
 its shard count; `load_index` builds the index from that config and puts
-the shards back on the device as they were.  A count index consolidates to
-one run first (`_checkpoint_prepare`), a lazy index flushes.
+the shards back on the device as they were.  A count index or a de Bruijn
+graph consolidates to one run first (`_checkpoint_prepare`; the graph also
+builds its counter table), a lazy index flushes.  The config of a
+`QualityDeBruijnGraph` is a de Bruijn one (the JAX package's
+`IndexConfig` has no quality graph), and the meta file marks it.
 
 Restoring needs the shard count the checkpoint was written with, as in the
 JAX package.  The two packages' checkpoints are not interchangeable (the
@@ -23,7 +26,9 @@ import pathlib
 
 import torch
 
+from .. import quality
 from ..config import IndexConfig
+from ..debruijn import DeBruijnGraph, QualityDeBruijnGraph
 from ..index import api as hx
 from ..index import sorted_api as sx
 from ..index import store as st
@@ -41,7 +46,11 @@ def _config_of(idx) -> dict:
 
     cfg: dict = {"k": idx.spec.k, "alphabet": idx.spec.alphabet.name,
                  "canonical": idx.canonical}
-    if isinstance(idx, hx.CountIndex):
+    if isinstance(idx, DeBruijnGraph):
+        cfg.update(index="debruijn", hash_name=idx.hash_name, saturate=sat())
+        if isinstance(idx, QualityDeBruijnGraph):
+            cfg["quality_codec"] = idx.codec.name
+    elif isinstance(idx, hx.CountIndex):
         cfg.update(index="count", hash_name=idx.hash_name, saturate=sat())
     elif isinstance(idx, hx.PositionIndex):
         cfg.update(index="posqual" if idx.with_quality else "position",
@@ -59,8 +68,10 @@ def _config_of(idx) -> dict:
 
 
 def _store_of(idx):
-    """The stacked store a checkpoint holds: a count index's one run."""
-    return idx.runs[0] if isinstance(idx, hx.CountIndex) else idx.store
+    """The stacked store a checkpoint holds: a count index's or a graph's
+    one run."""
+    return (idx.runs[0] if isinstance(idx, (hx.CountIndex, DeBruijnGraph))
+            else idx.store)
 
 
 def save_index(idx, path) -> None:
@@ -82,7 +93,8 @@ def save_index(idx, path) -> None:
     if getattr(idx, "splitters", None) is not None:
         torch.save(idx.splitters.to("cpu", copy=True), path / "splitters.pt")
     meta = {"package": _PACKAGE, "format": 1, "config": _config_of(idx),
-            "nparts": idx.nparts}
+            "nparts": idx.nparts,
+            "quality_graph": isinstance(idx, QualityDeBruijnGraph)}
     (path / _META).write_text(json.dumps(meta))
 
 
@@ -104,12 +116,19 @@ def load_index(path, device="cuda", nparts: int | None = None):
     cfg = dict(meta["config"])
     if cfg.get("saturate", 0) == 0:
         cfg.pop("saturate", None)
-    idx = IndexConfig(**cfg).make_index(device=device, nparts=p)
+    if meta.get("quality_graph"):
+        c = IndexConfig(**cfg)
+        idx = QualityDeBruijnGraph(c.spec(), device, canonical=c.canonical,
+                                   nparts=p, hash_name=c.hash_name,
+                                   saturate=c.saturate,
+                                   codec=quality.by_name(c.quality_codec))
+    else:
+        idx = IndexConfig(**cfg).make_index(device=device, nparts=p)
     shards = [torch.load(path / f"shard_{s}.pt", map_location=idx.device,
                          weights_only=True) for s in range(p)]
     store = type(_store_of(idx))(**{
         name: st.stack([sh[name] for sh in shards]) for name in shards[0]})
-    if isinstance(idx, hx.CountIndex):
+    if isinstance(idx, (hx.CountIndex, DeBruijnGraph)):
         return idx.adopt_runs([store])
     idx.store = store
     if (path / "splitters.pt").exists():

@@ -9,9 +9,11 @@ tile boundary (and past the staged key words), lopsided, disjoint and
 sentinel runs, totals around the tile size, row-major runs (K2′); for the
 K3 scan sizes around its tile, look-back over many tiles, repeated calls,
 unaligned views; for K4 a run over 10,000 tiles, tv at a tile boundary,
-unaligned views, repeated calls), and the port's indexes on the card
-against the same index on the CPU: CountIndex (one shard, 4 hashed shards,
-k = 81 and 127), SortedCountIndex and the multimaps (k up to 128).
+unaligned views, repeated calls; the de Bruijn graphs' edge-byte payloads
+and 0 / 1 counter streams), and the port's indexes on the card against the
+same index on the CPU: CountIndex (one shard, 4 hashed shards, k = 81 and
+127), SortedCountIndex, the multimaps (k up to 128) and both de Bruijn
+graphs (k = 21 and 127, 1 and 4 shards).
 Exact equality throughout (qualities aside): everything else is integer,
 and the K2 merge keeps ties in the plain version's (stable) order.
 
@@ -744,3 +746,74 @@ def test_multimap_predicates_cuda_matches_cpu(dev, tmp_path):
                 idx.filter(lambda k, h, l, x: (k[:, 0] >> 31) == 0),
                 idx.size()]
         assert answers[dev] == answers["cpu"]
+
+
+# ------------------------------------------------------- the de Bruijn graphs
+@pytest.mark.parametrize("npay,na,nb", [
+    (1, 4 * MERGE_TILE - 1, 4 * MERGE_TILE + 1), (1, MERGE_TILE, MERGE_TILE),
+    (2, 5 * MERGE_TILE + 3, 3 * MERGE_TILE - 3), (2, 1, 2 * MERGE_TILE),
+    (1, 100_003, 99_997)])
+def test_merge_edge_byte_payloads(dev, npay, na, nb):
+    """The graph's merges: key ties across every tile edge, edge bytes
+    (0-255) as the one payload of a unit merge, (edge byte, weight) as 2:
+    bitwise equal to the plain (stable) merge."""
+    rng = np.random.default_rng(na + npay)
+    a, b = words_t(_tied_run(rng, 2, na, 0, 40)), words_t(
+        _tied_run(rng, 2, nb, 0, 40))
+
+    def pays(n):
+        eb = torch.from_numpy(rng.integers(0, 256, n).astype(np.int32))
+        wt = torch.from_numpy(rng.integers(1, 9, n).astype(np.int32))
+        return (eb, wt)[:npay]
+
+    pa, pb = pays(na), pays(nb)
+    want_k, want_p = kernels.merge_runs_cols_plain(a, pa, b, pb)
+    before = dict(kernels.K2_PAYLOAD_LAUNCHES)
+    got_k, got_p = kernels.merge_runs_cols(
+        a.to(dev), tuple(p.to(dev) for p in pa),
+        b.to(dev), tuple(p.to(dev) for p in pb))
+    torch.cuda.synchronize()
+    assert kernels.K2_PAYLOAD_LAUNCHES[npay] == before.get(npay, 0) + 1
+    assert torch.equal(got_k.cpu(), want_k)
+    assert all(torch.equal(g.cpu(), p) for g, p in zip(got_p, want_p))
+
+
+@pytest.mark.parametrize("n", [SCAN_TILE - 1, SCAN_TILE, SCAN_TILE + 1,
+                               3 * SCAN_TILE - 1, 3 * SCAN_TILE + 1,
+                               (1 << 22) + 5])
+@pytest.mark.parametrize("density", [0.0, 0.25, 1.0])
+def test_prefix_sum_bit_streams(dev, n, density):
+    """K3 on the graph's 0 / 1 counter streams around its tile size."""
+    rng = np.random.default_rng(n + int(density * 4))
+    x = torch.from_numpy((rng.random(n) < density).astype(np.int32))
+    got = kernels.prefix_sum_i32(x.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), kernels.prefix_sum_i32_plain(x))
+
+
+@pytest.mark.parametrize("k,p", [(21, 1), (21, 4), (127, 1), (127, 4)])
+def test_debruijn_graphs_cuda_match_cpu(dev, tmp_path, k, p):
+    """Both graphs built on the card (K1 per chunk, K2 unit and weighted
+    merges, K3 tables) answer as on the CPU; the quality sums agree at
+    rtol 1e-6 (float32 window qualities, float64 prefix sums)."""
+    path = tmp_path / "reads.fastq"
+    write_reads(path, 300, 160, 2500, seed=k + p, n_rate=0.01,
+                varied_quality=True)
+    spec = kp.KmerSpec(k, kp.DNA)
+    for cls in (kp.DeBruijnGraph, kp.QualityDeBruijnGraph):
+        g = {}
+        for d in ("cpu", dev):
+            g[d] = cls(spec, device=d, nparts=p, max_runs=2)
+            g[d].insert_batch(read_file(path, kp.ASCII), chunk_bases=6000)
+        want, got = g["cpu"].items(), g[dev].items()
+        for a, b in zip(got[:2], want[:2]):
+            np.testing.assert_array_equal(a, b)
+        if cls is kp.QualityDeBruijnGraph:
+            np.testing.assert_allclose(got[2], want[2], rtol=1e-6)
+        words = want[0][::7]
+        np.testing.assert_array_equal(g[dev].node_counts(words)[0],
+                                      g["cpu"].node_counts(words)[0])
+        for d in ("cpu", dev):
+            g[d].compact()
+            g[d].insert_batch(read_file(path, kp.ASCII), chunk_bases=6000)
+        np.testing.assert_array_equal(g[dev].items()[1], g["cpu"].items()[1])

@@ -174,10 +174,10 @@ def test_index_config_builds_the_port_families(cfg, cls):
 
 
 @pytest.mark.parametrize("cfg,item", [
-    ({"index": "debruijn"}, "item 14"),
     ({"strands": "bimolecule"}, "item 12"),
+    ({"strands": "bimolecule", "devices": 4}, "item 12"),
     ({"index": "value"}, "item 13"),
-    ({"strands": "lex_greater"}, "item 3"),
+    ({"index": "value", "distribution": "range"}, "item 13"),
 ])
 def test_index_config_names_missing_families(cfg, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -80,8 +80,11 @@ def test_phases_of_both_runs():
     calls = [fn() for fn in steps["p7"].values()]
     assert calls == [("build", "p.fastq"), ("count", "q"), ("count", "q"),
                      ("items",)]
+    calls = [fn() for fn in steps["p9"].values()]
+    assert calls == [("build", "p.fastq"), ("node_counts", "q"),
+                     ("node_counts", "q"), ("size",), ("compact",)]
     assert profile_p4.RUN_K == {"p4": 21, "p5": 21, "p6": 21, "p7": 127,
-                                "p8": 21}
+                                "p8": 21, "p9": 21}
 
 
 def test_p8_phases_drive_the_count_surface(tmp_path):
@@ -112,6 +115,9 @@ class _FakeIndex:
 
     def count(self, queries):
         return ("count", queries)
+
+    def node_counts(self, queries):
+        return ("node_counts", queries)
 
     def find(self, queries, with_quality=False):
         return ("find", queries, with_quality)
@@ -184,3 +190,19 @@ def test_p8_dry_run_on_the_cpu(capsys):
     record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert list(record["runs"]) == ["p8"]
     assert list(record["runs"]["p8"]) == list(profile_p4.PHASES["p8"])
+
+
+def test_p9_dry_run_on_the_cpu(capsys):
+    """--run p9 on the CPU: the de Bruijn graph's phases, and the device
+    busy of the graph's own timer phases (each a profiler range)."""
+    assert profile_p4.main(["--run", "p9", "--device", "cpu", "--genome",
+                            "20000", "--coverage", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "P9 index phases [cpu]" in out
+    record = json.loads(out.strip().splitlines()[-1])
+    assert list(record["runs"]) == ["p9", "p9 index phases"]
+    assert list(record["runs"]["p9"]) == list(profile_p4.PHASES["p9"])
+    inner = record["runs"]["p9 index phases"]
+    assert {"insert", "table", "query", "compact"} <= set(inner)
+    assert inner["table"]["ranges"] >= 1
+    assert all(v["device_busy_s"] == 0.0 for v in inner.values())

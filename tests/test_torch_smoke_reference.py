@@ -96,3 +96,28 @@ def test_code_rows_is_the_kmer_layout():
     rows = chip_smoke.code_rows(value)
     np.testing.assert_array_equal(rows, chip_smoke.pack_rows(codes))
     np.testing.assert_array_equal(KmerSpec(21, DNA).to_ints(rows), value)
+
+
+def test_p9_graph_model_matches_the_oracle():
+    """P9's numpy model (graph_windows -> graph_nodes: canonical codes
+    with N read as A, DNA16 edge nibbles with N -> 0xF, flipped with the
+    strand) equals the de Bruijn oracle of tests/test_debruijn.py on 40
+    reads; node_lookup finds present nodes and misses absent ones, and
+    code_string inverts the codes."""
+    from test_debruijn import oracle_debruijn
+    codes = chip_smoke.make_reads(2000, 40, seed=9)
+    seqs = [bytes(np.frombuffer(b"ACGTN", np.uint8)[r]).decode()
+            for r in codes]
+    assert any("N" in s for s in seqs)
+    keys, cnt = chip_smoke.graph_nodes(chip_smoke.graph_windows(codes))
+    want = oracle_debruijn(seqs, chip_smoke.K)
+    assert dict(zip(keys.tolist(), map(tuple, cnt.tolist()))) == want
+    assert int(cnt[:, 8].sum()) == codes.shape[0] * (
+        chip_smoke.READ_LEN - chip_smoke.K + 1)
+    q = np.concatenate([keys[::5], np.array([1 << 41], np.uint64)])
+    got, found = chip_smoke.node_lookup(keys, cnt, q)
+    assert found[:-1].all() and not found[-1] and not got[-1].any()
+    np.testing.assert_array_equal(got[:-1], cnt[::5])
+    spec = KmerSpec(chip_smoke.K, DNA)
+    for v in keys[:20].tolist():
+        assert spec.to_int(spec.from_string(chip_smoke.code_string(v))) == v

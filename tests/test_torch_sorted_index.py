@@ -159,14 +159,17 @@ def test_convert_jax_state(reads):
 
 def test_not_ported_surfaces_raise():
     """What the port still lacks raises NotImplementedError naming its
-    ROADMAP item: the index families IndexConfig cannot build yet and the
-    other two strand transforms."""
-    for cfg, item in (({"index": "debruijn"}, "item 14"),
-                      ({"strands": "bimolecule"}, "item 12"),
-                      ({"index": "value"}, "item 13")):
+    ROADMAP item: the families IndexConfig cannot build yet, in both
+    distributions.  The other two strand transforms are ported: the sorted
+    index takes them."""
+    for cfg, item in (({"strands": "bimolecule"}, "item 12"),
+                      ({"index": "value"}, "item 13"),
+                      ({"index": "value", "distribution": "range"},
+                       "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             kp.IndexConfig(**cfg).make_index("cpu")
     for transform in ("lex_greater", "xor_rev_comp"):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            kp.SortedCountIndex(kp.KmerSpec(21, kp.DNA), device="cpu",
-                                canonical=transform)
+        idx = kp.IndexConfig(strands=transform,
+                             distribution="range").make_index("cpu")
+        assert type(idx) is kp.SortedCountIndex
+        assert idx.transform == transform

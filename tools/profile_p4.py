@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Device-busy profile of the smoke's full-size runs (chip_smoke.py P4-P8).
+"""Device-busy profile of the smoke's full-size runs (chip_smoke.py P4-P9).
 
-    python3 tools/profile_p4.py [--run p4|p5|p6|p7|p8|all] [--coverage 30]
+    python3 tools/profile_p4.py [--run p4|p5|p6|p7|p8|p9|all] [--coverage 30]
                                 [--genome 4641652] [--trace trace.json]
 
 Makes the P4 data of chip_smoke.py (150 bp reads at 30x coverage of a
@@ -20,7 +20,15 @@ count() of 1M 127-mer queries twice, items().  P8, the hash CountIndex's
 surface: build, histogram(255), insert_counts of 1M pairs (the first 500k
 queries, 500k random k-mers; counts 1-1000), count() of the 1M queries,
 erase of the last 500k queries, size(), filter(c >= 2), count_if(c >= 36)
-and an npz save.  The first pass runs
+and an npz save.  P9, the de Bruijn graph (k = 21, max_runs=8): build,
+node_counts() of the 1M queries twice (the first builds the runs' counter
+tables), size() (the consolidating merges), compact(); beside these
+phases each of the graph's own timer phases (read, marshal, insert, merge,
+table, query, compact) opens a profiler range, and a second table sums
+the device busy time over each one's ranges.  The profiler records only
+the ranges of the main thread: read and marshal run on the feeding thread
+while the build streams (their walls are in the PhaseTimer report).  The
+first pass runs
 without the profiler and gives each
 phase's wall seconds; it also warms the native parser, the kernels and the
 allocator.  The second pass runs under torch.profiler, each phase in a
@@ -65,9 +73,10 @@ PHASES = {"p4": ("build", "count1", "count2", "items", "compact"),
           "p6": ("insert", "merge", "find1", "find2"),
           "p7": ("build", "count1", "count2", "items"),
           "p8": ("build", "histogram", "insert_counts", "count", "erase",
-                 "size", "filter", "count_if", "save")}
+                 "size", "filter", "count_if", "save"),
+          "p9": ("build", "query1", "query2", "size", "compact")}
 #: run -> its k
-RUN_K = {"p4": K, "p5": K, "p6": K, "p7": K_WIDE, "p8": K}
+RUN_K = {"p4": K, "p5": K, "p6": K, "p7": K_WIDE, "p8": K, "p9": K}
 #: the port's kernels -> the CUDA kernel names (ops/csrc) of their launches
 PORT_KERNELS = {
     "extract_canonical": ("extract_rolling_kernel", "extract_wide_kernel"),
@@ -106,6 +115,12 @@ def phase_steps(run: str, idx, path, queries) -> dict:
                 "count_if": lambda: idx.count_if(lambda k, c: c >= 36),
                 "save": lambda: idx.save(pathlib.Path(path).with_name(
                     "p8.npz"))}
+    if run == "p9":
+        return {"build": lambda: idx.build(path),
+                "query1": lambda: idx.node_counts(queries),
+                "query2": lambda: idx.node_counts(queries),
+                "size": idx.size,
+                "compact": idx.compact}
     if run == "p6":
         return {"insert": lambda: idx.build(path),
                 "merge": idx.size,
@@ -115,6 +130,24 @@ def phase_steps(run: str, idx, path, queries) -> dict:
             "flush": idx.size,
             "count1": lambda: idx.count(queries),
             "count2": lambda: idx.count(queries)}
+
+
+def profiled_timer(run: str):
+    """A PhaseTimer whose every phase is also a profiler range named
+    "<run>/<phase>" (the index's own phases, `inner_report`)."""
+    import contextlib
+
+    from torch.profiler import record_function
+
+    from kmerind_tpu_torch.utils.timers import PhaseTimer
+
+    class _Timer(PhaseTimer):
+        @contextlib.contextmanager
+        def phase(self, name: str):
+            with record_function(f"{run}/{name}"), super().phase(name):
+                yield
+
+    return _Timer()
 
 
 def union_length(intervals) -> float:
@@ -193,6 +226,39 @@ def report(run: str, trace: dict, wall: dict, smi: str) -> dict:
     return out
 
 
+def inner_report(run: str, trace: dict, smi: str) -> dict:
+    """Print and return the device busy time of the index's own phases
+    ("<run>/<phase>" ranges), summed over each phase's ranges."""
+    tag = f"{run}/"
+    spans = collections.defaultdict(list)
+    for ev in trace["traceEvents"]:
+        name = str(ev.get("name", ""))
+        if ev.get("cat") == "user_annotation" and name.startswith(tag):
+            spans[name[len(tag):]].append(
+                (float(ev["ts"]), float(ev["ts"] + ev["dur"])))
+    out = {}
+    print(f"{run.upper()} index phases [{smi}]")
+    print("| phase | ranges | range s | device busy s | busy % | port "
+          "kernels (ms) |")
+    print("| --- | --- | --- | --- | --- | --- |")
+    for name, ranges in spans.items():
+        busy = span = 0.0
+        ours = collections.Counter()
+        for lo, hi in ranges:
+            items, by_name = phase_device_items(trace, lo, hi)
+            busy += union_length(items) / 1e6
+            span += (hi - lo) / 1e6
+            ours.update(port_kernel_ms(by_name))
+        out[name] = {"ranges": len(ranges), "range_s": span,
+                     "device_busy_s": busy,
+                     "busy_share": busy / span if span else 0.0,
+                     "port_kernel_ms": dict(ours)}
+        kms = "; ".join(f"{k} {ms:.3f}" for k, ms in ours.items() if ms)
+        print(f"| {name} | {len(ranges)} | {span:.6f} | {busy:.6f} | "
+              f"{100 * busy / span if span else 0.0:.2f} | {kms} |")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--run", choices=(*PHASES, "all"), default="all")
@@ -208,7 +274,7 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from kmerind_tpu_torch import (DNA, CountIndex, KmerSpec,
+    from kmerind_tpu_torch import (DNA, CountIndex, DeBruijnGraph, KmerSpec,
                                    PositionQualityIndex, SortedCountIndex)
     from kmerind_tpu_torch.io import native
 
@@ -234,7 +300,9 @@ def main(argv=None) -> int:
                                                      canonical=True),
                   "p7": lambda: CountIndex(KmerSpec(K_WIDE, DNA),
                                            device=dev, max_runs=8),
-                  "p8": lambda: CountIndex(spec, device=dev)}
+                  "p8": lambda: CountIndex(spec, device=dev),
+                  "p9": lambda: DeBruijnGraph(spec, device=dev, max_runs=8,
+                                              timer=profiled_timer("p9"))}
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if on_gpu else [])
     out = {"card": smi, "runs": {}}
@@ -276,6 +344,9 @@ def main(argv=None) -> int:
             prof.export_chrome_trace(str(trace_path))
             trace = json.loads(trace_path.read_text())
             out["runs"][run] = report(run, trace, wall, smi)
+            if run == "p9":
+                out["runs"]["p9 index phases"] = inner_report(run, trace,
+                                                              smi)
             print(idx.timer.report(f"{run} profiled"))
             del fns, idx, prof, trace
             if on_gpu:
