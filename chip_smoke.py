@@ -33,7 +33,10 @@ and power limit as nvidia-smi reports them):
       512 full words and the flag) with 4 payloads, past the key words
       compared in registers; and in P9's: 8,388,628 + 8,388,628 rows of 2
       words with edge bytes (0-255) as the one payload of a unit merge and
-      with (edge byte, weight) as 2.  K3 also runs on a 2^28 edge-bit
+      with (edge byte, weight) as 2; and in P10's: 2 key words with
+      Bimolecule's 4 payloads (weight, both id halves as full 32-bit
+      patterns, strand) at 8,388,628 + 8,388,628 rows and at a flush's
+      2^26 + 2^24.  K3 also runs on a 2^28 edge-bit
       stream (0 / 1, a quarter ones) of the graph's counter tables.  K2′
       (the row-major merge, which no index calls) runs only here, at w = 2
       and w = 8 with one payload.
@@ -130,10 +133,32 @@ and power limit as nvidia-smi reports them):
       compaction and the further ingest, and the quality graph's unit merges
       with 2 (edge byte, quality bits).
 
+* P10 Bimolecule and the value maps over P4's FASTQ (after P9, while P4's
+      numpy reference is held; `phase_p10`), held exactly against a numpy
+      model (`p10_model`: each canonical 21-mer's count, the input strand
+      of its first window in file order, the short ids of its first and
+      last windows).  BimoleculeCountIndex(KmerSpec(21, DNA)).build (the
+      streaming path): size() == distinct; count() of the 1M queries as
+      given (twice) and reverse-complemented == numpy; items() == every
+      key in its stored orientation with its count; find of 10,000
+      sampled read windows, half reverse-complemented, == the stored
+      orientations and counts; insert of 1,000 present keys in their other
+      orientation keeps every orientation, adds 1; erase of 1M keys (half
+      present) == numpy's distinct present keys, size() follows;
+      compact() and an npz save / load keep every answer.
+      KmerValueIndex(reduce="min") and SortedKmerValueIndex(reduce="max")
+      over the same FASTQ (short ids): size(), find of the 1M queries
+      (found, and the value == numpy's min / max id), erase_if(id in the
+      first tenth of the reads) == numpy's count, an npz round trip.
+      Counters zeroed before each build and read after its checks: K1
+      once per chunk in all three, K2 with 4 payloads at least once per
+      Bimolecule merge, K3 > 0.  Then over 4 shards at P3's size
+      (`phase_p10p`): the three classes' to_dict() == the model.
+
 Exits non-zero, printing no result, when there is no CUDA device, a build
 fails or any check fails.  The last line of standard output is the
 contract JSON; the line before it lists the kernels with their launches
-in the main-path runs P4 + P5 + P6 + P7 + P8 + P9.
+in the main-path runs P4 + P5 + P6 + P7 + P8 + P9 + P10.
 """
 
 from __future__ import annotations
@@ -1332,6 +1357,323 @@ def phase_p9(dev, path, tmp, codes, quals, qcodes, queries, smi,
     return launches
 
 
+# ------------------------------------------------- P10: Bimolecule, values
+def revcomp_codes(c: np.ndarray, k: int = K) -> np.ndarray:
+    """uint64 2-bit codes of the reverse complements of k-mer codes c."""
+    c = np.asarray(c, np.uint64).copy()
+    out = np.zeros_like(c)
+    for _ in range(k):
+        out = (out << np.uint64(2)) | (np.uint64(3) - (c & np.uint64(3)))
+        c >>= np.uint64(2)
+    return out
+
+
+def occurrences(canon: np.ndarray):
+    """(distinct keys ascending, int64 counts, first index, last index) of
+    a 1-d array of canonical codes in file order.  Each code and its index
+    pack into one uint64 — the code's low bits above the index's — which
+    plain sorts order by (code, index): a stable bucketing by the code's
+    top bits first (a radix argsort of small ints), then one sort per
+    bucket, much faster than a stable argsort of the codes."""
+    canon = np.ascontiguousarray(canon, np.uint64)
+    n = canon.size
+    ib = max(1, (n - 1).bit_length())
+    kb = np.uint64(64 - ib)
+    top = (canon >> kb).astype(np.int64)
+    if top.max(initial=0) >= 1 << 16:
+        raise ValueError("codes too wide for occurrences()")
+    order = np.argsort(top.astype(np.uint16), kind="stable")
+    packed = (((canon & ((np.uint64(1) << kb) - np.uint64(1)))
+               << np.uint64(ib)) | np.arange(n, dtype=np.uint64))[order]
+    top = top[order]
+    del order
+    edges = np.concatenate([[0], np.flatnonzero(top[1:] != top[:-1]) + 1,
+                            [n]])
+    for a, b in zip(edges[:-1], edges[1:]):
+        packed[a:b].sort()
+    keys = (top.astype(np.uint64) << kb) | (packed >> np.uint64(ib))
+    idx = (packed & np.uint64((1 << ib) - 1)).astype(np.int64)
+    heads = np.flatnonzero(keys[1:] != keys[:-1]) + 1
+    starts = np.concatenate([[0], heads])
+    ends = np.concatenate([heads - 1, [n - 1]])
+    return keys[starts], np.diff(np.append(starts, n)), idx[starts], \
+        idx[ends]
+
+
+def window_ids(idx: np.ndarray) -> np.ndarray:
+    """uint64 short position ids of the windows with file-order index idx
+    (read * (READ_LEN - K + 1) + offset) of a `write_fastq` file."""
+    nwin = READ_LEN - K + 1
+    return short_ids(np.stack(np.divmod(idx, nwin), axis=1))
+
+
+def p10_model(codes: np.ndarray, canon: np.ndarray | None = None):
+    """The numpy reference of P10 over the reads `codes` (N read as A):
+    (distinct canonical 21-mer codes ascending, their counts, their STORED
+    orientation — the input strand of the first window holding the key, in
+    file order (the Bimolecule preset) —, the short id of that first window
+    and of the last one (the value maps' min / max)).  canon: the reads'
+    `window_codes`, if already computed."""
+    nwin = codes.shape[1] - K + 1
+    if canon is None:
+        canon = window_codes(codes)
+    keys, cnts, first, last = occurrences(canon.reshape(-1))
+    r, o = np.divmod(first, nwin)
+    stored = window_codes(codes[r[:, None], o[:, None] + np.arange(K)],
+                          canonical=False)[:, 0]
+    return keys, cnts, stored, window_ids(first), window_ids(last)
+
+
+def phase_p10(dev, path, tmp, codes, qcodes, queries, want_counts, smi,
+              n_find: int = 10_000, n_insert: int = 1000,
+              n_erase: int = 1_000_000, n_read_q: int = 900_000,
+              canon: np.ndarray | None = None) -> dict:
+    """P10: BimoleculeCountIndex and both value maps over P4's FASTQ on one
+    shard (the module docstring), every answer held exactly against
+    `p10_model` (canon: the reads' `window_codes`, if held); the first
+    n_read_q queries are read windows.  Returns
+    the kernel launches of its runs, with K2's by payload count under "K2
+    payloads"; raises on any difference from numpy."""
+    import torch
+    from kmerind_tpu_torch import (DNA, BimoleculeCountIndex, KmerSpec,
+                                   KmerValueIndex, SortedKmerValueIndex)
+    from kmerind_tpu_torch.ops import kernels
+    spec = KmerSpec(K, DNA)
+    rng = np.random.default_rng(10)
+    n_windows = codes.shape[0] * (READ_LEN - K + 1)
+    times, launches = {}, collections.Counter()
+    k2p = collections.Counter()
+
+    def check(cond, what):
+        if not cond:
+            raise AssertionError(f"P10: {what}")
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        times[name] = time.perf_counter() - t0
+        return out
+
+    def at(keys, q):
+        """(position of each code q among the sorted keys, present)."""
+        pos = np.searchsorted(keys, q).clip(max=max(keys.size - 1, 0))
+        return pos, keys[pos] == q
+
+    def codes_of(rows):
+        return (rows[:, 0].astype(np.uint64) << np.uint64(10)) | rows[:, 1]
+
+    def take_launches():
+        launches.update(kernels.LAUNCHES)
+        k2p.update(kernels.K2_PAYLOAD_LAUNCHES)
+        return dict(kernels.LAUNCHES), dict(kernels.K2_PAYLOAD_LAUNCHES)
+
+    t0 = time.perf_counter()
+    keys, cnts, stored, id_first, id_last = p10_model(codes, canon)
+    vkeys = keys                     # the value maps' model keeps them
+    qcanon = window_codes(qcodes)[:, 0]
+    qpos, qhit = at(keys, qcanon)
+    check(np.array_equal(np.where(qhit, cnts[qpos], 0), want_counts),
+          "the model's counts != P4's numpy counts")
+    log(f"P10 numpy reference: {keys.size} keys, first / last occurrences "
+        f"{time.perf_counter() - t0:.2f} s [{smi}]")
+
+    # ---------------------------------------------- BimoleculeCountIndex
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    idx = BimoleculeCountIndex(spec, device=dev)
+    timed("build", lambda: idx.build(path))
+    size = timed("size", idx.size)
+    chunks, merges = idx.timer.count("insert"), idx.timer.count("merge")
+    check(size == keys.size, f"size {size} != {keys.size} distinct")
+    rc_queries = pack_rows(3 - qcodes[:, ::-1])
+    for name, q in (("count", queries), ("count again", queries),
+                    ("count rc", rc_queries)):
+        got = timed(name, lambda: idx.count(q))
+        check(np.array_equal(got, want_counts),
+              f"{name}: {int((got != want_counts).sum())} of {got.size} "
+              "counts differ from numpy")
+    rows, got_cnts = timed("items", idx.items)
+    got_codes = codes_of(rows)
+    check(np.array_equal(np.minimum(got_codes, revcomp_codes(got_codes)),
+                         keys) and np.array_equal(got_codes, stored)
+          and np.array_equal(got_cnts, cnts),
+          "items() != the first-occurrence model")
+    check(int(got_cnts.sum()) == n_windows, "item counts != windows")
+    del rows, got_cnts, got_codes
+    # find: sampled read windows, half given reverse-complemented
+    pick = rng.choice(n_read_q, n_find, replace=False)
+    fcodes = qcodes[pick].copy()
+    fcodes[::2] = 3 - fcodes[::2, ::-1]
+    words, fcnts = timed("find", lambda: idx.find(pack_rows(fcodes)))
+    fpos = qpos[pick]
+    check(np.array_equal(codes_of(words), stored[fpos])
+          and np.array_equal(fcnts, cnts[fpos]),
+          "find != the stored orientations and counts")
+    # insert present keys in their other orientation: kept, counts + 1
+    ins = rng.choice(keys.size, n_insert, replace=False)
+    other = code_rows(revcomp_codes(stored[ins]))
+    timed("insert", lambda: idx.insert(other))
+    cnts[ins] += 1
+    words, fcnts = idx.find(other)
+    check(np.array_equal(codes_of(words), stored[ins])
+          and np.array_equal(fcnts, cnts[ins]),
+          "insert of the other orientation changed a stored orientation")
+    # erase n_erase keys, half present
+    half = n_erase // 2
+    rand = rng.integers(0, 4, (n_erase - half, K), dtype=np.uint8)
+    erase_keys = np.concatenate([rng.choice(keys, half),
+                                 window_codes(rand)[:, 0]])
+    erase_rows = np.concatenate([code_rows(erase_keys[:half]),
+                                 pack_rows(rand)])
+    erased = timed("erase", lambda: idx.erase(erase_rows))
+    epos, ehit = at(keys, erase_keys)
+    gone = np.unique(epos[ehit])
+    check(erased == gone.size, f"erase returned {erased}, numpy "
+          f"{gone.size} distinct present keys")
+    keep = np.ones(keys.size, bool)
+    keep[gone] = False
+    keys, cnts, stored = keys[keep], cnts[keep], stored[keep]
+    size = timed("size after erase", idx.size)
+    check(size == keys.size, f"size after erase {size} != {keys.size}")
+    qpos, qhit = at(keys, qcanon)
+    want_after = np.where(qhit, cnts[qpos], 0)
+
+    def same_answers(ix, what):
+        rows, c = ix.items()
+        check(np.array_equal(codes_of(rows), stored)
+              and np.array_equal(c, cnts)
+              and np.array_equal(ix.count(queries), want_after)
+              and np.array_equal(ix.count(rc_queries), want_after),
+              f"{what}: items or counts != the model")
+
+    timed("compact", idx.compact)
+    same_answers(idx, "compact()")
+    timed("save", lambda: idx.save(tmp / "p10.npz"))
+    back = timed("load", lambda: BimoleculeCountIndex.load(tmp / "p10.npz",
+                                                           dev))
+    same_answers(back, "npz save / load")
+    del back
+    bl, bk2 = take_launches()
+    peak = peak_bytes(dev)
+    del idx
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"P10 BimoleculeCountIndex, 1 shard: build {times['build']:.3f} s = "
+        f"{n_windows / times['build']:.0f} k-mers/s, {chunks} chunks, first "
+        f"size() {times['size']:.3f} s ({merges} merges in all), "
+        f"{keys.size + gone.size} keys == numpy; count of {queries.shape[0]}"
+        f" {times['count']:.3f} s = {queries.shape[0] / times['count']:.0f} "
+        f"q/s, again {times['count again']:.3f} s = "
+        f"{queries.shape[0] / times['count again']:.0f} q/s, reverse-"
+        f"complemented {times['count rc']:.3f} s; items {times['items']:.3f}"
+        f" s, every stored orientation == the first occurrence; find of "
+        f"{n_find} {times['find']:.3f} s; insert of {n_insert} in the other "
+        f"orientation {times['insert']:.3f} s, orientation kept; erase of "
+        f"{n_erase} {times['erase']:.3f} s ({erased} present); compact "
+        f"{times['compact']:.3f} s; npz save {times['save']:.3f} s, load "
+        f"{times['load']:.3f} s; peak device memory {peak} bytes; "
+        f"launches {bl}, K2 by payloads {bk2} [{smi}]")
+    check(bl["extract_canonical"] == chunks,
+          f"Bimolecule K1 launches {bl['extract_canonical']} != {chunks}")
+    check(merges and bk2.get(4, 0) >= merges,
+          f"Bimolecule K2 with 4 payloads {bk2} < {merges} merges")
+    check(bl["prefix_sum_i32"] > 0, "Bimolecule K3 never ran")
+    del keys, cnts, stored
+
+    # ------------------------------------------------------ value maps
+    for cls, reduce in ((KmerValueIndex, "min"),
+                        (SortedKmerValueIndex, "max")):
+        name = f"{cls.__name__}({reduce})"
+        vals = id_first if reduce == "min" else id_last
+        sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        ix = cls(spec, device=dev, reduce=reduce)
+        timed(name, lambda: ix.build(path))
+        vsize = timed(name + " size", ix.size)
+        vchunks = ix.timer.count("insert")
+        check(vsize == vkeys.size, f"{name}: size {vsize} != {vkeys.size}")
+        got = [timed(f"{name} find{i}", lambda: ix.find(queries))
+               for i in range(2)]
+        vpos, vhit = at(vkeys, qcanon)
+        for g_vals, g_found in got:
+            check(np.array_equal(g_found, vhit)
+                  and np.array_equal(g_vals[vhit], vals[vpos[vhit]])
+                  and not g_vals[~vhit].any(),
+                  f"{name}: find of {queries.shape[0]} != numpy")
+        # erase the entries whose position id lies in the first tenth of
+        # the reads
+        thr = ((codes.shape[0] // 10) * RECORD_BYTES) >> 16
+        n_gone = timed(name + " erase_if", lambda: ix.erase_if(
+            lambda k, h, lo: h < thr))
+        kept = (vals >> np.uint64(32)) >= np.uint64(thr)
+        check(n_gone == int((~kept).sum()), f"{name}: erase_if erased "
+              f"{n_gone}, numpy {int((~kept).sum())}")
+        left = ix.find(queries)
+        check(np.array_equal(left[1], vhit & kept[vpos]),
+              f"{name}: find after erase_if != numpy")
+        timed(name + " save", lambda: ix.save(tmp / "p10v.npz"))
+        back = timed(name + " load", lambda: cls.load(tmp / "p10v.npz", dev))
+        again = back.find(queries)
+        check(np.array_equal(again[0], left[0])
+              and np.array_equal(again[1], left[1]),
+              f"{name}: npz save / load answers differently")
+        vl, vk2 = take_launches()
+        vpeak = peak_bytes(dev)
+        del ix, back
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        log(f"P10 {name}, 1 shard: build {times[name]:.3f} s = "
+            f"{n_windows / times[name]:.0f} k-mers/s, {vchunks} chunks, "
+            f"size() {times[name + ' size']:.3f} s ({vsize} keys == numpy); "
+            f"find of {queries.shape[0]} {times[name + ' find0']:.3f} s = "
+            f"{queries.shape[0] / times[name + ' find0']:.0f} q/s, again "
+            f"{times[name + ' find1']:.3f} s = "
+            f"{queries.shape[0] / times[name + ' find1']:.0f} q/s, values == "
+            f"numpy {reduce} ids; erase_if {times[name + ' erase_if']:.3f} s "
+            f"({n_gone}); npz save {times[name + ' save']:.3f} s, load "
+            f"{times[name + ' load']:.3f} s; peak device memory {vpeak} "
+            f"bytes; launches {vl} [{smi}]")
+        check(vl["extract_canonical"] == vchunks,
+              f"{name}: K1 launches {vl['extract_canonical']} != {vchunks}")
+    out = dict(launches)
+    out["K2 payloads"] = dict(k2p)
+    return out
+
+
+def phase_p10p(dev, path, codes, smi) -> None:
+    """P10 over 4 shards at P3's size: BimoleculeCountIndex's to_dict()
+    equals the first-occurrence model, KmerValueIndex("min")'s and
+    SortedKmerValueIndex("max")'s the numpy min / max position id of every
+    canonical key; raises on any difference."""
+    from kmerind_tpu_torch import (DNA, BimoleculeCountIndex, KmerSpec,
+                                   KmerValueIndex, SortedKmerValueIndex)
+    spec = KmerSpec(K, DNA)
+    t0 = time.perf_counter()
+    keys, cnts, stored, id_first, id_last = p10_model(codes)
+    idx = BimoleculeCountIndex(spec, device=dev, nparts=4)
+    idx.build(path)
+    if idx.to_dict() != dict(zip(stored.tolist(), cnts.tolist())):
+        raise AssertionError("P10 4 shards: Bimolecule to_dict != the "
+                             "first-occurrence model")
+    del idx
+    for cls, reduce, vals in ((KmerValueIndex, "min", id_first),
+                              (SortedKmerValueIndex, "max", id_last)):
+        ix = cls(spec, device=dev, nparts=4, reduce=reduce)
+        ix.build(path)
+        if ix.to_dict() != dict(zip(keys.tolist(), vals.tolist())):
+            raise AssertionError(f"P10 4 shards: {cls.__name__}({reduce}) "
+                                 "to_dict != numpy")
+    log(f"P10 4 shards, {codes.size} bases: BimoleculeCountIndex to_dict "
+        f"== first-occurrence model ({keys.size} keys), KmerValueIndex(min)"
+        f" and SortedKmerValueIndex(max) to_dict == numpy ids; seconds "
+        f"{time.perf_counter() - t0:.2f} [{smi}]")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1523,6 +1865,40 @@ def main() -> int:
                                  n_out=n_out, w=kw, npay=npay),
                packed_sort(a[kw - w:kw - w + 2], b[kw - w:kw - w + 2]),
                slow_plain=kw > 2)
+        del a, b, pa, pb
+        torch.cuda.empty_cache()
+
+    # Bimolecule's merges: K2 at w=2 with 4 payloads — the weight (0-3),
+    # both id halves (full 32-bit patterns, -1 on the sentinel tail) and
+    # the strand (0 / 1) — at a merge of two chunks' runs and at a flush's
+    # shape (a store of 2^26 rows, 2^24 pending)
+    def bimol_pays(cols):
+        n = cols.shape[1]
+        live = ~(cols == -1).all(dim=0)
+        full = lambda: torch.randint(  # noqa: E731
+            -(2**31), 2**31 - 1, (n,), dtype=torch.int32, device=dev,
+            generator=gen)
+        small = lambda hi: torch.randint(  # noqa: E731
+            0, hi, (n,), dtype=torch.int32, device=dev, generator=gen)
+        return (torch.where(live, small(4), 0),
+                torch.where(live, full(), -1), torch.where(live, full(), -1),
+                torch.where(live, small(2), 0))
+
+    for na, nb in ((CHUNK, CHUNK), (1 << 26, 1 << 24)):
+        a, b = sorted_run(na), sorted_run(nb)
+        pa, pb = bimol_pays(a), bimol_pays(b)
+        gk, gp = kernels.merge_runs_cols(a, pa, b, pb)
+        wk, wp = kernels.merge_runs_cols_plain(a, pa, b, pb)
+        err = max([err_of(gk, wk)] + [err_of(x, y) for x, y in zip(gp, wp)])
+        n_out = gk.shape[1]
+        del gk, gp, wk, wp
+        record("merge_runs_cols", f"{na}+{nb} w=2 payloads=4 Bimolecule "
+               "(weight, id halves, strand)",
+               lambda: kernels.merge_runs_cols(a, pa, b, pb),
+               lambda: kernels.merge_runs_cols_plain(a, pa, b, pb),
+               err, kernel_bytes("merge_runs_cols", na=na, nb=nb,
+                                 n_out=n_out, w=2, npay=4),
+               packed_sort(a, b))
         del a, b, pa, pb
         torch.cuda.empty_cache()
 
@@ -1812,7 +2188,7 @@ def main() -> int:
         # ------------------------------------------------------------ P6
         launches["P6"] = phase_p6(dev, path, quals, qcodes, queries,
                                   canon_all, want_counts, smi)
-        del canon_all, sorted_codes
+        del sorted_codes
         torch.cuda.empty_cache()
 
         # ------------------------------------------------------------ P8
@@ -1821,7 +2197,7 @@ def main() -> int:
         launches["P8"] = phase_p8(dev, path, tmp, qcodes, queries, ref_keys,
                                   ref_cnts, want_counts, smi)
         log(f"P8 seconds {time.perf_counter() - t0:.2f} [{smi}]")
-        del want_counts, ref_keys, ref_cnts
+        del ref_keys, ref_cnts
         torch.cuda.empty_cache()
 
         # ------------------------------------------------------------ P9
@@ -1829,7 +2205,17 @@ def main() -> int:
         launches["P9"] = phase_p9(dev, path, tmp, codes, quals, qcodes,
                                   queries, smi)
         log(f"P9 seconds {time.perf_counter() - t0:.2f} [{smi}]")
-        del qcodes, queries
+        torch.cuda.empty_cache()
+
+        # ----------------------------------------------------------- P10
+        t0 = time.perf_counter()
+        launches["P10"] = phase_p10(dev, path, tmp, codes, qcodes, queries,
+                                    want_counts, smi, canon=canon_all)
+        del qcodes, queries, want_counts, canon_all
+        torch.cuda.empty_cache()
+        phase_p10p(dev, tmp / "p3.fastq",
+                   make_reads(1_000_000, 80_000, seed=1), smi)
+        log(f"P10 seconds {time.perf_counter() - t0:.2f} [{smi}]")
         torch.cuda.empty_cache()
 
         # ------------------------------------------------------------ P7
@@ -1840,10 +2226,10 @@ def main() -> int:
     log(f"total seconds {time.perf_counter() - t_all:.2f} [{smi}]")
     entries = []
     for kname, (src, replaces) in kernels.KERNELS.items():
-        # main-path launches (P4 + P5 + P6 + P7 + P8 + P9, and per run);
-        # K2′ is on no index's path: P2's
+        # main-path launches (P4 + P5 + P6 + P7 + P8 + P9 + P10, and per
+        # run); K2′ is on no index's path: P2's
         by_run = {r: launches[r][kname]
-                  for r in ("P4", "P5", "P6", "P7", "P8", "P9")}
+                  for r in ("P4", "P5", "P6", "P7", "P8", "P9", "P10")}
         n = (k2r_launches if kname == "merge_sorted_runs"
              else sum(by_run.values()))
         entries.append({"name": kname, "route": "cuda", "source": src,

@@ -9,10 +9,12 @@ Hopper (``ops/csrc``).  It mirrors the JAX package's module layout:
 * ``ops``      — k-mer extraction, sort/merge/search, the CUDA kernels;
 * ``parallel`` — owner exchange and sample sort over p shards stacked on
   one device;
-* ``index``    — count and multimap stores and the indexes: `CountIndex`,
-  `PositionIndex`, `PositionQualityIndex` (hash-partitioned) and
-  `SortedCountIndex`, `SortedPositionIndex`, `SortedPositionQualityIndex`
-  (range-partitioned), each over p shards stacked on one device;
+* ``index``    — count, multimap and value stores and the indexes:
+  `CountIndex`, `BimoleculeCountIndex`, `PositionIndex`,
+  `PositionQualityIndex`, `KmerValueIndex` (hash-partitioned) and
+  `SortedCountIndex`, `SortedPositionIndex`, `SortedPositionQualityIndex`,
+  `SortedKmerValueIndex` (range-partitioned), each over p shards stacked
+  on one device;
 * ``debruijn`` — the de Bruijn graphs `DeBruijnGraph` and
   `QualityDeBruijnGraph` on the same machinery;
 * ``quality``  — the phred codec and windowed k-mer quality;
@@ -29,13 +31,17 @@ from . import alphabets
 from .alphabets import ASCII, DNA, DNA5, DNA6, DNA16, DNA_IUPAC, RNA, RNA5, RNA6
 from .config import IndexConfig
 from .debruijn import DeBruijnGraph, QualityDeBruijnGraph
-from .index.api import CountIndex, PositionIndex, PositionQualityIndex
+from .index.api import (BimoleculeCountIndex, CountIndex, PositionIndex,
+                        PositionQualityIndex)
 from .index.sorted_api import (SortedCountIndex, SortedPositionIndex,
                                SortedPositionQualityIndex)
+from .index.value_api import KmerValueIndex, SortedKmerValueIndex
 from .kmer import KmerSpec
 
-__all__ = ["alphabets", "KmerSpec", "IndexConfig", "CountIndex", "PositionIndex",
-           "PositionQualityIndex", "SortedCountIndex", "SortedPositionIndex",
-           "SortedPositionQualityIndex", "DeBruijnGraph",
+__all__ = ["alphabets", "KmerSpec", "IndexConfig", "CountIndex",
+           "BimoleculeCountIndex", "PositionIndex", "PositionQualityIndex",
+           "KmerValueIndex", "SortedCountIndex", "SortedPositionIndex",
+           "SortedPositionQualityIndex", "SortedKmerValueIndex",
+           "DeBruijnGraph",
            "QualityDeBruijnGraph", "DNA", "DNA5", "DNA6", "DNA16",
            "DNA_IUPAC", "RNA", "RNA5", "RNA6", "ASCII"]

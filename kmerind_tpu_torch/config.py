@@ -9,16 +9,17 @@ package (e.g. a checkpoint's JSON) builds the same index here.
 | reference macro          | field        | values                        |
 |--------------------------|--------------|-------------------------------|
 | pPARSER FASTQ/FASTA      | fmt          | "fastq" / "fasta" (or sniffed) |
-| pINDEX COUNT/POS/POSQUAL | index        | "count" / "position" / "posqual" / "debruijn" |
+| pINDEX COUNT/POS/POSQUAL | index        | "count" / "position" / "posqual" / "debruijn" / "value" |
 | pMAP DENSEHASH/SORTED    | distribution | "hash" / "range"              |
-| pKmerParser canonical    | strands      | "canonical" / "single" / "lex_greater" / "xor_rev_comp" |
+| pKmerParser canonical    | strands      | "canonical" / "single" / "bimolecule" / "lex_greater" / "xor_rev_comp" |
 | pDistHash MURMUR/FARM    | hash_name    | "murmur" / "farm" / "std" ... |
 | pDNA 4/5/16              | alphabet     | "DNA" / "DNA5" / "DNA16" ...  |
 | pK 21/31/63              | k            | any                           |
 
-Families the port does not have yet raise NotImplementedError with their
-ROADMAP item: the Bimolecule preset (strands="bimolecule", queue 1 item
-12) and the value maps (index="value", item 13).
+strands="bimolecule" builds the `BimoleculeCountIndex` (hash-distributed
+count indexes only, as in the JAX package); index="value" the unique-key
+value maps, `KmerValueIndex` or `SortedKmerValueIndex`, with `reduce` and
+`id_kind`.
 """
 
 from __future__ import annotations
@@ -30,16 +31,6 @@ from .kmer import KmerSpec
 
 __all__ = ["IndexConfig"]
 
-_NOT_PORTED = {"bimolecule": "12 (Bimolecule)",
-               "value": "13 (value maps)"}
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what!r} is not ported yet: ROADMAP queue 1, item "
-        f"{_NOT_PORTED[what]}")
-
-
 @dataclasses.dataclass(frozen=True)
 class IndexConfig:
     """All knobs of one index instance (the JAX package's fields)."""
@@ -47,9 +38,10 @@ class IndexConfig:
     k: int = 21
     alphabet: str = "DNA"
     index: str = "count"           # count | position | posqual | debruijn
+    #                                | value (unique-key u64 map)
     canonical: bool = True         # Canonical vs SingleStrand presets
-    strands: str | None = None     # "canonical" | "single" |
-    #                                "lex_greater" | "xor_rev_comp";
+    strands: str | None = None     # "canonical" | "single" | "bimolecule"
+    #                                | "lex_greater" | "xor_rev_comp";
     #                                overrides `canonical` when set
     distribution: str = "hash"     # "hash" (densehash) | "range" (sorted)
     hash_name: str = "murmur"      # DistHash preset (hash distribution)
@@ -69,9 +61,11 @@ class IndexConfig:
         """The configured index on `device`, with `nparts` shards (default:
         `devices`, else 1)."""
         from .debruijn import DeBruijnGraph
-        from .index.api import CountIndex, PositionIndex, PositionQualityIndex
+        from .index.api import (BimoleculeCountIndex, CountIndex,
+                                PositionIndex, PositionQualityIndex)
         from .index.sorted_api import (SortedCountIndex, SortedPositionIndex,
                                        SortedPositionQualityIndex)
+        from .index.value_api import KmerValueIndex, SortedKmerValueIndex
 
         strands = self.strands
         if strands is None:
@@ -81,10 +75,18 @@ class IndexConfig:
             raise ValueError(f"unknown strands preset {strands!r}")
         if self.distribution not in ("hash", "range"):
             raise ValueError(f"unknown distribution {self.distribution!r}")
-        if self.index in _NOT_PORTED:
-            raise _not_ported(self.index)
+        nparts = nparts or self.devices or 1
         if strands == "bimolecule":
-            raise _not_ported("bimolecule")
+            if self.distribution != "hash" or self.index != "count":
+                raise ValueError(
+                    "the Bimolecule preset is provided for hash-distributed "
+                    "count indexes (the reference's BenchmarkKmerIndex "
+                    "matrix likewise pairs it with hash maps)")
+            idx = BimoleculeCountIndex(self.spec(), device, nparts=nparts,
+                                       hash_name=self.hash_name,
+                                       saturate=self.saturate)
+            idx.fill_factor = self.fill_factor
+            return idx
         transform = strands in ("lex_greater", "xor_rev_comp")
         if self.index == "debruijn":
             if transform:
@@ -96,7 +98,7 @@ class IndexConfig:
                                  "index")
             g = DeBruijnGraph(self.spec(), device,
                               canonical=strands != "single",
-                              nparts=nparts or self.devices or 1,
+                              nparts=nparts,
                               hash_name=self.hash_name,
                               saturate=self.saturate)
             g.fill_factor = self.fill_factor
@@ -104,21 +106,23 @@ class IndexConfig:
         canonical = strands if transform else strands != "single"
         range_cls = {"count": SortedCountIndex,
                      "position": SortedPositionIndex,
-                     "posqual": SortedPositionQualityIndex}
+                     "posqual": SortedPositionQualityIndex,
+                     "value": SortedKmerValueIndex}
         hash_cls = {"count": CountIndex, "position": PositionIndex,
-                    "posqual": PositionQualityIndex}
+                    "posqual": PositionQualityIndex, "value": KmerValueIndex}
         table = range_cls if self.distribution == "range" else hash_cls
         if self.index not in table:
             raise ValueError(f"{self.distribution} distribution has no "
                              f"{self.index!r} index")
-        kw = dict(device=device, canonical=canonical,
-                  nparts=nparts or self.devices or 1)
+        kw = dict(device=device, canonical=canonical, nparts=nparts)
         if self.index == "count":
             kw["saturate"] = self.saturate
         else:
             kw["id_kind"] = self.id_kind
             if self.index == "posqual":
                 kw["codec"] = quality.by_name(self.quality_codec)
+            if self.index == "value":
+                kw["reduce"] = self.reduce
         if self.distribution == "hash":
             kw["hash_name"] = self.hash_name
         idx = table[self.index](self.spec(), **kw)

@@ -36,7 +36,8 @@ from ..utils.timers import PhaseTimer
 from . import distributed as dx
 from . import store as st
 
-__all__ = ["CountIndex", "PositionIndex", "PositionQualityIndex"]
+__all__ = ["CountIndex", "BimoleculeCountIndex", "PositionIndex",
+           "PositionQualityIndex"]
 
 
 def _next_pow2(n: int) -> int:
@@ -384,11 +385,16 @@ class _IndexBase:
         alphabet = self.parse_alphabet
 
         def chunks():
+            n_records = 0
             for p in range(nblocks):
                 with self.timer.phase("read"):
                     if fmt == "fastq":
+                        # records numbered in the file, so long ids keep
+                        # file order across blocks
                         b = read_fastq_block(path, alphabet, p, nblocks,
-                                             file_id=file_id, reuse=True)
+                                             file_id=file_id, reuse=True,
+                                             seq_index_base=n_records)
+                        n_records += b.num_records
                     else:
                         b = read_fasta_block(path, alphabet, p, nblocks,
                                              file_id=file_id, halo=halo,
@@ -614,9 +620,13 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
         b, ub = self.runs.pop(), self._unit.pop()
         a, ua = self.runs.pop(), self._unit.pop()
         with self.timer.phase("merge"):
-            self.runs.append(dx.run_merge_pair_step(a, b, unit=ua and ub))
+            self.runs.append(self._merge_pair(a, b, ua and ub))
         self._unit.append(ua and ub)
         self._drop_stale_aux()
+
+    def _merge_pair(self, a, b, unit: bool):
+        """One LSM level merge of two stacked runs (K2)."""
+        return dx.run_merge_pair_step(a, b, unit=unit)
 
     def _shard_weight(self) -> int:
         """The largest shard's raw weight total over all runs."""
@@ -704,13 +714,16 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
             new_cap = _next_pow2(max(2 * max(self._distinct()), 16))
         while True:
             with self.timer.phase("compact"):
-                new_store, ovf = dx.run_compact_step(self.runs[0], new_cap,
-                                                     self.saturate)
+                new_store, ovf = self._compact_step(new_cap)
             if ovf == 0:
                 self.runs, self._unit = [new_store], [False]
                 self._drop_stale_aux()
                 return self
             new_cap = _next_pow2(new_cap + ovf)
+
+    def _compact_step(self, new_cap: int):
+        """(the one run compacted to new_cap rows, overflow)."""
+        return dx.run_compact_step(self.runs[0], new_cap, self.saturate)
 
     # ------------------------------------------------------------------
     def _insert_cols(self, cols: dict):
@@ -872,6 +885,291 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
             idx._insert_rows(from_numpy_u32(rows, idx.device),
                              torch.from_numpy(z["row_counts"].astype(
                                  np.int32)).to(idx.device))
+        return idx
+
+
+class BimoleculeCountIndex(CountIndex):
+    """k-mer -> count index with the Bimolecule map preset
+    (kmer_index.hpp:436-562; ``kmerind_tpu.index.api.
+    BimoleculeCountIndex``): keys are hashed and compared canonically —
+    both strands of a k-mer answer the same entry, counts are the canonical
+    CountIndex's — but each key is REPORTED in the input orientation of its
+    earliest occurrence (file order; explicit inserts after every file
+    occurrence), like the reference's hash table keeping the first-inserted
+    key.  `items`, `to_dict` and `find` return that orientation; `count_if`
+    and predicates see the canonical keys, as in the JAX package.
+
+    The store is ONE `store.RunBimolStore` per shard: canonical keys sorted
+    with duplicates, weights, the count prefix sum (K3) and each row's
+    64-bit occurrence id and strand.  Ingested chunks (K1, whose was_rc
+    flag is the strand; ids of the long kind, `id_kind`) and explicit
+    inserts wait as sorted runs until `flush_rows` rows wait or a query
+    comes; `_flush` then merges them and the store two smallest first (K2
+    with 4 payloads: weight, id halves, strand) — merging each into the
+    store one at a time would double its capacity per run.  A key's stored
+    orientation is the strand of its live row with the smallest id
+    (`store._segmented_min_rep`).
+
+    Example::
+
+        idx = BimoleculeCountIndex(KmerSpec(21, DNA))   # on the CUDA device
+        idx.build("reads.fastq")
+        words, counts = idx.find(["ACGTACGTACGTACGTACGTA"])  # as stored
+        idx.to_dict()                       # {stored-orientation int: count}
+    """
+
+    id_kind = "long"
+
+    def __init__(self, spec: KmerSpec, device="cuda",
+                 initial_capacity: int = 1 << 12, nparts: int = 1,
+                 hash_name: str = "murmur", saturate: int | None = None,
+                 timer: PhaseTimer | None = None):
+        super().__init__(spec, device, canonical=True,
+                         initial_capacity=initial_capacity, max_runs=1,
+                         nparts=nparts, hash_name=hash_name,
+                         saturate=saturate, timer=timer)
+        #: pending rows per shard that trigger a flush while building
+        self.flush_rows = 1 << 24
+        #: ids of explicitly inserted k-mers rank after every file
+        #: occurrence id (file ids use at most 63 bits)
+        self._insert_seq = 1 << 63
+
+    def clear(self):
+        """Drop every entry and pending run: one empty run of
+        `initial_capacity` rows per shard."""
+        self.runs = [st.stack_stores(
+            [st.empty_run_bimol_store(self.initial_capacity,
+                                      self.spec.nwords, self.device)]
+            * self.nparts)]
+        self._unit = [False]
+        self._virgin = True
+        self._ingested_weight = 0
+        self._aux_cache = []
+        self._strand_cache = None
+        self._pending: list = []
+        self._pending_rows = 0
+        return self
+
+    # -- the run list: pending runs, one consolidated store -------------
+    def _merge_pair(self, a, b, unit: bool):
+        return dx.run_bimol_merge_pair_step(a, b)
+
+    def _compact_step(self, new_cap: int):
+        return dx.run_bimol_compact_step(self.runs[0], new_cap,
+                                         self.saturate)
+
+    def _flush(self):
+        """Adopt every pending run (K3) and merge them and the store, two
+        smallest first (K2), into one run per shard."""
+        if not self._pending:
+            return
+        runs = [dx.run_bimol_adopt_step(*rc) for rc in self._pending]
+        self._pending, self._pending_rows = [], 0
+        self.runs = runs if self._virgin else self.runs + runs
+        self._unit, self._virgin = [False] * len(self.runs), False
+        while len(self.runs) > 1:
+            self._merge_two_smallest()
+        self._drop_stale_aux()
+        self._maybe_compact()
+
+    def _consolidate(self):
+        self._flush()
+        self._maybe_compact()
+
+    def _checkpoint_prepare(self):
+        self._flush()
+
+    def compact(self, new_cap: int | None = None):
+        """Flush, then collapse every key's rows to one (key, total,
+        minimum representative) row at capacity new_cap (see
+        `CountIndex.compact`)."""
+        self._flush()
+        return super().compact(new_cap)
+
+    def _drop_stale_aux(self):
+        super()._drop_stale_aux()
+        if self._strand_cache is not None and \
+                self._strand_cache[0] is not self.runs[0]:
+            self._strand_cache = None
+
+    def _relieve_weight_pressure(self, incoming: int):
+        """The JAX package's guard: tighten the bound to the true worst
+        shard total; if that is still too much, a saturating map compacts
+        with the clamp and rebounds from size() * saturate; else raise
+        before the int32 prefix sums can wrap."""
+        self._ingested_weight = self._shard_weight()
+        if self._ingested_weight + incoming > (1 << 31) - 1 and \
+                self.saturate is not None:
+            self.compact()
+            self._ingested_weight = self.size() * int(self.saturate)
+        if self._ingested_weight + incoming > (1 << 31) - 1:
+            raise OverflowError(
+                "Bimolecule raw weight total would overflow the int32 "
+                "prefix sums on a shard; use saturate=, more shards, or "
+                "smaller insert batches")
+
+    def _add_pending(self, run):
+        self._pending.append(tuple(run))
+        self._pending_rows += run[0].shape[-1]
+        if self._pending_rows >= self.flush_rows:
+            self._flush()
+        return self
+
+    # -- build and inserts --------------------------------------------------
+    def _insert_cols(self, cols: dict):
+        bases = self._to_device(cols)
+        cap = self._bucket_capacity(bases.codes.shape[1])
+        with self.timer.phase("insert"):
+            while True:
+                *run, ovf = dx.bimol_ingest_step(bases, self.spec,
+                                                 self.nparts, cap,
+                                                 self.hash_name)
+                if ovf == 0:
+                    break
+                cap = _next_pow2(cap + ovf)
+        self._note_weight(run[0].shape[-1])
+        return self._add_pending(run)
+
+    def _insert_tuples(self, canon, weights, id_hi, id_lo, strand):
+        """Route explicit (canonical key, weight, id halves, strand) device
+        rows to their owners as one pending run per shard."""
+        if canon.shape[0] == 0:
+            return self
+        self._flush()
+        self._note_weight(int(weights.sum()))
+        with self.timer.phase("insert"):
+            run, _ = self._route_rows(
+                lambda w, wt, h, lo, s, v, cap: dx.bimol_tuples_step(
+                    w, wt, h, lo, s, v, self.nparts, cap, self.hash_name),
+                canon, extra=(weights, id_hi, id_lo, strand))
+        return self._add_pending(run)
+
+    def _insert_explicit(self, kmers, weights: np.ndarray | None):
+        """Input-strand k-mers -> canonical rows remembering their strand,
+        with ids from `_insert_seq` on (first insertion wins)."""
+        raw = from_numpy_u32(self._to_words(kmers), self.device)
+        canon = self._maybe_canonicalize_queries(raw)
+        m = raw.shape[0]
+        ids = np.arange(m, dtype=np.uint64) + np.uint64(self._insert_seq)
+        self._insert_seq += m
+        if weights is None:
+            weights = np.ones(m, np.int32)
+        put = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+        return self._insert_tuples(
+            canon, put(weights),
+            from_numpy_u32((ids >> np.uint64(32)).astype(np.uint32),
+                           self.device),
+            from_numpy_u32(ids.astype(np.uint32), self.device),
+            (raw != canon).any(dim=1).to(torch.int32))
+
+    def insert(self, kmers):
+        """Insert input-strand k-mers, one count each: stored canonically,
+        their orientation remembered (the first insertion of a key wins)."""
+        return self._insert_explicit(kmers, None)
+
+    def insert_counts(self, kmers, counts):
+        """Insert (input-strand k-mer, count) pairs; counts are
+        non-negative int32 values."""
+        c = np.asarray(counts, dtype=np.int64).reshape(-1)
+        if c.size and (c.min() < 0 or c.max() > (1 << 31) - 1):
+            raise ValueError("counts must be non-negative int32 values")
+        return self._insert_explicit(kmers, c.astype(np.int32))
+
+    # -- queries --------------------------------------------------------
+    def _count_words(self, words: torch.Tensor) -> np.ndarray:
+        self._flush()
+        return super()._count_words(words)
+
+    def _erase_words(self, words: torch.Tensor) -> int:
+        self._flush()
+        return super()._erase_words(words)
+
+    def _strands(self) -> list:
+        """Each shard's stored-orientation column of the run, cached by run
+        identity like the query aux."""
+        if self._strand_cache is None or \
+                self._strand_cache[0] is not self.runs[0]:
+            self._strand_cache = (self.runs[0],
+                                  dx.run_bimol_strands_step(self.runs[0]))
+        return self._strand_cache[1]
+
+    def _stored(self, canon: torch.Tensor, strand: torch.Tensor):
+        """Canonical rows [m, w] in their stored orientation: reverse
+        complemented where strand is 1."""
+        rc = bitops.revcomp(canon, self.spec)
+        return torch.where((strand == 1)[:, None], rc, canon)
+
+    def find(self, kmers):
+        """(words uint32[h, w] in their STORED orientation, counts
+        int32[h]) of the queries found (either strand), in query order: one
+        routed lookup returns each canonical query's count and stored
+        strand, and flagged hits are reverse-complemented."""
+        self._flush()
+        canon = self._query_words(kmers)
+        aux = self._ensure_aux()[0]
+        strands = self._strands()
+        with self.timer.phase("find"):
+            (counts, strand), m = self._route_rows(
+                lambda q, v, cap: dx.run_bimol_find_step(
+                    q, v, aux, strands, self.nparts, cap, self.hash_name,
+                    self.saturate), canon)
+        counts, strand = counts.reshape(-1)[:m], strand.reshape(-1)[:m]
+        hit = counts > 0
+        words = self._stored(canon[hit], strand[hit])
+        return to_numpy_u32(words), counts[hit].cpu().numpy()
+
+    def items(self) -> tuple[np.ndarray, np.ndarray]:
+        """(words uint32[t, w] in their stored orientation, counts
+        int64[t]): every distinct live entry, shard by shard, each shard in
+        canonical key order, counts clamped at `saturate`."""
+        self._consolidate()
+        rows, cnts = [], []
+        for keys, counts, strand in dx.run_bimol_export_step(
+                self.runs[0], self.saturate):
+            rows.append(to_numpy_u32(self._stored(keys, strand)))
+            cnts.append(counts.cpu().numpy().astype(np.int64))
+        return np.concatenate(rows), np.concatenate(cnts)
+
+    # -- persistence: the JAX package's "bimol_count" npz ---------------
+    def save(self, path):
+        """One npz file of the compacted run — one (key, count, id,
+        strand) row per distinct key, cut after the fullest shard's last
+        live row — and the config, in the JAX package's format: either
+        package loads it, at any shard count."""
+        self.compact()
+        r = self.runs[0]
+        n = max(self._distinct())
+        cut = lambda t: t[..., :n]  # noqa: E731
+        np.savez_compressed(
+            path, kind="bimol_count", k=self.spec.k,
+            alphabet=self.spec.alphabet.name, hash_name=self.hash_name,
+            saturate=-1 if self.saturate is None else self.saturate,
+            nparts=self.nparts, keys=to_numpy_u32(cut(r.keys)),
+            weights=cut(r.weights).cpu().numpy(),
+            rep_hi=to_numpy_u32(cut(r.rep_hi)),
+            rep_lo=to_numpy_u32(cut(r.rep_lo)),
+            rep_strand=to_numpy_u32(cut(r.rep_strand)))
+        return self
+
+    @classmethod
+    def load(cls, path, device="cuda", nparts: int = 1):
+        """An index of `nparts` shards holding a saved Bimolecule index's
+        contents: the saved rows go back in with their weights, ids and
+        strands, so every stored orientation survives."""
+        z, spec = _open_npz(path, ("bimol_count",))
+        sat = int(z["saturate"])
+        idx = cls(spec, device, nparts=nparts, hash_name=str(z["hash_name"]),
+                  saturate=None if sat < 0 else sat)
+        live = z["weights"] > 0
+        cols = [np.concatenate([z[f][s][..., live[s]]
+                                for s in range(live.shape[0])], axis=-1)
+                for f in ("keys", "weights", "rep_hi", "rep_lo",
+                          "rep_strand")]
+        if cols[1].shape[0]:
+            idx._insert_tuples(
+                from_numpy_u32(cols[0].T, idx.device),
+                torch.from_numpy(cols[1].astype(np.int32)).to(idx.device),
+                *(from_numpy_u32(c, idx.device) for c in cols[2:]))
         return idx
 
 

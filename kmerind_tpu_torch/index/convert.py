@@ -14,6 +14,12 @@
   ``ops/hashing.py``) or the same splitters.
 * A JAX DeBruijnGraph / QualityDeBruijnGraph's run -> the port's graph of
   as many shards: the same rows, weights included, on the same shards.
+* A JAX BimoleculeCountIndex's store -> the port's of as many shards: the
+  same rows with their occurrence ids and strands, so every stored
+  orientation carries over.
+* A JAX KmerValueIndex / SortedKmerValueIndex's store (and splitters) ->
+  the port's value map of as many shards, the same entries on the same
+  shards.
 
 Every function takes the state as numpy arrays.
 """
@@ -27,14 +33,18 @@ from ..debruijn import DeBruijnGraph, QualityDeBruijnGraph
 from ..kmer import KmerSpec
 from ..ops.keys import from_numpy_u32
 from . import distributed as dx
-from .api import CountIndex, PositionIndex, PositionQualityIndex
+from .api import (BimoleculeCountIndex, CountIndex, PositionIndex,
+                  PositionQualityIndex)
 from .sorted_api import (SortedCountIndex, SortedPositionIndex,
                          SortedPositionQualityIndex)
-from .store import CountStore, MultiStore, RunCountStore, stack_run_stores
+from .store import (CountStore, KVStore, MultiStore, RunCountStore,
+                    stack_run_stores)
+from .value_api import KmerValueIndex, SortedKmerValueIndex
 
 __all__ = ["count_index_from_runs", "sorted_count_index_from_state",
            "position_index_from_state", "sorted_position_index_from_state",
-           "debruijn_graph_from_state"]
+           "debruijn_graph_from_state", "bimolecule_index_from_state",
+           "value_index_from_state"]
 
 
 def count_index_from_runs(runs, spec: KmerSpec, device="cuda",
@@ -159,3 +169,58 @@ def debruijn_graph_from_state(keys, ebytes, weights, qsums=None, *,
         put(weights, np.int32),
         None if qsums is None else put(qsums, np.float32))
     return g.adopt_runs([run])
+
+
+def bimolecule_index_from_state(keys, weights, rep_hi, rep_lo, rep_strand,
+                                *, spec: KmerSpec, device="cuda",
+                                hash_name: str = "murmur",
+                                saturate: int | None = None
+                                ) -> BimoleculeCountIndex:
+    """Port BimoleculeCountIndex of p shards holding a JAX
+    BimoleculeCountIndex's store: keys uint32[p, w, cap] (sorted per shard,
+    sentinel padded), weights int32[p, cap], rep_hi / rep_lo / rep_strand
+    uint32[p, cap] — ``np.asarray`` of the ``store`` fields after a
+    consolidating call such as ``size()``.  Each shard's rows stay on their
+    shard (the JAX index must use the same `hash_name`), the prefix sums
+    rebuilt (K3)."""
+    keys = np.asarray(keys, dtype=np.uint32)
+    idx = BimoleculeCountIndex(spec, device, nparts=keys.shape[0],
+                               hash_name=hash_name, saturate=saturate)
+    run = dx.run_bimol_adopt_step(
+        from_numpy_u32(keys, idx.device),
+        torch.from_numpy(np.array(weights, np.int32)).to(idx.device),
+        *(from_numpy_u32(np.asarray(a), idx.device)
+          for a in (rep_hi, rep_lo, rep_strand)))
+    return idx.adopt_runs([run])
+
+
+def value_index_from_state(keys, val_hi, val_lo, sizes, splitters=None, *,
+                           spec: KmerSpec, device="cuda", canonical=True,
+                           reduce: str = "first", hash_name: str = "murmur",
+                           id_kind: str = "short"):
+    """Port value map of p shards holding a JAX value map's store: keys
+    uint32[p, cap, w], val_hi / val_lo uint32[p, cap], sizes int32[p] (the
+    ``store`` fields); with `splitters` (uint32[p, p-1, w], one replicated
+    row per shard: a flushed SortedKmerValueIndex) a SortedKmerValueIndex
+    routed by them, else a KmerValueIndex (the JAX index must use the same
+    `hash_name`).  Rows past each shard's size become sentinels."""
+    keys = np.asarray(keys, dtype=np.uint32)
+    sizes = np.asarray(sizes, np.int32)
+    p = keys.shape[0]
+    if splitters is None:
+        idx = KmerValueIndex(spec, device, canonical=canonical, nparts=p,
+                             hash_name=hash_name, reduce=reduce,
+                             id_kind=id_kind)
+    else:
+        idx = SortedKmerValueIndex(spec, device, canonical=canonical,
+                                   nparts=p, reduce=reduce, id_kind=id_kind)
+        idx.splitters = from_numpy_u32(np.asarray(splitters)[0], idx.device)
+    live = np.arange(keys.shape[1])[None, :] < sizes[:, None]
+    put = lambda a, fill: from_numpy_u32(  # noqa: E731
+        np.where(live, np.asarray(a, np.uint32), fill), idx.device)
+    idx.store = KVStore(
+        keys=from_numpy_u32(np.where(live[..., None], keys, 0xFFFFFFFF),
+                            idx.device),
+        val_hi=put(val_hi, 0), val_lo=put(val_lo, 0),
+        size=torch.from_numpy(sizes.copy()).to(idx.device))
+    return idx

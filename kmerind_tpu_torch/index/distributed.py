@@ -1,5 +1,6 @@
 """Per-shard index steps of the hash-partitioned indexes: the run-layout
-count map, the multimap and the de Bruijn graphs' node stores.
+count map (and its Bimolecule twin), the multimap, the de Bruijn graphs'
+node stores and the unique-key value map.
 
 The port of ``kmerind_tpu.index.distributed``: each ``make_*_step``
 factory there returns a jitted ``shard_map`` program; here each step is a
@@ -38,7 +39,13 @@ __all__ = ["owners_for", "run_ingest_step", "run_insert_step",
            "debruijn_ingest_step", "run_vec_load_step", "run_vec_adopt_step",
            "run_vec_merge_pair_step", "run_vec_table_step",
            "run_vec_stats_step", "run_vec_compact_step", "run_vec_aux_step",
-           "runs_vec_query_step", "run_vec_export_step"]
+           "runs_vec_query_step", "run_vec_export_step",
+           "bimol_ingest_step", "bimol_tuples_step", "run_bimol_adopt_step",
+           "run_bimol_merge_pair_step", "run_bimol_compact_step",
+           "run_bimol_strands_step", "run_bimol_find_step",
+           "run_bimol_export_step", "kv_insert_step", "kv_ingest_step",
+           "kv_find_routed", "kv_erase_routed", "kv_filter_step",
+           "kv_select_step"]
 
 
 def owners_for(words: torch.Tensor, nparts: int, hash_name: str = "murmur",
@@ -129,10 +136,11 @@ def run_compact_step(store: st.RunCountStore, new_cap: int,
 
 def run_filter_step(store: st.RunCountStore, keep_pred,
                     saturate: int | None = None):
-    """erase_if / filter over every shard of one run (store.run_filter):
-    (new stacked store, distinct keys removed)."""
+    """erase_if / filter over every shard of one run (store.run_filter; a
+    Bimolecule run keeps its representatives): (new stacked store,
+    distinct keys removed)."""
     out = [st.run_filter(sh, keep_pred, saturate) for sh in _shards(store)]
-    return (st.stack_run_stores([o[0] for o in out]),
+    return (st.stack_stores([o[0] for o in out]),
             int(sum(o[1] for o in out)))
 
 
@@ -201,7 +209,7 @@ def runs_erase_step(runs, aux, queries: torch.Tensor, qvalid: torch.Tensor,
         s_words, _, s_had = sortops.sort_rows(rq[s], (), had,
                                               is_stable=False)
         nerased += sortops.compact_runs(s_words, s_had)[3]
-    new_runs = [st.stack_run_stores([shards[s][r] for s in range(nparts)])
+    new_runs = [st.stack_stores([shards[s][r] for s in range(nparts)])
                 for r in range(len(runs))]
     return new_runs, int(nerased), route.overflow
 
@@ -562,3 +570,200 @@ def run_vec_export_step(store, saturate: int | None = None) -> list:
     """Per shard, (keys int32[t, w], counters int32[t, 9], quality sums
     float64[t] or None) of every node (store.run_vec_export)."""
     return [st.run_vec_export(sh, saturate) for sh in _shards(store)]
+
+
+# ------------------------------------------------------- Bimolecule run map
+# The count family's run steps serve a RunBimolStore as they are (stats,
+# aux, count query, erase, filter, select, histogram); only the
+# representative columns need steps of their own.
+def _bimol_run(words, pays, valid, sentinel_ok: bool):
+    """One shard's (key [n, w], weight, id_hi, id_lo, strand) rows sorted
+    into an adoptable Bimolecule run: (key columns [w, n], sentinel keys
+    after the valid rows; weights 0, ids sentinel and strand 0 on the dead
+    rows)."""
+    c, (wt, hi, lo, stc), v = sortops.sort_rows(
+        words, pays, valid, is_stable=False, sentinel_ok=sentinel_ok,
+        as_cols=True)
+    return (torch.where(v[None, :], c, SENTINEL), torch.where(v, wt, 0),
+            torch.where(v, hi, SENTINEL), torch.where(v, lo, SENTINEL),
+            torch.where(v, stc, 0))
+
+
+def _bimol_runs(rw, pays, rvalid, nparts: int, sentinel_ok: bool):
+    runs = [_bimol_run(rw[s], tuple(p[s] for p in pays), rvalid[s],
+                       sentinel_ok) for s in range(nparts)]
+    return tuple(st.stack([r[i] for r in runs]) for i in range(5))
+
+
+def bimol_ingest_step(bases: DeviceBases, spec, nparts: int,
+                      capacity: int | None, hash_name: str = "murmur"):
+    """Bimolecule ingest of per-base tensors [p, L] (the JAX package's
+    ``make_bimol_run_ingest_step``): K1 — its was_rc flag is the strand —,
+    the owner exchange with (id_hi, id_lo, strand) as payloads and one sort
+    per shard; live rows weigh 1.  Returns (key columns int32[p, w, n],
+    weights, id_hi, id_lo, strand int32[p, n], overflow): an adoptable run
+    per shard."""
+    tups = [extract_tuples(bases.shard(s), spec, canonical=True)
+            for s in range(bases.codes.shape[0])]
+    words = st.stack([t.words for t in tups])
+    valid = st.stack([t.valid for t in tups])
+    cols = (words, valid.to(torch.int32), st.stack([t.id_hi for t in tups]),
+            st.stack([t.id_lo for t in tups]),
+            st.stack([t.strand.to(torch.int32) for t in tups]))
+    owner = owners_for(words, nparts, hash_name)
+    (rw, *pays), rvalid, route = dist.distribute(cols, owner, valid, nparts,
+                                                 capacity)
+    return (*_bimol_runs(rw, pays, rvalid, nparts, spec.sentinel_safe),
+            route.overflow)
+
+
+def bimol_tuples_step(words, weights, id_hi, id_lo, strand, valid,
+                      nparts: int, capacity: int | None,
+                      hash_name: str = "murmur"):
+    """Explicit (canonical key, weight, id halves, strand) rows [p, m, ...]
+    (insert, insert_counts, load): route to the owners and sort each
+    shard's into an adoptable run.  Returns as `bimol_ingest_step`."""
+    owner = owners_for(words, nparts, hash_name)
+    (rw, *pays), rvalid, route = dist.distribute(
+        (words, weights, id_hi, id_lo, strand), owner, valid, nparts,
+        capacity)
+    return (*_bimol_runs(rw, pays, rvalid, nparts, False), route.overflow)
+
+
+def run_bimol_adopt_step(kcols, weights, id_hi, id_lo,
+                         strand) -> st.RunBimolStore:
+    """Adopt a sorted Bimolecule run per shard ([p, w, n] / [p, n]) as a
+    stacked store (each prefix sum through K3)."""
+    return st.stack_stores([st.run_bimol_from_sorted(
+        kcols[s], weights[s], id_hi[s], id_lo[s], strand[s])
+        for s in range(kcols.shape[0])])
+
+
+def run_bimol_merge_pair_step(a: st.RunBimolStore,
+                              b: st.RunBimolStore) -> st.RunBimolStore:
+    """Merge two stacked Bimolecule runs shard by shard (K2, 4 payloads)."""
+    return st.stack_stores([st.run_bimol_merge(a.shard(s), b.shard(s))
+                            for s in range(a.keys.shape[0])])
+
+
+def run_bimol_compact_step(store: st.RunBimolStore, new_cap: int,
+                           saturate: int | None = None):
+    """(compacted stacked store, the largest shard overflow) — see
+    store.run_bimol_compact."""
+    out = [st.run_bimol_compact(sh, new_cap, saturate)
+           for sh in _shards(store)]
+    return st.stack_stores([o[0] for o in out]), max(o[1] for o in out)
+
+
+def run_bimol_strands_step(store: st.RunBimolStore) -> list:
+    """Each shard's stored-orientation column (store.run_bimol_strands)."""
+    return [st.run_bimol_strands(sh) for sh in _shards(store)]
+
+
+def run_bimol_find_step(queries: torch.Tensor, qvalid: torch.Tensor, aux,
+                        strands, nparts: int = 1,
+                        capacity: int | None = None,
+                        hash_name: str = "murmur",
+                        saturate: int | None = None):
+    """Bimolecule find over the one run: route the canonical query rows
+    [p, m, w] (qvalid [p, m]) to their owners, look up each one's count
+    and stored orientation (store.run_bimol_find_aux; aux and strands per
+    shard), reply.  Returns (counts int32[p, m], strand int32[p, m],
+    overflow)."""
+    owner = owners_for(queries, nparts, hash_name)
+    (rq,), rvalid, route = dist.distribute((queries,), owner, qvalid, nparts,
+                                           capacity)
+    counts, strand = [], []
+    for s in range(nparts):
+        c, o = st.run_bimol_find_aux(*aux[s], strands[s], rq[s], saturate)
+        counts.append(torch.where(rvalid[s], c, 0))
+        strand.append(torch.where(rvalid[s], o, 0))
+    back = dist.undistribute((st.stack(counts), st.stack(strand)), route,
+                             nparts, capacity)
+    return (*back, route.overflow)
+
+
+def run_bimol_export_step(store: st.RunBimolStore,
+                          saturate: int | None = None) -> list:
+    """Per shard, (keys int32[t, w], counts int32[t], strand int32[t]) of
+    every distinct live key (store.run_bimol_export)."""
+    return [st.run_bimol_export(sh, saturate) for sh in _shards(store)]
+
+
+# ------------------------------------------------- unique-key value map
+def _kv_stack(reduced, capacity: int) -> st.KVStore:
+    """Per-shard `kv_reduce` outputs -> one stacked store of capacity
+    max(capacity, next_pow2 of the largest shard's distinct keys)."""
+    largest = max(int(r[3]) for r in reduced)
+    cap = max(capacity, 1 << max(4, (largest - 1).bit_length()))
+    return st.stack_stores([st.kv_cut(*r, cap) for r in reduced])
+
+
+def kv_insert_step(store: st.KVStore, words, val_hi, val_lo, valid,
+                   nparts: int, capacity: int | None,
+                   hash_name: str = "murmur", reduce: str = "first"):
+    """Route (key, value) rows [p, m, ...] (valid [p, m]) to their owners
+    and merge each shard's under the reduction (store.kv_insert; arrival
+    order at an owner is source-shard-major).  Each shard's capacity grows
+    to fit: no store overflow.  Returns (new stacked store, route
+    overflow)."""
+    owner = owners_for(words, nparts, hash_name)
+    (rw, rhi, rlo), rvalid, route = dist.distribute(
+        (words, val_hi, val_lo), owner, valid, nparts, capacity)
+    reduced = [st.kv_insert(store.shard(s), rw[s], rhi[s], rlo[s], rvalid[s],
+                            reduce) for s in range(nparts)]
+    return _kv_stack(reduced, store.capacity), route.overflow
+
+
+def kv_ingest_step(store: st.KVStore, bases: DeviceBases, spec, canonical,
+                   nparts: int, capacity: int | None,
+                   hash_name: str = "murmur", reduce: str = "min"):
+    """Value-map file ingest of per-base tensors [p, L]: extraction (K1
+    under the canonical preset), each window's 64-bit position id as its
+    value, then `kv_insert_step`.  Returns as it."""
+    tups = [extract_tuples(bases.shard(s), spec, canonical=canonical)
+            for s in range(bases.codes.shape[0])]
+    get = lambda f: st.stack([getattr(t, f) for t in tups])  # noqa: E731
+    return kv_insert_step(store, get("words"), get("id_hi"), get("id_lo"),
+                          get("valid"), nparts, capacity, hash_name, reduce)
+
+
+def kv_find_routed(store: st.KVStore, queries, qvalid, owner, nparts: int,
+                   capacity: int | None):
+    """Value lookup of query rows [p, m, w] under a given owner map (the
+    hash's or the splitters'): (val_hi, val_lo int32[p, m], found
+    bool[p, m], overflow)."""
+    (rq,), rvalid, route = dist.distribute((queries,), owner, qvalid, nparts,
+                                           capacity)
+    out = [st.kv_lookup(store.shard(s), rq[s]) for s in range(nparts)]
+    hi, lo, found = (st.stack([o[i] for o in out]) for i in range(3))
+    back = dist.undistribute((hi, lo, found & rvalid), route, nparts,
+                             capacity)
+    return (*back, route.overflow)
+
+
+def kv_erase_routed(store: st.KVStore, keys, valid, owner, nparts: int,
+                    capacity: int | None):
+    """Erase the key rows [p, m, w] under a given owner map: (new stacked
+    store, keys erased, overflow)."""
+    (rk,), rvalid, route = dist.distribute((keys,), owner, valid, nparts,
+                                           capacity)
+    out = [st.kv_erase(store.shard(s), rk[s], rvalid[s])
+           for s in range(nparts)]
+    return (st.stack_stores([o[0] for o in out]),
+            sum(int(o[1]) for o in out), route.overflow)
+
+
+def kv_filter_step(store: st.KVStore, keep_pred):
+    """erase_if / filter over every entry: entries failing keep_pred(keys
+    int64[cap, w], val_hi int64[cap], val_lo int64[cap]) -> bool[cap] are
+    removed.  Returns (new stacked store, entries removed)."""
+    out = [st.kv_filter(sh, keep_pred) for sh in _shards(store)]
+    return (st.stack_stores([o[0] for o in out]),
+            int(sum(o[1] for o in out)))
+
+
+def kv_select_step(store: st.KVStore, pred) -> list:
+    """Per shard, (keys int32[t, w], val_hi, val_lo) of the entries
+    satisfying pred (store.kv_select), in key order."""
+    return [st.kv_select(sh, pred) for sh in _shards(store)]

@@ -18,7 +18,9 @@ distributed_sorted_map.hpp:2825).  Where the hash strategy owns keys by
 The multimap (sorted_multimap, :2333) keeps every pair: its ingest only
 extracts, its flush sorts each shard's received pairs into a `MultiStore`,
 and its queries share the hash multimap's routed lookups
-(``distributed.py``) under the splitter owner map.
+(``distributed.py``) under the splitter owner map.  The value map
+(sorted_map, :1407) ingests like the multimap, reduces each key's rows to
+one in its flush, and shares the hash value map's routed lookups.
 
 Each JAX ``make_*_step`` factory returns a jitted ``shard_map`` program;
 here each step is a plain function over stacked [p, ...] shard tensors
@@ -39,7 +41,7 @@ from . import store as st
 
 __all__ = ["owners_from_splitters", "local_ingest_step", "count_flush_step",
            "count_query_step", "count_erase_step",
-           "multi_local_ingest_step", "multi_flush_step"]
+           "multi_local_ingest_step", "multi_flush_step", "kv_flush_step"]
 
 
 def local_ingest_step(bases: DeviceBases, spec, canonical):
@@ -166,3 +168,30 @@ def multi_flush_step(words, hi, lo, q, valid, nparts: int, capacity: int,
         x.keys[:, :cap].contiguous(), x.val_hi[:cap], x.val_lo[:cap],
         x.val_q[:cap], x.size) for x in stores]), splitters, route.overflow)
 
+
+# ------------------------------------------------ unique-key value map
+def kv_flush_step(words, val_hi, val_lo, order, valid, nparts: int,
+                  capacity: int, reduce: str = "first",
+                  sentinel_ok: bool = False, oversample: int = 64):
+    """The sorted value map's rebuild (sorted_map's global sort,
+    distributed_sorted_map.hpp:1407): (words [p, n, w], val_hi, val_lo,
+    order — the priority columns of reduce="first", each [p, n] —, valid
+    [p, n]) -> (stacked `KVStore`, splitters [p-1, w], overflow).  The
+    inputs are ALL rows (the store's entries with the lowest priority,
+    then the pending inserts); each shard reduces what it received
+    (store.kv_reduce: under "first" the row first in priority, then
+    arrival order; under "min" / "max" the extreme value), its capacity cut
+    to next_pow2 of the largest shard's size (at least 16)."""
+    splitters = global_splitters(words, valid, nparts, oversample,
+                                 sentinel_ok)
+    owner = owners_from_splitters(words, splitters, nparts)
+    order = tuple(order) if reduce == "first" else ()
+    (rw, rhi, rlo, *rord), rvalid, route = dist.distribute(
+        (words, val_hi, val_lo) + order, owner, valid, nparts, capacity)
+    reduced = [st.kv_reduce(rw[s], rhi[s], rlo[s], rvalid[s], reduce,
+                            tuple(o[s] for o in rord))
+               for s in range(nparts)]
+    largest = max(int(r[3]) for r in reduced)
+    cap = min(rw.shape[1], 1 << max(4, (largest - 1).bit_length()))
+    return (st.stack_stores([st.kv_cut(*r, cap) for r in reduced]),
+            splitters, route.overflow)

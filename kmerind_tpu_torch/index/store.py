@@ -13,7 +13,10 @@ analog of the reference's lazy sorted map (distributed_sorted_map.hpp:
 2669+) virtualized into the prefix sum.  A `MultiStore` holds (key, 64-bit
 id, quality) pairs sorted by key with duplicates — the position and
 position+quality multimaps (densehash_multimap) — and a flush merges a
-sorted batch into it with K2.
+sorted batch into it with K2.  A `RunBimolStore` is a `RunCountStore`
+with each row's occurrence id and strand (the Bimolecule preset: K2 with
+4 payloads, K3), and a `KVStore` the unique-key k-mer -> 64-bit value
+map (one stable sort of store and batch per insert).
 
 One shard's store has the shapes given in its class; an index of p shards
 stacks them on a leading axis ([p, ...], `shard` takes one apart).
@@ -46,6 +49,9 @@ __all__ = ["CountStore", "empty_count_store", "stack_count_stores",
            "run_totals", "run_distinct", "run_query_aux", "run_lookup_aux",
            "run_erase_cover", "run_filter", "run_select", "run_histogram",
            "run_compact", "run_grow", "stack_run_stores",
+           "RunBimolStore", "empty_run_bimol_store", "run_bimol_from_sorted",
+           "run_bimol_merge", "run_bimol_strands", "run_bimol_find_aux",
+           "run_bimol_export", "run_bimol_compact",
            "MultiStore", "empty_multi_store", "stack_multi_stores",
            "multi_grow", "multi_insert", "multi_merge_flush",
            "multi_merge_flush_flagged", "multi_query_aux",
@@ -59,7 +65,10 @@ __all__ = ["CountStore", "empty_count_store", "stack_count_stores",
            "run_vecq_from_sorted", "run_vecq_from_sorted_unit",
            "run_vecq_merge", "run_vecq_merge_unit", "run_vec_with_table",
            "run_vec_distinct", "run_vec_query_aux", "run_vec_lookup",
-           "run_vec_export", "run_vec_compact", "run_vec_grow"]
+           "run_vec_export", "run_vec_compact", "run_vec_grow",
+           "KVStore", "empty_kv_store", "kv_grow", "kv_reduce", "kv_insert",
+           "kv_cut", "kv_lookup", "kv_keep", "kv_erase", "kv_filter",
+           "kv_select"]
 
 
 def stack(ts) -> torch.Tensor:
@@ -244,6 +253,13 @@ def run_from_sorted(kcols: torch.Tensor, weights: torch.Tensor) -> RunCountStore
                          csum=_exclusive(_cumsum_i32(weights)))
 
 
+def _reweighted(store, weights: torch.Tensor):
+    """The run (a `RunCountStore` or a `RunBimolStore`) with new weights and
+    their prefix sum rebuilt (K3); every other column as it was."""
+    return dataclasses.replace(store, weights=weights,
+                               csum=_exclusive(_cumsum_i32(weights)))
+
+
 def run_merge(store: RunCountStore, kcols: torch.Tensor,
               weights: torch.Tensor) -> RunCountStore:
     """Merge a sorted weighted run into the store (K2 merge with the weights
@@ -342,14 +358,15 @@ def run_lookup_aux(ext: torch.Tensor, bstart: torch.Tensor,
     return _run_find(ext, bstart, queries)[2]
 
 
-def run_erase_cover(store: RunCountStore, ext: torch.Tensor,
+def run_erase_cover(store, ext: torch.Tensor,
                     bstart: torch.Tensor, queries: torch.Tensor,
                     qvalid: torch.Tensor) -> RunCountStore:
     """Zero the weights of every row whose key equals a valid query row
     (the mutation half of erase; the caller counts the distinct keys
     erased over all runs) and rebuild the prefix sum (K3).  The rows stay
     in place, so the run stays sorted; `run_compact` reclaims them.  ext,
-    bstart: the run's `run_query_aux`."""
+    bstart: the run's `run_query_aux`.  A `RunBimolStore` keeps its
+    representatives (a weight-0 row never wins their minimum)."""
     lo, hit, _ = _run_find(ext, bstart, queries)
     neq_prev, _ = _adjacent_neq(store.keys)
     # a hit's lo is the head of its key's run: mark the run, then every row
@@ -359,8 +376,7 @@ def run_erase_cover(store: RunCountStore, ext: torch.Tensor,
     marked[torch.where(hit & qvalid, lo, store.capacity)] = True
     run_id = torch.cumsum(neq_prev, 0) - 1
     covered = marked[:-1][neq_prev][run_id]
-    return run_from_sorted(store.keys,
-                           torch.where(covered, 0, store.weights))
+    return _reweighted(store, torch.where(covered, 0, store.weights))
 
 
 def _clamped_totals(store: RunCountStore, saturate: int | None):
@@ -371,15 +387,16 @@ def _clamped_totals(store: RunCountStore, saturate: int | None):
     return is_head, is_last, total, seen
 
 
-def run_filter(store: RunCountStore, keep_pred, saturate: int | None = None):
-    """erase_if / filter over one run: every row of a key whose (key,
-    count) fails keep_pred(keys int64[cap, w], counts int32[cap]) ->
-    bool[cap] gets weight 0, the prefix sum is rebuilt (K3).  Counts are
-    the run totals clamped at `saturate`.  Returns (new_store, distinct
-    keys removed 0-d)."""
+def run_filter(store, keep_pred, saturate: int | None = None):
+    """erase_if / filter over one run (a `RunCountStore` or a
+    `RunBimolStore`): every row of a key whose (key, count) fails
+    keep_pred(keys int64[cap, w], counts int32[cap]) -> bool[cap] gets
+    weight 0, the prefix sum is rebuilt (K3).  Counts are the run totals
+    clamped at `saturate`.  Returns (new_store, distinct keys removed
+    0-d)."""
     _, is_last, total, seen = _clamped_totals(store, saturate)
     kill = (total > 0) & ~keep_pred(pred_keys(store.keys), seen)
-    return (run_from_sorted(store.keys, torch.where(kill, 0, store.weights)),
+    return (_reweighted(store, torch.where(kill, 0, store.weights)),
             (is_last & kill).sum())
 
 
@@ -403,15 +420,26 @@ def run_histogram(store: RunCountStore, nbins: int,
     return histogram_of(seen, is_last & (total > 0), nbins)
 
 
-def run_grow(store: RunCountStore, pad: int) -> RunCountStore:
-    """The run (one shard or stacked) with `pad` more rows: sentinel keys of
-    weight 0, the prefix sum carried flat."""
-    keys = torch.nn.functional.pad(store.keys, (0, pad), value=SENTINEL)
-    weights = torch.nn.functional.pad(store.weights, (0, pad))
-    last = store.csum[..., -1:]
-    csum = torch.cat([store.csum, last.expand(last.shape[:-1] + (pad,))],
-                     dim=-1)
-    return RunCountStore(keys, weights, csum)
+#: fill of each run column's padding rows (`run_grow`): no key, weight 0,
+#: no representative
+_RUN_PAD = {"keys": SENTINEL, "rep_hi": SENTINEL, "rep_lo": SENTINEL}
+
+
+def run_grow(store, pad: int):
+    """The run (a `RunCountStore` or a `RunBimolStore`, one shard or
+    stacked) with `pad` more rows: sentinel keys of weight 0 (and sentinel
+    representatives), the prefix sum carried flat."""
+    fields = {}
+    for f in dataclasses.fields(store):
+        v = getattr(store, f.name)
+        if f.name == "csum":
+            last = v[..., -1:]
+            fields[f.name] = torch.cat(
+                [v, last.expand(last.shape[:-1] + (pad,))], dim=-1)
+        else:
+            fields[f.name] = torch.nn.functional.pad(
+                v, (0, pad), value=_RUN_PAD.get(f.name, 0))
+    return type(store)(**fields)
 
 
 def run_compact(store: RunCountStore, new_cap: int,
@@ -433,6 +461,156 @@ def run_compact(store: RunCountStore, new_cap: int,
     keys[:, : keep.shape[0]] = store.keys[:, keep]
     totals[: keep.shape[0]] = total[keep]
     return run_from_sorted(keys, totals), max(n_emit - new_cap, 0)
+
+
+# ------------------------------------------------ run-layout Bimolecule map
+@dataclasses.dataclass
+class RunBimolStore(RunCountStore):
+    """Bimolecule counting store in RUN layout (``kmerind_tpu.index.store.
+    RunBimolStore``): a `RunCountStore` — canonical keys sorted with
+    duplicates, weights, the count prefix sum, so the count family's
+    totals, queries, erase, filter, histogram and select serve it as they
+    are — plus each row's occurrence id (``rep_hi`` / ``rep_lo``, the
+    uint32 halves of a 64-bit id) and strand (``rep_strand``, 1 where the
+    input k-mer was the reverse complement of its canonical key).
+
+    The Bimolecule preset (kmer_index.hpp:436-562) reports each key in the
+    input orientation of its first occurrence: the live row of the key's
+    run with the smallest id (`_segmented_min_rep`) supplies it.  Dead rows
+    (weight 0) never win; padding rows hold sentinel keys and ids.  File
+    ids use at most 63 bits and explicit inserts count up from 2^63, so
+    ids compare as UNSIGNED 64-bit values.
+
+    One shard: keys int32[w, cap], weights / rep_hi / rep_lo / rep_strand
+    int32[cap], csum int32[cap + 1]; p shards stack [p, ...]."""
+
+    rep_hi: torch.Tensor
+    rep_lo: torch.Tensor
+    rep_strand: torch.Tensor
+
+    def shard(self, s: int) -> "RunBimolStore":
+        return RunBimolStore(*(getattr(self, f.name)[s]
+                               for f in dataclasses.fields(self)))
+
+
+def empty_run_bimol_store(capacity: int, nwords: int,
+                          device) -> RunBimolStore:
+    base = empty_run_count_store(capacity, nwords, device)
+    sent = torch.full((capacity,), SENTINEL, dtype=torch.int32,
+                      device=device)
+    return RunBimolStore(**vars(base), rep_hi=sent, rep_lo=sent.clone(),
+                         rep_strand=torch.zeros_like(sent))
+
+
+def run_bimol_from_sorted(kcols, weights, rep_hi, rep_lo,
+                          rep_strand) -> RunBimolStore:
+    """Adopt an already-sorted weighted run with its representative columns
+    (the prefix sum is K3)."""
+    wt = weights.to(torch.int32)
+    return RunBimolStore(keys=kcols, weights=wt,
+                         csum=_exclusive(_cumsum_i32(wt)),
+                         rep_hi=rep_hi.to(torch.int32),
+                         rep_lo=rep_lo.to(torch.int32),
+                         rep_strand=rep_strand.to(torch.int32))
+
+
+def run_bimol_merge(a: RunBimolStore, b: RunBimolStore) -> RunBimolStore:
+    """Merge two Bimolecule runs: K2 with the weights, both id halves and
+    the strand as its 4 payloads, then the prefix sum (K3).  Capacity
+    next_pow2(cap_a + cap_b)."""
+    pays = lambda r: (r.weights, r.rep_hi, r.rep_lo, r.rep_strand)  # noqa: E731
+    keys, m = sortops.merge_sorted_runs_cols(a.keys, pays(a), b.keys, pays(b))
+    return run_bimol_from_sorted(keys, *m)
+
+
+_I64_MIN = torch.iinfo(torch.int64).min
+_I64_MAX = torch.iinfo(torch.int64).max
+
+
+def _segmented_min_rep(store: RunBimolStore):
+    """(rep_hi, rep_lo, rep_strand) int32[cap]: each row's key-run minimum
+    representative — the live row with the smallest unsigned 64-bit id, the
+    first such row on a tie — broadcast over the run.  The id packs into
+    one int64 biased by 2^63 (signed order = unsigned order; a dead row's
+    is the sentinel's, INT64_MAX), one `scatter_reduce` "amin" per run
+    index (a cumsum of the head flags) gives each run's minimum, a second
+    over the row indices that hold it gives the first, and one gather
+    broadcasts its strand.  A run with no live row reports sentinel ids and
+    strand 0, as the JAX package's associative scan does.  No cummin: a
+    single-block scan on CUDA."""
+    cap = store.capacity
+    dev = store.keys.device
+    live = store.weights > 0
+    key = ((to_u64(store.rep_hi) << 32) | to_u64(store.rep_lo)) ^ _I64_MIN
+    key = torch.where(live, key, _I64_MAX)
+    neq_prev, _ = _adjacent_neq(store.keys)
+    run_id = torch.cumsum(neq_prev, 0) - 1
+    rmin = torch.full((cap,), _I64_MAX, dtype=torch.int64,
+                      device=dev).scatter_reduce(0, run_id, key, "amin")
+    rmin = rmin[run_id]
+    rows = torch.arange(cap, device=dev)
+    first = torch.full((cap,), cap, dtype=torch.int64,
+                       device=dev).scatter_reduce(
+        0, run_id, torch.where(key == rmin, rows, cap), "amin")
+    strand = torch.where(live, store.rep_strand, 0)[first[run_id]]
+    ident = rmin ^ _I64_MIN
+    return (ident >> 32).to(torch.int32), ident.to(torch.int32), strand
+
+
+def run_bimol_strands(store: RunBimolStore) -> torch.Tensor:
+    """int32[cap]: each row's stored orientation (the strand of its run's
+    minimum representative) — built once per run version, beside its
+    `run_query_aux`, for find."""
+    return _segmented_min_rep(store)[2]
+
+
+def run_bimol_find_aux(ext: torch.Tensor, bstart: torch.Tensor,
+                       strands: torch.Tensor, queries: torch.Tensor,
+                       saturate: int | None = None):
+    """(counts int32[m], strand int32[m]) per canonical query row [m, w]:
+    the count (clamped at `saturate`) and the stored orientation of each
+    key present, 0 / 0 where absent (the device half of Bimolecule find).
+    ext, bstart: the run's `run_query_aux`; strands: `run_bimol_strands`."""
+    lo, hit, total = _run_find(ext, bstart, queries)
+    counts = total if saturate is None else total.clamp(max=saturate)
+    at = lo.clamp(0, strands.shape[0] - 1)
+    return counts, torch.where(hit & (counts > 0), strands[at], 0)
+
+
+def run_bimol_export(store: RunBimolStore, saturate: int | None = None):
+    """(keys int32[t, w], counts int32[t], strand int32[t]): one row per
+    distinct live key, in key order — its canonical words, count (clamped
+    at `saturate`) and stored orientation."""
+    _, is_last, total, seen = _clamped_totals(store, saturate)
+    emit = is_last & (total > 0)
+    strand = run_bimol_strands(store)
+    return store.keys[:, emit].t(), seen[emit], strand[emit]
+
+
+def run_bimol_compact(store: RunBimolStore, new_cap: int,
+                      saturate: int | None = None):
+    """Collapse every key run to one (key, total, minimum representative)
+    row, live rows first in key order, at capacity `new_cap`, the totals
+    clamped at `saturate`.  Returns (new_store, overflow = distinct -
+    new_cap when positive: the store is then cut and the caller retries
+    larger)."""
+    w = store.keys.shape[0]
+    dev = store.keys.device
+    _, is_last, raw, total = _clamped_totals(store, saturate)
+    mhi, mlo, mst = _segmented_min_rep(store)
+    emit = torch.nonzero(is_last & (raw > 0)).squeeze(1)
+    keep = emit[:new_cap]
+    n = keep.shape[0]
+    keys = torch.full((w, new_cap), SENTINEL, dtype=torch.int32, device=dev)
+    keys[:, :n] = store.keys[:, keep]
+    cols = []
+    for src, fill in ((total, 0), (mhi, SENTINEL), (mlo, SENTINEL),
+                      (mst, 0)):
+        c = torch.full((new_cap,), fill, dtype=torch.int32, device=dev)
+        c[:n] = src[keep]
+        cols.append(c)
+    return run_bimol_from_sorted(keys, *cols), max(emit.shape[0] - new_cap,
+                                                   0)
 
 
 # ------------------------------------------------------------------ multimap
@@ -1023,3 +1201,174 @@ def run_vec_grow(store: RunVecStore, pad: int) -> RunVecStore:
         fields.update(qsums=pad_(store.qsums, (0, pad)),
                       qcsum=flat(store.qcsum))
     return type(store)(**fields)
+
+
+# ------------------------------------------------ unique-key value map
+@dataclasses.dataclass
+class KVStore:
+    """Unique-key k-mer -> 64-bit value map (``kmerind_tpu.index.store.
+    KVStore``; the reference's generic ``KmerIndex = Index<densehash_map<
+    Kmer, T>>``, kmer_index.hpp:397-399, and its sorted-map twin).
+
+    One shard: ``keys`` int32[cap, w] ROW-major (uint32 words; the JAX
+    layout, so npz files cross-load) sorted and distinct in rows [0, size),
+    all-ones sentinel rows after; ``val_hi`` / ``val_lo`` int32[cap] the
+    uint32 halves of the value, 0 past size; ``size`` int32 0-d.  p shards
+    stack [p, ...]."""
+
+    keys: torch.Tensor
+    val_hi: torch.Tensor
+    val_lo: torch.Tensor
+    size: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.keys.shape[-2]
+
+    def shard(self, s: int) -> "KVStore":
+        return KVStore(self.keys[s], self.val_hi[s], self.val_lo[s],
+                       self.size[s])
+
+
+def empty_kv_store(capacity: int, nwords: int, device) -> KVStore:
+    zeros = torch.zeros(capacity, dtype=torch.int32, device=device)
+    return KVStore(
+        keys=torch.full((capacity, nwords), SENTINEL, dtype=torch.int32,
+                        device=device),
+        val_hi=zeros, val_lo=zeros.clone(),
+        size=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def kv_grow(store: KVStore, new_cap: int) -> KVStore:
+    """The store (one shard or stacked) padded to capacity new_cap."""
+    pad = new_cap - store.capacity
+    pad_ = torch.nn.functional.pad
+    return KVStore(pad_(store.keys, (0, 0, 0, pad), value=SENTINEL),
+                   pad_(store.val_hi, (0, pad)), pad_(store.val_lo, (0, pad)),
+                   store.size)
+
+
+def kv_reduce(words, val_hi, val_lo, valid, reduce: str = "first",
+              order=()):
+    """One row per distinct valid key of rows words [n, w] / [n]: under
+    reduce="first" the row first in (`order` columns, then arrival) order —
+    `order` holds int32-held uint32 priority columns, most significant
+    first —, under "min" / "max" the row with the smallest / largest
+    unsigned 64-bit value.  One stable sort (`sortops.kv_order`: the key
+    words, then the priority or the value halves — their bitwise NOT for
+    "max") and `compact_runs`.
+
+    Returns (keys [n, w] — the distinct keys first, in key order, sentinel
+    rows after; val_hi, val_lo [n], 0 past n_unique; n_unique 0-d)."""
+    if reduce == "first":
+        extra = tuple(order)
+    elif reduce == "min":
+        extra = (val_hi, val_lo)
+    elif reduce == "max":
+        extra = (~val_hi, ~val_lo)
+    else:
+        raise ValueError(f"unknown reduce {reduce!r}")
+    perm = sortops.kv_order(valid, words, extra)
+    uniq, (hi, lo), _, n_unique, _ = sortops.compact_runs(
+        words[perm], valid[perm], payloads=(val_hi[perm], val_lo[perm]))
+    live = torch.arange(words.shape[0], device=words.device) < n_unique
+    return (torch.where(live[:, None], uniq, SENTINEL),
+            torch.where(live, hi, 0), torch.where(live, lo, 0), n_unique)
+
+
+def kv_insert(store: KVStore, words, val_hi, val_lo, valid,
+              reduce: str = "first"):
+    """Merge (key, value) rows words [n, w] / [n] into one shard under the
+    reduction (densehash insert; the reduction map's min / max functor,
+    distributed_densehash_map.hpp:2429+): one `kv_reduce` of the store's
+    live rows and the valid new rows.  Under "first" the store's entries
+    win, then the earlier batch rows (priority 0 for the store, 1..n in
+    arrival order for the batch).  Returns the reduced rows as
+    `kv_reduce` (cap + n of them); `kv_cut` makes them a store."""
+    cap, n = store.capacity, words.shape[0]
+    dev = words.device
+    order = ()
+    if reduce == "first":
+        order = (torch.cat([torch.zeros(cap, dtype=torch.int32, device=dev),
+                            torch.arange(1, n + 1, dtype=torch.int32,
+                                         device=dev)]),)
+    live = torch.arange(cap, device=dev) < store.size
+    return kv_reduce(torch.cat([store.keys, words]),
+                     torch.cat([store.val_hi, val_hi]),
+                     torch.cat([store.val_lo, val_lo]),
+                     torch.cat([live, valid]), reduce, order)
+
+
+def kv_cut(keys, val_hi, val_lo, n_unique, cap: int) -> KVStore:
+    """The store of `kv_reduce`'s first cap rows (sentinel-padded when
+    there are fewer); the caller makes cap >= n_unique."""
+    n = keys.shape[0]
+    if cap > n:
+        pad_ = torch.nn.functional.pad
+        keys = pad_(keys, (0, 0, 0, cap - n), value=SENTINEL)
+        val_hi, val_lo = pad_(val_hi, (0, cap - n)), pad_(val_lo, (0, cap - n))
+    return KVStore(keys[:cap].contiguous(), val_hi[:cap].clone(),
+                   val_lo[:cap].clone(), n_unique.to(torch.int32))
+
+
+def kv_lookup(store: KVStore, queries: torch.Tensor):
+    """(val_hi, val_lo int32[m], found bool[m]) per query row [m, w] of one
+    shard, 0 where absent: a bucket-seeded lower_bound at every m (the JAX
+    package's sort-merge join branch for m * 8 <= cap is a TPU-tuned
+    route; the answers are the same) and three gathers."""
+    cap = store.capacity
+    idx = sortops.lower_bound_bucketed(store.keys, store.size, queries)
+    hit = sortops.rows_equal_at(store.keys, idx, queries, store.size)
+    at = idx.clamp(0, cap - 1)
+    return (torch.where(hit, store.val_hi[at], 0),
+            torch.where(hit, store.val_lo[at], 0), hit)
+
+
+def kv_keep(store: KVStore, keep: torch.Tensor):
+    """One shard with only its live entries where `keep`, in key order (the
+    same capacity).  Returns (new_store, n_removed 0-d)."""
+    dev = store.keys.device
+    rows = torch.nonzero(keep & _live(store.size, store.capacity,
+                                      dev)).squeeze(1)
+    n = rows.shape[0]
+    keys = torch.full_like(store.keys, SENTINEL)
+    keys[:n] = store.keys[rows]
+    vals = []
+    for v in (store.val_hi, store.val_lo):
+        out = torch.zeros_like(v)
+        out[:n] = v[rows]
+        vals.append(out)
+    new_size = torch.tensor(n, dtype=torch.int32, device=dev)
+    return KVStore(keys, *vals, new_size), store.size - new_size
+
+
+def kv_erase(store: KVStore, queries: torch.Tensor, qvalid: torch.Tensor):
+    """Remove the valid query keys from one shard.  Returns (new_store,
+    n_erased 0-d)."""
+    cap = store.capacity
+    idx = sortops.lower_bound_bucketed(store.keys, store.size, queries)
+    hit = sortops.rows_equal_at(store.keys, idx, queries, store.size) & qvalid
+    kill = torch.zeros(cap + 1, dtype=torch.bool, device=store.keys.device)
+    kill[torch.where(hit, idx, cap)] = True
+    return kv_keep(store, ~kill[:cap])
+
+
+def _kv_pred(store: KVStore, pred) -> torch.Tensor:
+    """pred(keys int64[cap, w], val_hi int64[cap], val_lo int64[cap]) ->
+    bool[cap] over one shard's rows (unsigned values)."""
+    return pred(to_u64(store.keys), to_u64(store.val_hi),
+                to_u64(store.val_lo))
+
+
+def kv_filter(store: KVStore, keep_pred):
+    """One shard without the entries failing keep_pred (as in `_kv_pred`).
+    Returns (new_store, n_removed 0-d)."""
+    return kv_keep(store, _kv_pred(store, keep_pred))
+
+
+def kv_select(store: KVStore, pred):
+    """(keys int32[t, w], val_hi, val_lo int32[t]) of one shard's live
+    entries satisfying pred (as in `_kv_pred`), in key order."""
+    emit = _kv_pred(store, pred) & _live(store.size, store.capacity,
+                                         store.keys.device)
+    return store.keys[emit], store.val_hi[emit], store.val_lo[emit]

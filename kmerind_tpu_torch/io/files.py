@@ -145,12 +145,16 @@ def read_fastq_block(
     nparts: int,
     file_id: int = 0,
     reuse: bool = False,
+    seq_index_base: int = 0,
 ) -> ReadBatch:
     """Parse the FASTQ records starting within byte block `part` of `nparts`.
 
     The union of all parts' records equals the whole-file parse, each record
     owned by exactly one part — the partitioned_file FASTQ contract
-    (file.hpp:1216-1432).
+    (file.hpp:1216-1432).  A block cannot know how many records precede it:
+    its records are numbered from `seq_index_base` (the caller's count of
+    the records of the blocks before it; 0, as in the JAX package, numbers
+    them within the block).
     """
     total = file_size(path)
     bs, be = block_partition(total, nparts, part)
@@ -162,8 +166,10 @@ def read_fastq_block(
     nxt = _find_boundary(path, total, be, finder)
     data = read_bytes(path, first, nxt)
     if native.available():
-        return native.fastq_parse(data, alphabet, first, file_id, reuse=reuse)
-    return parse_fastq(data, alphabet, file_offset=first, file_id=file_id)
+        return native.fastq_parse(data, alphabet, first, file_id,
+                                  seq_index_base, reuse=reuse)
+    return parse_fastq(data, alphabet, file_offset=first, file_id=file_id,
+                       seq_index_base=seq_index_base)
 
 
 _HEADER_CACHE: dict = {}

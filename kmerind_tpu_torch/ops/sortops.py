@@ -1,6 +1,6 @@
 """Sort / merge / reduce / binary-search primitives over multi-word keys
-(the subset of ``kmerind_tpu.ops.sortops`` that the hash count index and
-the sorted count index call).
+(the subset of ``kmerind_tpu.ops.sortops`` that the port's indexes
+call).
 
 Keys are int32-held uint32 words (``ops/keys.py``), word 0 most
 significant, so lexicographic row order is k-mer order.  Row-major keys are
@@ -20,7 +20,8 @@ from . import kernels
 from .keys import SENTINEL, biased, lex_argsort, to_u64
 
 __all__ = ["sort_rows", "compact_runs", "run_weight_totals",
-           "run_length_counts", "segment_reduce_sorted", "merge_sorted_runs",
+           "run_length_counts", "segment_reduce_sorted", "kv_order",
+           "merge_sorted_runs",
            "merge_sorted_runs_cols", "lower_bound_cols_prebuilt",
            "lower_bound_bucketed", "rows_equal_at"]
 
@@ -116,15 +117,18 @@ def run_length_counts(sorted_words: torch.Tensor, sorted_valid: torch.Tensor):
 def segment_reduce_sorted(sorted_words: torch.Tensor,
                           sorted_valid: torch.Tensor, values: torch.Tensor,
                           reduce: str = "sum"):
-    """Sum `values` ([n] or [n, d]) over runs of equal sorted keys.
+    """Reduce `values` ([n] or [n, d]) over runs of equal sorted keys: their
+    sum (the counting maps), or their "min" / "max" (the reduction maps'
+    min / max functors, distributed_densehash_map.hpp:2429+).
 
     Returns (uniq [n, w] — the distinct keys first, sentinel rows after;
-    reduced — each key's sum, 0 past n_unique; n_unique 0-d).  Only
-    reduce="sum" is ported: the counting maps need it."""
+    reduced — each key's sum, min or max, 0 past n_unique; n_unique 0-d).
+    min / max: a group index from the cumsum of the head flags, then one
+    `scatter_reduce` (the JAX package's segment_min / segment_max)."""
+    if reduce in ("min", "max"):
+        return _segment_extreme(sorted_words, sorted_valid, values, reduce)
     if reduce != "sum":
-        raise NotImplementedError(
-            f"segment_reduce_sorted(reduce={reduce!r}) is not ported yet: "
-            "ROADMAP queue 1, item 13 (value maps)")
+        raise ValueError(f"unknown reduce {reduce!r}")
     cols = values[:, None] if values.dim() == 1 else values
     totals = tuple(run_weight_totals(sorted_words, sorted_valid, cols[:, j])
                    for j in range(cols.shape[1]))
@@ -137,6 +141,47 @@ def segment_reduce_sorted(sorted_words: torch.Tensor,
     if values.dim() == 1:
         reduced = reduced[:, 0]
     return uniq, reduced.to(values.dtype), n_unique
+
+
+def _segment_extreme(sorted_words, sorted_valid, values, reduce: str):
+    """`segment_reduce_sorted` for reduce "min" / "max": each valid key
+    run's extreme value (invalid rows take no part)."""
+    n = sorted_words.shape[0]
+    is_new = _row_neq_prev(sorted_words) & sorted_valid
+    seg = (torch.cumsum(is_new, 0) - 1).clamp(min=0)
+    ident = (torch.iinfo(values.dtype) if not values.dtype.is_floating_point
+             else None)
+    if reduce == "min":
+        fill = ident.max if ident else float("inf")
+    else:
+        fill = ident.min if ident else float("-inf")
+    vmask = sorted_valid if values.dim() == 1 else sorted_valid[:, None]
+    vals = torch.where(vmask, values, fill)
+    index = seg if values.dim() == 1 else seg[:, None].expand_as(values)
+    red = torch.full_like(values, fill).scatter_reduce(
+        0, index, vals, "amin" if reduce == "min" else "amax")
+    n_unique = is_new.sum()
+    live = torch.arange(n, device=sorted_words.device) < n_unique
+    uniq = torch.full_like(sorted_words, SENTINEL)
+    uniq[: int(n_unique)] = sorted_words[is_new]
+    reduced = torch.where(live if values.dim() == 1 else live[:, None],
+                          red, 0)
+    return uniq, reduced, n_unique
+
+
+def kv_order(valid: torch.Tensor, words: torch.Tensor,
+             extra=()) -> torch.Tensor:
+    """Permutation sorting (key, value) rows for a unique-value map's
+    reduction: invalid rows last (`valid` False), then the key
+    words [n, w] ascending, then each `extra` column (int32-held uint32
+    bits: a priority, or the value halves) ascending as unsigned.  Stable
+    LSD passes (`keys.lex_argsort`), so rows equal in every column keep
+    their order; the first row of each key is then the row the reduction
+    keeps (`compact_runs`)."""
+    cols = [(~valid).to(torch.int32)]
+    cols += [biased(words[:, j]) for j in range(words.shape[1])]
+    cols += [biased(c) for c in extra]
+    return lex_argsort(cols)
 
 
 def merge_sorted_runs(a_keys: torch.Tensor, a_payloads,

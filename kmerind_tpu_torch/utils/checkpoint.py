@@ -9,7 +9,8 @@ shard at a time, beside a JSON file of the index's config (the
 its shard count; `load_index` builds the index from that config and puts
 the shards back on the device as they were.  A count index or a de Bruijn
 graph consolidates to one run first (`_checkpoint_prepare`; the graph also
-builds its counter table), a lazy index flushes.  The config of a
+builds its counter table, a Bimolecule index merges its pending runs), a
+lazy index flushes.  The config of a
 `QualityDeBruijnGraph` is a de Bruijn one (the JAX package's
 `IndexConfig` has no quality graph), and the meta file marks it.
 
@@ -32,6 +33,7 @@ from ..debruijn import DeBruijnGraph, QualityDeBruijnGraph
 from ..index import api as hx
 from ..index import sorted_api as sx
 from ..index import store as st
+from ..index import value_api as vx
 
 __all__ = ["save_index", "load_index"]
 
@@ -50,8 +52,17 @@ def _config_of(idx) -> dict:
         cfg.update(index="debruijn", hash_name=idx.hash_name, saturate=sat())
         if isinstance(idx, QualityDeBruijnGraph):
             cfg["quality_codec"] = idx.codec.name
+    elif isinstance(idx, hx.BimoleculeCountIndex):
+        cfg.update(index="count", strands="bimolecule",
+                   hash_name=idx.hash_name, saturate=sat())
     elif isinstance(idx, hx.CountIndex):
         cfg.update(index="count", hash_name=idx.hash_name, saturate=sat())
+    elif isinstance(idx, vx.KmerValueIndex):
+        cfg.update(index="value", hash_name=idx.hash_name,
+                   reduce=idx.reduce, id_kind=idx.id_kind)
+    elif isinstance(idx, vx.SortedKmerValueIndex):
+        cfg.update(index="value", distribution="range", reduce=idx.reduce,
+                   id_kind=idx.id_kind)
     elif isinstance(idx, hx.PositionIndex):
         cfg.update(index="posqual" if idx.with_quality else "position",
                    hash_name=idx.hash_name, id_kind=idx.id_kind)

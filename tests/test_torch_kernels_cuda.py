@@ -12,8 +12,10 @@ unaligned views; for K4 a run over 10,000 tiles, tv at a tile boundary,
 unaligned views, repeated calls; the de Bruijn graphs' edge-byte payloads
 and 0 / 1 counter streams), and the port's indexes on the card against the
 same index on the CPU: CountIndex (one shard, 4 hashed shards, k = 81 and
-127), SortedCountIndex, the multimaps (k up to 128) and both de Bruijn
-graphs (k = 21 and 127, 1 and 4 shards).
+127), SortedCountIndex, the multimaps (k up to 128), both de Bruijn
+graphs (k = 21 and 127, 1 and 4 shards), BimoleculeCountIndex (K2 with 4
+payloads: weight, full 32-bit id halves, strand) and both value maps under
+each reduction (k = 21 and 127, 1 and 4 shards).
 Exact equality throughout (qualities aside): everything else is integer,
 and the K2 merge keeps ties in the plain version's (stable) order.
 
@@ -817,3 +819,97 @@ def test_debruijn_graphs_cuda_match_cpu(dev, tmp_path, k, p):
             g[d].compact()
             g[d].insert_batch(read_file(path, kp.ASCII), chunk_bases=6000)
         np.testing.assert_array_equal(g[dev].items()[1], g["cpu"].items()[1])
+
+
+# ----------------------------------------- Bimolecule and the value maps
+@pytest.mark.parametrize("na,nb", [
+    (4 * MERGE_TILE - 1, 4 * MERGE_TILE + 1), (MERGE_TILE, MERGE_TILE),
+    (5 * MERGE_TILE + 3, 1), (100_003, 99_997)])
+def test_merge_bimolecule_payloads(dev, na, nb):
+    """Bimolecule's merges: K2 at w=2 with 4 payloads — weight, both id
+    halves as full 32-bit patterns (-1 on the sentinel tail), strand —,
+    key ties across every tile edge: bitwise equal to the plain (stable)
+    merge, counted under 4 payloads."""
+    rng = np.random.default_rng(na + nb)
+    a = words_t(_tied_run(rng, 2, na, 0, 50, n_sentinel=min(na, 5)))
+    b = words_t(_tied_run(rng, 2, nb, 0, 50, n_sentinel=min(nb, 1)))
+
+    def pays(keys):
+        n = keys.shape[1]
+        live = ~(keys == -1).all(dim=0)
+        full = lambda: torch.from_numpy(  # noqa: E731
+            rng.integers(0, 2**32, n, dtype=np.uint32).view(np.int32))
+        return (torch.where(live, torch.from_numpy(
+                    rng.integers(0, 4, n).astype(np.int32)), 0),
+                torch.where(live, full(), -1), torch.where(live, full(), -1),
+                torch.where(live, torch.from_numpy(
+                    rng.integers(0, 2, n).astype(np.int32)), 0))
+
+    pa, pb = pays(a), pays(b)
+    want_k, want_p = kernels.merge_runs_cols_plain(a, pa, b, pb)
+    before = dict(kernels.K2_PAYLOAD_LAUNCHES)
+    got_k, got_p = kernels.merge_runs_cols(
+        a.to(dev), tuple(p.to(dev) for p in pa),
+        b.to(dev), tuple(p.to(dev) for p in pb))
+    torch.cuda.synchronize()
+    assert kernels.K2_PAYLOAD_LAUNCHES[4] == before.get(4, 0) + 1
+    assert torch.equal(got_k.cpu(), want_k)
+    assert all(torch.equal(g.cpu(), p) for g, p in zip(got_p, want_p))
+
+
+@pytest.mark.parametrize("k,p", [(21, 1), (21, 4), (127, 1), (127, 4)])
+def test_bimolecule_cuda_matches_cpu(dev, tmp_path, k, p):
+    """BimoleculeCountIndex on the card (K1 per chunk, K2 with 4 payloads
+    per merge — w = 8 at k = 127 —, K3 per adopted run) answers as on the
+    CPU: stored orientations, counts, find of both strands, inserts of the
+    other orientation, erase, compact, the npz file."""
+    path = tmp_path / "reads.fastq"
+    write_reads(path, 300, 160, 2500, seed=k + p, n_rate=0.01)
+    spec = kp.KmerSpec(k, kp.DNA)
+    answers = {}
+    before = dict(kernels.K2_PAYLOAD_LAUNCHES)
+    for d in ("cpu", dev):
+        idx = kp.BimoleculeCountIndex(spec, device=d, nparts=p)
+        idx.flush_rows = 4000
+        idx.insert_batch(read_file(path, kp.DNA), chunk_bases=6000)
+        rows, cnts = idx.items()
+        q = np.concatenate([rows[::5], rows[1::5]])
+        idx.insert(q[:40])
+        answers[d] = [rows, cnts, idx.count(q), *idx.find(q),
+                      idx.erase(q[::3]), idx.size(), *idx.items()]
+        idx.compact()
+        idx.save(tmp_path / f"{d}.npz")
+        back = kp.BimoleculeCountIndex.load(tmp_path / f"{d}.npz", d)
+        answers[d] += [*back.items()]
+    assert kernels.K2_PAYLOAD_LAUNCHES.get(4, 0) > before.get(4, 0)
+    for g, w in zip(answers[dev], answers["cpu"]):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("k,p", [(21, 1), (21, 4), (127, 1), (127, 4)])
+@pytest.mark.parametrize("reduce", ["first", "min", "max"])
+def test_value_maps_cuda_match_cpu(dev, tmp_path, k, p, reduce):
+    """KmerValueIndex and SortedKmerValueIndex on the card (K1 per chunk,
+    the sorts and the routed lookups) answer as on the CPU."""
+    path = tmp_path / "reads.fastq"
+    write_reads(path, 300, 160, 2500, seed=k + p, n_rate=0.01)
+    spec = kp.KmerSpec(k, kp.DNA)
+    for cls in (kp.KmerValueIndex, kp.SortedKmerValueIndex):
+        answers, q = {}, None
+        for d in ("cpu", dev):
+            idx = cls(spec, device=d, nparts=p, reduce=reduce)
+            idx.insert_batch(read_file(path, kp.DNA), chunk_bases=6000)
+            built = idx.to_dict()
+            if q is None:
+                q = [spec.from_int(int(v)) for v in list(built)[::4]]
+                vals = np.random.default_rng(k).integers(
+                    0, 2**64, len(q), dtype=np.uint64)
+            idx.insert(q + q[:10], np.concatenate([vals, vals[:10] + 1]))
+            answers[d] = [built, idx.to_dict(), *idx.find(q),
+                          idx.erase_if(lambda kk, h, lo: (lo & 1) == 1),
+                          idx.erase(q[::3]), idx.to_dict()]
+        for g, w in zip(answers[dev], answers["cpu"]):
+            if isinstance(w, dict):
+                assert g == w
+            else:
+                np.testing.assert_array_equal(g, w)

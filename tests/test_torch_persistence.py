@@ -3,8 +3,7 @@ formats (kind "count", "position", "sorted_position") written by either
 package load in the other at another shard count with equal to_dict();
 the port's sharded checkpoints (utils/checkpoint.py: per-shard torch.save
 files and a JSON config) restore every family at 1 and 4 shards; and
-IndexConfig builds every family the port has and names the ROADMAP item of
-those it lacks.  The JAX indexes run on the conftest's 8-device CPU mesh.
+IndexConfig builds every family as the JAX package's does.  The JAX indexes run on the conftest's 8-device CPU mesh.
 Counts, keys and ids: exact; qualities: rtol 1e-5."""
 
 import dataclasses
@@ -106,6 +105,10 @@ FAMILIES = [
     ("posqual", kp.PositionQualityIndex, {}),
     ("sorted_position", kp.SortedPositionIndex, {}),
     ("sorted_posqual", kp.SortedPositionQualityIndex, {}),
+    ("bimolecule", kp.BimoleculeCountIndex, {"saturate": 5}),
+    ("value", kp.KmerValueIndex, {"reduce": "max", "hash_name": "farm"}),
+    ("sorted_value", kp.SortedKmerValueIndex,
+     {"reduce": "min", "id_kind": "long"}),
 ]
 
 
@@ -131,6 +134,7 @@ def test_checkpoint_round_trip(reads, tmp_path, name, cls, kw, p):
         _same_contents(back.to_dict(), idx.to_dict(), idx.with_quality)
     else:
         assert back.to_dict() == idx.to_dict()
+    if hasattr(idx, "histogram"):
         np.testing.assert_array_equal(back.histogram(), idx.histogram())
     q = [idx.spec.to_string(idx.spec.from_int(v))
          for v in list(idx.to_dict())[:50]]
@@ -173,14 +177,34 @@ def test_index_config_builds_the_port_families(cfg, cls):
         assert idx.codec.name == cfg["quality_codec"]
 
 
-@pytest.mark.parametrize("cfg,item", [
-    ({"strands": "bimolecule"}, "item 12"),
-    ({"strands": "bimolecule", "devices": 4}, "item 12"),
-    ({"index": "value"}, "item 13"),
-    ({"index": "value", "distribution": "range"}, "item 13"),
+@pytest.mark.parametrize("cfg,cls", [
+    ({"strands": "bimolecule", "saturate": 7}, kp.BimoleculeCountIndex),
+    ({"strands": "bimolecule", "devices": 4, "distribution": "range"},
+     ValueError),
+    ({"index": "value", "reduce": "max", "hash_name": "farm"},
+     kp.KmerValueIndex),
+    ({"index": "value", "distribution": "range", "reduce": "min",
+      "id_kind": "long"}, kp.SortedKmerValueIndex),
 ])
-def test_index_config_names_missing_families(cfg, item):
-    with pytest.raises(NotImplementedError, match=item):
-        kp.IndexConfig(**cfg).make_index("cpu")
+def test_index_config_names_missing_families(cfg, cls):
+    """The families the port added last build from the JAX package's
+    fields as the JAX IndexConfig builds them: the Bimolecule preset (a
+    hash-distributed count index only: both packages raise ValueError
+    otherwise) and the value maps with their reduction and id kind."""
+    jax_cls = None
+    try:
+        jax_cls = JaxIndexConfig(**cfg).make_index(mesh=make_mesh(1))
+    except ValueError:
+        pass
+    if cls is ValueError:
+        assert jax_cls is None
+        with pytest.raises(ValueError, match="Bimolecule"):
+            kp.IndexConfig(**cfg).make_index("cpu")
+    else:
+        idx = kp.IndexConfig(**cfg).make_index("cpu")
+        assert type(idx) is cls and type(jax_cls).__name__ == cls.__name__
+        for f in ("saturate", "reduce", "id_kind", "hash_name"):
+            if f in cfg:
+                assert getattr(idx, f) == cfg[f] == getattr(jax_cls, f)
     with pytest.raises(ValueError):
         kp.IndexConfig(distribution="ring").make_index("cpu")

@@ -83,8 +83,11 @@ def test_phases_of_both_runs():
     calls = [fn() for fn in steps["p9"].values()]
     assert calls == [("build", "p.fastq"), ("node_counts", "q"),
                      ("node_counts", "q"), ("size",), ("compact",)]
+    calls = [fn() for fn in steps["p10"].values()]
+    assert calls == [("build", "p.fastq"), ("size",), ("count", "q"),
+                     ("count", "q"), ("items",), ("compact",)]
     assert profile_p4.RUN_K == {"p4": 21, "p5": 21, "p6": 21, "p7": 127,
-                                "p8": 21, "p9": 21}
+                                "p8": 21, "p9": 21, "p10": 21}
 
 
 def test_p8_phases_drive_the_count_surface(tmp_path):
@@ -205,4 +208,20 @@ def test_p9_dry_run_on_the_cpu(capsys):
     inner = record["runs"]["p9 index phases"]
     assert {"insert", "table", "query", "compact"} <= set(inner)
     assert inner["table"]["ranges"] >= 1
+    assert all(v["device_busy_s"] == 0.0 for v in inner.values())
+
+
+def test_p10_dry_run_on_the_cpu(capsys):
+    """--run p10 on the CPU: the Bimolecule index's phases, and the device
+    busy of its own timer phases (insert, compact, count; one chunk at
+    this size, so no merge)."""
+    assert profile_p4.main(["--run", "p10", "--device", "cpu", "--genome",
+                            "20000", "--coverage", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "P10 [cpu]" in out and "P10 index phases [cpu]" in out
+    record = json.loads(out.strip().splitlines()[-1])
+    assert list(record["runs"]) == ["p10", "p10 index phases"]
+    assert list(record["runs"]["p10"]) == list(profile_p4.PHASES["p10"])
+    inner = record["runs"]["p10 index phases"]
+    assert {"insert", "compact", "count"} <= set(inner)
     assert all(v["device_busy_s"] == 0.0 for v in inner.values())

@@ -121,3 +121,72 @@ def test_p9_graph_model_matches_the_oracle():
     spec = KmerSpec(chip_smoke.K, DNA)
     for v in keys[:20].tolist():
         assert spec.to_int(spec.from_string(chip_smoke.code_string(v))) == v
+
+
+def test_p10_model_matches_the_oracle(tmp_path):
+    """P10's numpy model (p10_model: canonical codes with N read as A, the
+    stored orientation of each key's first window in file order, the
+    short ids of its first and last windows) equals the Bimolecule oracle
+    of tests/test_bimolecule.py and a per-window Python scan on 60 reads;
+    revcomp_codes inverts itself and is the oracle's reverse complement;
+    window_ids are the ids the port's short-id marshal gives those windows
+    (the values of a KmerValueIndex built from the file)."""
+    import oracle
+    from kmerind_tpu_torch import KmerValueIndex
+    from test_bimolecule import bimol_oracle
+    codes = chip_smoke.make_reads(3000, 60, seed=10)
+    seqs = [bytes(np.frombuffer(b"ACGTN", np.uint8)[r]).decode()
+            for r in codes]
+    assert any("N" in s for s in seqs)
+    keys, cnts, stored, id_first, id_last = chip_smoke.p10_model(codes)
+    assert dict(zip(stored.tolist(), cnts.tolist())) == bimol_oracle(
+        seqs, chip_smoke.K)
+    nwin = chip_smoke.READ_LEN - chip_smoke.K + 1
+    first, last = {}, {}
+    for i, s in enumerate(seqs):
+        for j, v in enumerate(oracle.canonical_kmers(
+                s.replace("N", "A"), chip_smoke.K, kt_dna())):
+            first.setdefault(v, i * nwin + j)
+            last[v] = i * nwin + j
+    assert keys.tolist() == sorted(first)
+    np.testing.assert_array_equal(
+        id_first, chip_smoke.window_ids(np.array([first[v] for v in
+                                                  keys.tolist()])))
+    np.testing.assert_array_equal(
+        id_last, chip_smoke.window_ids(np.array([last[v] for v in
+                                                 keys.tolist()])))
+    rc = chip_smoke.revcomp_codes(stored)
+    np.testing.assert_array_equal(chip_smoke.revcomp_codes(rc), stored)
+    assert rc[:50].tolist() == [oracle.revcomp_int(v, chip_smoke.K, kt_dna())
+                                for v in stored[:50].tolist()]
+    path = tmp_path / "p10.fastq"
+    chip_smoke.write_fastq(codes, chip_smoke.make_quals(codes, 10), path)
+    idx = KmerValueIndex(KmerSpec(chip_smoke.K, DNA), device="cpu",
+                         reduce="min")
+    idx.build(path)
+    assert idx.to_dict() == dict(zip(keys.tolist(), id_first.tolist()))
+
+
+def kt_dna():
+    from kmerind_tpu import DNA as JAX_DNA
+    return JAX_DNA
+
+
+@pytest.mark.parametrize("n,hi", [(1, 5), (3000, 40), (5000, 2**62),
+                                  (70_000, 2**42)])
+def test_occurrences_match_unique(n, hi):
+    """P10's occurrences() — one bucket, or several when the codes reach
+    past the bits left beside the index — equals np.unique's keys, counts
+    and first indices, and the last indices of the reversed array."""
+    rng = np.random.default_rng(n)
+    canon = rng.integers(0, min(hi, 50 + n // 3), n).astype(np.uint64)
+    if hi > 2**32:
+        canon = rng.choice(rng.integers(0, hi, 200, dtype=np.uint64), n)
+    keys, cnts, first, last = chip_smoke.occurrences(canon)
+    want, wfirst, wcnt = np.unique(canon, return_index=True,
+                                   return_counts=True)
+    np.testing.assert_array_equal(keys, want)
+    np.testing.assert_array_equal(cnts, wcnt)
+    np.testing.assert_array_equal(first, wfirst)
+    _, rfirst = np.unique(canon[::-1], return_index=True)
+    np.testing.assert_array_equal(last, n - 1 - rfirst)

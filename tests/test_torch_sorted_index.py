@@ -158,15 +158,19 @@ def test_convert_jax_state(reads):
 
 
 def test_not_ported_surfaces_raise():
-    """What the port still lacks raises NotImplementedError naming its
-    ROADMAP item: the families IndexConfig cannot build yet, in both
-    distributions.  The other two strand transforms are ported: the sorted
-    index takes them."""
-    for cfg, item in (({"strands": "bimolecule"}, "item 12"),
-                      ({"index": "value"}, "item 13"),
-                      ({"index": "value", "distribution": "range"},
-                       "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
+    """Every family IndexConfig names builds in the port, in both
+    distributions; only the combinations the JAX package refuses raise its
+    ValueError (the Bimolecule preset with the range distribution or a
+    non-count index).  The other two strand transforms are ported: the
+    sorted index takes them."""
+    for cfg, cls in (({"strands": "bimolecule"}, kp.BimoleculeCountIndex),
+                     ({"index": "value"}, kp.KmerValueIndex),
+                     ({"index": "value", "distribution": "range"},
+                      kp.SortedKmerValueIndex)):
+        assert type(kp.IndexConfig(**cfg).make_index("cpu")) is cls
+    for cfg in ({"strands": "bimolecule", "distribution": "range"},
+                {"strands": "bimolecule", "index": "position"}):
+        with pytest.raises(ValueError, match="Bimolecule"):
             kp.IndexConfig(**cfg).make_index("cpu")
     for transform in ("lex_greater", "xor_rev_comp"):
         idx = kp.IndexConfig(strands=transform,

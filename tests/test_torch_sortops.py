@@ -192,8 +192,9 @@ def _sorted_rows(rng, n, w, nkeys, tv, sentinel_tail=True):
 @pytest.mark.parametrize("n,w,nkeys,tv", [
     (1, 1, 1, 1), (3000, 2, 40, 2500), (3000, 3, 900, 3000), (500, 2, 5, 0)])
 def test_segment_reduce_matches_jax(n, w, nkeys, tv):
-    """Sums over key runs (1-d and [n, d] values), the stable compaction
-    and the run totals equal the JAX package's."""
+    """Sums, minima and maxima over key runs (1-d and [n, d] values, the
+    extremes of signed values), the stable compaction and the run totals
+    equal the JAX package's."""
     rng = np.random.default_rng(n + w + tv)
     rows, valid = _sorted_rows(rng, n, w, nkeys, tv)
     vals = rng.integers(0, 2**20, (n, 2)).astype(np.int32)
@@ -219,9 +220,17 @@ def test_segment_reduce_matches_jax(n, w, nkeys, tv):
                                   torch.from_numpy(vals[:, 0])).numpy(),
         np.asarray(jsort.run_weight_totals(
             jnp.asarray(rows), jnp.asarray(valid), jnp.asarray(vals[:, 0]))))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        sortops.segment_reduce_sorted(words_t(rows), torch.from_numpy(valid),
-                                      torch.from_numpy(vals[:, 0]), "min")
+    signed = vals - (1 << 19)
+    for reduce in ("min", "max"):
+        for v in (signed[:, 0], signed):
+            ju, jr, jn = jsort.segment_reduce_sorted(
+                jnp.asarray(rows), jnp.asarray(valid), jnp.asarray(v), reduce)
+            tu, tr, tn = sortops.segment_reduce_sorted(
+                words_t(rows), torch.from_numpy(valid), torch.from_numpy(v),
+                reduce)
+            np.testing.assert_array_equal(words_np(tu), np.asarray(ju))
+            np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+            assert int(tn) == int(jn)
 
 
 def test_run_weight_totals_wrap_like_int32():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device-busy profile of the smoke's full-size runs (chip_smoke.py P4-P9).
+"""Device-busy profile of the smoke's full-size runs (chip_smoke.py P4-P10).
 
-    python3 tools/profile_p4.py [--run p4|p5|p6|p7|p8|p9|all] [--coverage 30]
+    python3 tools/profile_p4.py [--run p4|p5|p6|p7|p8|p9|p10|all]
+                                [--coverage 30]
                                 [--genome 4641652] [--trace trace.json]
 
 Makes the P4 data of chip_smoke.py (150 bp reads at 30x coverage of a
@@ -25,7 +26,13 @@ node_counts() of the 1M queries twice (the first builds the runs' counter
 tables), size() (the consolidating merges), compact(); beside these
 phases each of the graph's own timer phases (read, marshal, insert, merge,
 table, query, compact) opens a profiler range, and a second table sums
-the device busy time over each one's ranges.  The profiler records only
+the device busy time over each one's ranges.  P10, the
+BimoleculeCountIndex (one shard): build (its chunks flush into the store
+every 2^24 pending rows: K3 per adopted run, K2 with 4 payloads per
+merge), flush (the first size(), which merges the last pending runs),
+count() of the 1M queries twice, items() (the stored orientations),
+compact(); its own timer phases (read, marshal, insert, merge, compact,
+count) get the second table too.  The profiler records only
 the ranges of the main thread: read and marshal run on the feeding thread
 while the build streams (their walls are in the PhaseTimer report).  The
 first pass runs
@@ -74,9 +81,13 @@ PHASES = {"p4": ("build", "count1", "count2", "items", "compact"),
           "p7": ("build", "count1", "count2", "items"),
           "p8": ("build", "histogram", "insert_counts", "count", "erase",
                  "size", "filter", "count_if", "save"),
-          "p9": ("build", "query1", "query2", "size", "compact")}
+          "p9": ("build", "query1", "query2", "size", "compact"),
+          "p10": ("build", "flush", "count1", "count2", "items", "compact")}
 #: run -> its k
-RUN_K = {"p4": K, "p5": K, "p6": K, "p7": K_WIDE, "p8": K, "p9": K}
+RUN_K = {"p4": K, "p5": K, "p6": K, "p7": K_WIDE, "p8": K, "p9": K,
+         "p10": K}
+#: runs whose index's own timer phases are profiler ranges (`inner_report`)
+INNER = ("p9", "p10")
 #: the port's kernels -> the CUDA kernel names (ops/csrc) of their launches
 PORT_KERNELS = {
     "extract_canonical": ("extract_rolling_kernel", "extract_wide_kernel"),
@@ -120,6 +131,13 @@ def phase_steps(run: str, idx, path, queries) -> dict:
                 "query1": lambda: idx.node_counts(queries),
                 "query2": lambda: idx.node_counts(queries),
                 "size": idx.size,
+                "compact": idx.compact}
+    if run == "p10":
+        return {"build": lambda: idx.build(path),
+                "flush": idx.size,
+                "count1": lambda: idx.count(queries),
+                "count2": lambda: idx.count(queries),
+                "items": idx.items,
                 "compact": idx.compact}
     if run == "p6":
         return {"insert": lambda: idx.build(path),
@@ -274,7 +292,8 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from kmerind_tpu_torch import (DNA, CountIndex, DeBruijnGraph, KmerSpec,
+    from kmerind_tpu_torch import (DNA, BimoleculeCountIndex, CountIndex,
+                                   DeBruijnGraph, KmerSpec,
                                    PositionQualityIndex, SortedCountIndex)
     from kmerind_tpu_torch.io import native
 
@@ -302,7 +321,9 @@ def main(argv=None) -> int:
                                            device=dev, max_runs=8),
                   "p8": lambda: CountIndex(spec, device=dev),
                   "p9": lambda: DeBruijnGraph(spec, device=dev, max_runs=8,
-                                              timer=profiled_timer("p9"))}
+                                              timer=profiled_timer("p9")),
+                  "p10": lambda: BimoleculeCountIndex(
+                      spec, device=dev, timer=profiled_timer("p10"))}
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if on_gpu else [])
     out = {"card": smi, "runs": {}}
@@ -344,9 +365,9 @@ def main(argv=None) -> int:
             prof.export_chrome_trace(str(trace_path))
             trace = json.loads(trace_path.read_text())
             out["runs"][run] = report(run, trace, wall, smi)
-            if run == "p9":
-                out["runs"]["p9 index phases"] = inner_report(run, trace,
-                                                              smi)
+            if run in INNER:
+                out["runs"][f"{run} index phases"] = inner_report(run, trace,
+                                                                  smi)
             print(idx.timer.report(f"{run} profiled"))
             del fns, idx, prof, trace
             if on_gpu:
