@@ -154,11 +154,31 @@ and power limit as nvidia-smi reports them):
       once per chunk in all three, K2 with 4 payloads at least once per
       Bimolecule merge, K3 > 0.  Then over 4 shards at P3's size
       (`phase_p10p`): the three classes' to_dict() == the model.
+* P11 several processes (after P10, while P4's queries are held;
+      `phase_p11`): 2 rank processes started by `parallel.multihost.
+      launch` — one rank per card over NCCL with 2 or more cards, else
+      both on cuda:0 over gloo (the exchanges staged through host memory;
+      the phase's lines name the backend and `torch.cuda.device_count()`).
+      Every index holds 2 shards, one a rank, and each rank parses only
+      its own byte blocks (`p11_rank`): CountIndex.build over P4's FASTQ
+      (the lockstep streamed path): the 1M queries == P4's numpy counts,
+      size() == the distinct count, items() counts sum to the windows,
+      every key of a rank's shard on the shard its numpy murmur3 names;
+      SortedCountIndex the same queries and size; at P3's size
+      PositionIndex's pairs == the numpy multimap, KmerValueIndex("min")
+      and BimoleculeCountIndex to_dict == the P10 model, DeBruijnGraph's
+      items() == the numpy nodes; the CLI over both ranks (-S 100
+      --json) and, on rank 0, the micro bench at its default n.  Each rank
+      zeroes its counters before each build and reads them after it: K1,
+      K2 and K3 ran on every rank in the count build, K1 and K4 in the
+      sorted one; the per-rank counts join the kernels line.  A rank that
+      fails or outlives 600 s fails the smoke.
 
 Exits non-zero, printing no result, when there is no CUDA device, a build
 fails or any check fails.  The last line of standard output is the
 contract JSON; the line before it lists the kernels with their launches
-in the main-path runs P4 + P5 + P6 + P7 + P8 + P9 + P10.
+in the main-path runs P4 + P5 + P6 + P7 + P8 + P9 + P10 + P11 (P11: the
+ranks' sum; `p11_launches_by_rank` per rank).
 """
 
 from __future__ import annotations
@@ -1674,6 +1694,185 @@ def phase_p10p(dev, path, codes, smi) -> None:
         f"{time.perf_counter() - t0:.2f} [{smi}]")
 
 
+# ------------------------------------------------ P11: several ranks
+P11_RANKS = 2
+
+
+def p11_rank(tmp: str, path4: str, path3: str, n3: str, devices: str,
+             smi: str):
+    """One rank of P11 (launched by `phase_p11`): the indexes over all
+    ranks, each rank holding one of 2 shards on its device (`devices`:
+    the comma-separated device of each rank), built from its own byte
+    blocks of P4's and P3's FASTQ (P3's: `make_reads(1_000_000, n3,
+    seed=1)`).  Every rank checks the answers, which
+    come back whole on every rank; each writes its walls and kernel
+    launches to tmp/p11_rank<r>.json.  Raises on any difference."""
+    import torch
+    from kmerind_tpu_torch import (DNA, BimoleculeCountIndex, CountIndex,
+                                   DeBruijnGraph, KmerSpec, KmerValueIndex,
+                                   PositionIndex, SortedCountIndex)
+    from kmerind_tpu_torch.bench import cli, micro
+    from kmerind_tpu_torch.index import store as st
+    from kmerind_tpu_torch.ops import kernels
+    from kmerind_tpu_torch.ops.keys import to_numpy_u32
+    from kmerind_tpu_torch.parallel.multihost import global_mesh
+    rank = torch.distributed.get_rank()
+    mesh = global_mesh(P11_RANKS, devices.split(",")[rank])
+    dev, spec, tmp = mesh.device, KmerSpec(K, DNA), pathlib.Path(tmp)
+    ref = np.load(tmp / "p11_ref.npz")
+    queries, want, (distinct, n_windows) = (ref["queries"], ref["want"],
+                                            ref["scalars"].tolist())
+    out = {"rank": rank, "device": str(dev), "backend": mesh.backend,
+           "walls": {}, "launches": {}}
+
+    def check(cond, what):
+        if not cond:
+            raise AssertionError(f"P11 rank {rank}: {what}")
+
+    def run(name, build, path):
+        """Build one index over the ranks, counters zeroed just before."""
+        sync(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        idx = build().build(path)
+        sync(dev)
+        out["walls"][name] = time.perf_counter() - t0
+        return idx
+
+    # P4's FASTQ through CountIndex over the ranks (the lockstep stream)
+    idx = run("count", lambda: CountIndex(spec, mesh=mesh), path4)
+    chunks = idx.timer.count("insert")
+    t0 = time.perf_counter()
+    check(np.array_equal(idx.count(queries), want),
+          "CountIndex counts != P4's numpy counts")
+    out["walls"]["count_1M"] = time.perf_counter() - t0
+    idx.compact()
+    check(idx.size() == distinct, f"size {idx.size()} != {distinct}")
+    t0 = time.perf_counter()
+    rows, cnts = idx.items()
+    out["walls"]["items"] = time.perf_counter() - t0
+    check(int(cnts.sum()) == n_windows, "items() counts != the windows")
+    lo, _ = mesh.shard_range
+    for s in range(mesh.p_local):
+        keys = to_numpy_u32(st.run_select(idx.runs[0].shard(s))[0])
+        check((murmur3_x86_32(keys) >> np.uint32(31) == lo + s).all(),
+              f"a key of shard {lo + s} lies off its numpy murmur3 owner")
+    out["launches"]["count"] = dict(kernels.LAUNCHES)
+    out["chunks"] = chunks
+    out["local_sizes"] = idx.local_sizes()
+    del idx, rows, cnts
+
+    sidx = run("sorted", lambda: SortedCountIndex(spec, mesh=mesh), path4)
+    t0 = time.perf_counter()
+    check(sidx.size() == distinct, "SortedCountIndex size")
+    out["walls"]["sorted_flush"] = time.perf_counter() - t0
+    check(np.array_equal(sidx.count(queries), want),
+          "SortedCountIndex counts != P4's numpy counts")
+    out["launches"]["sorted"] = dict(kernels.LAUNCHES)
+    del sidx
+    torch.cuda.empty_cache()
+
+    # P3's size: the multimap, the value map, the graph, Bimolecule
+    codes = make_reads(1_000_000, int(n3), seed=1)
+    keys, cnts, stored, id_first, _ = p10_model(codes)
+    pidx = run("position", lambda: PositionIndex(spec, mesh=mesh), path3)
+    gk, gi, _ = pidx.pairs()
+    fwd = window_codes(codes, canonical=False)
+    r, o = np.divmod(np.arange(fwd.size), fwd.shape[1])
+    order = np.argsort(gi)
+    check(np.array_equal(gi[order], short_ids(np.stack([r, o], 1)))
+          and np.array_equal(gk[order].astype(np.uint64), fwd.ravel()),
+          "PositionIndex pairs != numpy multimap")
+    out["launches"]["position"] = dict(kernels.LAUNCHES)
+    del pidx, gk, gi, fwd, r, o, order
+    kv = run("value_min", lambda: KmerValueIndex(spec, mesh=mesh,
+                                                 reduce="min"), path3)
+    check(kv.to_dict() == dict(zip(keys.tolist(), id_first.tolist())),
+          "KmerValueIndex(min) to_dict != numpy")
+    out["launches"]["value_min"] = dict(kernels.LAUNCHES)
+    del kv
+    g = run("debruijn", lambda: DeBruijnGraph(spec, mesh=mesh), path3)
+    node_keys, ncnt = graph_nodes(graph_windows(codes))
+    words, vecs = g.items()
+    order = np.argsort((words[:, 0].astype(np.uint64) << np.uint64(10))
+                       | words[:, 1])
+    check(np.array_equal(code_rows(node_keys), words[order])
+          and np.array_equal(vecs[order], ncnt),
+          "DeBruijnGraph items() != the numpy nodes and counters")
+    out["launches"]["debruijn"] = dict(kernels.LAUNCHES)
+    del g, words, vecs, order
+    bi = run("bimolecule", lambda: BimoleculeCountIndex(spec, mesh=mesh),
+             path3)
+    check(bi.to_dict() == dict(zip(stored.tolist(), cnts.tolist())),
+          "Bimolecule to_dict != the first-occurrence model")
+    out["launches"]["bimolecule"] = dict(kernels.LAUNCHES)
+    del bi
+    torch.cuda.empty_cache()
+
+    # the CLI over the ranks, then micro on each rank's card
+    res = cli.main(["-F", path3, "-S", "100", "--json", "--device",
+                    str(dev), "--nparts", str(P11_RANKS)])
+    check(res["size"] == keys.size and res["count_hits"] > 0
+          and res["erased"] > 0, f"CLI results {res}")
+    out["cli"] = res
+    out["micro"] = micro.main(["--device", str(dev)]) if rank == 0 else []
+    for name, need in (("count", ("extract_canonical", "merge_runs_cols",
+                                  "prefix_sum_i32")),
+                       ("sorted", ("extract_canonical",
+                                   "run_length_weights"))):
+        for kname in need:
+            check(out["launches"][name][kname] > 0,
+                  f"{kname} never ran in the {name} build: "
+                  f"{out['launches'][name]}")
+    (tmp / f"p11_rank{rank}.json").write_text(json.dumps(out))
+
+
+def phase_p11(tmp, path4, path3, queries, want_counts, distinct: int,
+              n_windows: int, smi: str, n3: int = 80_000,
+              devices: str | None = None) -> list:
+    """P11: `p11_rank` in 2 rank processes — over NCCL, one rank per card,
+    with 2 or more cards; else both on cuda:0 over gloo, the exchanges
+    staged through host memory (`devices`, e.g. "cpu,cpu" for a rehearsal
+    on the CPU, takes gloo on the devices named).  Prints each rank's
+    walls and launches; returns each rank's launches of its runs.  A rank
+    that fails, or outlives the time limit, fails the phase."""
+    import torch
+    from kmerind_tpu_torch.parallel.multihost import launch
+    ncards = torch.cuda.device_count()
+    if devices is None and ncards >= P11_RANKS:
+        backend = "nccl"
+        devices = ",".join(f"cuda:{r}" for r in range(P11_RANKS))
+    else:
+        backend = "gloo"
+        devices = devices or ",".join(["cuda:0"] * P11_RANKS)
+    np.savez(tmp / "p11_ref.npz", queries=queries, want=want_counts,
+             scalars=np.array([distinct, n_windows]))
+    t0 = time.perf_counter()
+    outs = launch("chip_smoke:p11_rank", P11_RANKS,
+                  [tmp, path4, path3, n3, devices, smi], backend=backend,
+                  timeout_s=600)
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((tmp / f"p11_rank{r}.json").read_text())
+             for r in range(P11_RANKS)]
+    for text in outs:
+        for line in text.splitlines():
+            if line.startswith(("[TIME]", "{")):
+                log(f"P11 rank output: {line}")
+    for r in ranks:
+        walls = ", ".join(f"{k} {v:.3f} s" for k, v in r["walls"].items())
+        log(f"P11 rank {r['rank']} on {r['device']} ({r['backend']}"
+            f"{', exchanges staged through host memory' if backend == 'gloo' else ''}"
+            f", {ncards} card(s) visible): {walls}; {r['chunks']} lockstep "
+            f"chunks; shard sizes {r['local_sizes']} [{smi}]")
+        for name, ln in r["launches"].items():
+            log(f"P11 rank {r['rank']} launches, {name}: {ln}")
+        log(f"P11 rank {r['rank']} CLI: {json.dumps(r['cli'])}")
+    log(f"P11 {P11_RANKS} ranks, backend {backend}, "
+        f"torch.cuda.device_count() {ncards}: every check passed on every "
+        f"rank; seconds {wall:.2f} [{smi}]")
+    return [r["launches"] for r in ranks]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2211,12 +2410,21 @@ def main() -> int:
         t0 = time.perf_counter()
         launches["P10"] = phase_p10(dev, path, tmp, codes, qcodes, queries,
                                     want_counts, smi, canon=canon_all)
-        del qcodes, queries, want_counts, canon_all
+        del qcodes, canon_all
         torch.cuda.empty_cache()
         phase_p10p(dev, tmp / "p3.fastq",
                    make_reads(1_000_000, 80_000, seed=1), smi)
         log(f"P10 seconds {time.perf_counter() - t0:.2f} [{smi}]")
         torch.cuda.empty_cache()
+
+        # ----------------------------------------------------------- P11
+        p11 = phase_p11(tmp, path, tmp / "p3.fastq", queries, want_counts,
+                        distinct, n_windows, smi)
+        launches["P11"] = collections.Counter()
+        for runs in p11:
+            for ln in runs.values():
+                launches["P11"].update(ln)
+        del queries, want_counts
 
         # ------------------------------------------------------------ P7
         t0 = time.perf_counter()
@@ -2226,15 +2434,19 @@ def main() -> int:
     log(f"total seconds {time.perf_counter() - t_all:.2f} [{smi}]")
     entries = []
     for kname, (src, replaces) in kernels.KERNELS.items():
-        # main-path launches (P4 + P5 + P6 + P7 + P8 + P9 + P10, and per
-        # run); K2′ is on no index's path: P2's
-        by_run = {r: launches[r][kname]
-                  for r in ("P4", "P5", "P6", "P7", "P8", "P9", "P10")}
+        # main-path launches (P4 + P5 + P6 + P7 + P8 + P9 + P10 + P11 — the
+        # P11 ranks' sum —, and per run); K2′ is on no index's path: P2's
+        by_run = {r: launches[r][kname] for r in (
+            "P4", "P5", "P6", "P7", "P8", "P9", "P10", "P11")}
         n = (k2r_launches if kname == "merge_sorted_runs"
              else sum(by_run.values()))
+        p11_by_rank = [sum(ln.get(kname, 0) for ln in runs.values())
+                       for runs in p11]
         entries.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
-                        "launches_by_run": by_run, **results[kname]})
+                        "launches_by_run": by_run,
+                        "p11_launches_by_rank": p11_by_rank,
+                        **results[kname]})
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

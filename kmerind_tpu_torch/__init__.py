@@ -7,8 +7,9 @@ Hopper (``ops/csrc``).  It mirrors the JAX package's module layout:
 * ``alphabets`` / ``kmer`` — k-mer data model (numpy);
 * ``io``       — host-side FASTQ/FASTA parsing into read batches;
 * ``ops``      — k-mer extraction, sort/merge/search, the CUDA kernels;
-* ``parallel`` — owner exchange and sample sort over p shards stacked on
-  one device;
+* ``parallel`` — owner exchange and sample sort over p shards, stacked on
+  one device or spread over `torch.distributed` ranks (``mesh``,
+  ``multihost``: the layout, each rank's file blocks, the launcher);
 * ``index``    — count, multimap and value stores and the indexes:
   `CountIndex`, `BimoleculeCountIndex`, `PositionIndex`,
   `PositionQualityIndex`, `KmerValueIndex` (hash-partitioned) and
@@ -20,11 +21,15 @@ Hopper (``ops/csrc``).  It mirrors the JAX package's module layout:
 * ``quality``  — the phred codec and windowed k-mer quality;
 * ``config``   — `IndexConfig`, every index's knobs in one dataclass;
 * ``utils.checkpoint`` — sharded `save_index` / `load_index` (each index
-  also has npz `save` / `load` in the JAX package's formats).
+  also has npz `save` / `load` in the JAX package's formats);
+* ``utils.timers`` / ``logging`` / ``profiling`` — phase timers (over
+  ranks too), the ``kmerind_tpu_torch`` logger, `torch.profiler` traces;
+* ``bench`` — the BenchmarkKmerIndex CLI and the micro-benchmarks.
 
 Every tensor function runs on the device its inputs live on; an index
 lives on ``device="cuda"`` unless the caller names another (the tests pass
-"cpu").  Nothing here imports JAX.
+"cpu"), or on its rank's device under a ``mesh=``.  Nothing here imports
+JAX.
 """
 
 from . import alphabets

@@ -57,9 +57,11 @@ class IndexConfig:
     def spec(self) -> KmerSpec:
         return KmerSpec(self.k, alphabets.by_name(self.alphabet))
 
-    def make_index(self, device="cuda", nparts: int | None = None):
+    def make_index(self, device="cuda", nparts: int | None = None,
+                   mesh=None, timer=None):
         """The configured index on `device`, with `nparts` shards (default:
-        `devices`, else 1)."""
+        `devices`, else 1) — or over `mesh` (``parallel/mesh.py``), whose
+        shard count and device it takes; `timer` records its phases."""
         from .debruijn import DeBruijnGraph
         from .index.api import (BimoleculeCountIndex, CountIndex,
                                 PositionIndex, PositionQualityIndex)
@@ -75,16 +77,18 @@ class IndexConfig:
             raise ValueError(f"unknown strands preset {strands!r}")
         if self.distribution not in ("hash", "range"):
             raise ValueError(f"unknown distribution {self.distribution!r}")
-        nparts = nparts or self.devices or 1
+        nparts = mesh.nparts if mesh is not None else (
+            nparts or self.devices or 1)
+        common = dict(nparts=nparts, mesh=mesh, timer=timer)
         if strands == "bimolecule":
             if self.distribution != "hash" or self.index != "count":
                 raise ValueError(
                     "the Bimolecule preset is provided for hash-distributed "
                     "count indexes (the reference's BenchmarkKmerIndex "
                     "matrix likewise pairs it with hash maps)")
-            idx = BimoleculeCountIndex(self.spec(), device, nparts=nparts,
+            idx = BimoleculeCountIndex(self.spec(), device,
                                        hash_name=self.hash_name,
-                                       saturate=self.saturate)
+                                       saturate=self.saturate, **common)
             idx.fill_factor = self.fill_factor
             return idx
         transform = strands in ("lex_greater", "xor_rev_comp")
@@ -98,9 +102,8 @@ class IndexConfig:
                                  "index")
             g = DeBruijnGraph(self.spec(), device,
                               canonical=strands != "single",
-                              nparts=nparts,
                               hash_name=self.hash_name,
-                              saturate=self.saturate)
+                              saturate=self.saturate, **common)
             g.fill_factor = self.fill_factor
             return g
         canonical = strands if transform else strands != "single"
@@ -114,7 +117,7 @@ class IndexConfig:
         if self.index not in table:
             raise ValueError(f"{self.distribution} distribution has no "
                              f"{self.index!r} index")
-        kw = dict(device=device, canonical=canonical, nparts=nparts)
+        kw = dict(device=device, canonical=canonical, **common)
         if self.index == "count":
             kw["saturate"] = self.saturate
         else:

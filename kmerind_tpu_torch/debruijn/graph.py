@@ -15,7 +15,10 @@ Each chunk lands as one UNIT run per shard (K1 extracts, one sort); runs
 merge (K2: the edge byte as the one payload of two unit runs, the edge
 byte and the weight otherwise) when there are more than `max_runs`, and
 a run's [9, cap] counter table (K3, one launch per stream) is built only
-when a query, export, compaction or save needs it.
+when a query, export, compaction or save needs it.  Under a mesh of
+several ranks every method is a collective, as in ``index/api.py``: the
+builds read each rank's block, the lazy tables are built on every rank at
+the same calls, and the node queries and exports come back whole.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..index import store as st
 from ..index.api import _IndexBase, _next_pow2, _open_npz
 from ..kmer import KmerSpec
 from ..ops.keys import from_numpy_u32, to_numpy_u32
+from ..parallel.mesh import Mesh
 from ..quality import ILLUMINA18
 from ..utils.timers import PhaseTimer
 
@@ -67,13 +71,13 @@ class DeBruijnGraph(_IndexBase):
                  nparts: int = 1, hash_name: str = "murmur",
                  saturate: int | None = None,
                  initial_capacity: int = 1 << 12, max_runs: int = 8,
-                 timer: PhaseTimer | None = None):
+                 timer: PhaseTimer | None = None, mesh: Mesh | None = None):
         if not isinstance(canonical, bool):
             raise ValueError(
                 "DeBruijnGraph defines edge orientation on the lex_less "
                 "canonical strand; transform-name presets apply to the "
                 "k-mer index families only")
-        super().__init__(spec, device, canonical, nparts, timer)
+        super().__init__(spec, device, canonical, nparts, timer, mesh)
         self.hash_name = hash_name
         self.saturate = saturate
         self.initial_capacity = initial_capacity
@@ -91,7 +95,7 @@ class DeBruijnGraph(_IndexBase):
         shard."""
         self.runs = [st.stack_stores([self._empty_store(
             self.initial_capacity, self.spec.nwords, self.device)]
-            * self.nparts)]
+            * self.mesh.p_local)]
         #: per-run flag: weight 1 per live row, live rows first (file
         #: ingest output) — such pairs merge without the weight column
         self._unit = [self.spec.sentinel_safe]
@@ -110,14 +114,14 @@ class DeBruijnGraph(_IndexBase):
 
     def _distinct(self) -> list[int]:
         assert len(self.runs) == 1
-        return dx.run_vec_stats_step(self.runs[0])
+        return dx.run_vec_stats_step(self.runs[0], self.mesh)
 
     def size(self) -> int:
         """Number of graph nodes (distinct canonical k-mers)."""
         return sum(self.local_sizes())
 
     def local_sizes(self) -> list[int]:
-        """Nodes per shard, in shard order."""
+        """Nodes per shard, in global shard order."""
         self._consolidate()
         return self._distinct()
 
@@ -148,8 +152,8 @@ class DeBruijnGraph(_IndexBase):
 
     def _shard_weight(self) -> int:
         """The largest shard's raw weight total over all runs."""
-        return int(sum(r.weights.to(torch.int64).sum(-1)
-                       for r in self.runs).max())
+        return self.mesh.all_max(int(sum(r.weights.to(torch.int64).sum(-1)
+                                         for r in self.runs).max()))
 
     _I32_WEIGHT_GUARD = (1 << 31) - (1 << 26)
 
@@ -211,7 +215,8 @@ class DeBruijnGraph(_IndexBase):
             new_cap = _next_pow2(max(4 * max(self._distinct()), 1 << 12))
         while True:
             with self.timer.phase("compact"):
-                new_run, ovf = dx.run_vec_compact_step(self.runs[0], new_cap)
+                new_run, ovf = dx.run_vec_compact_step(self.runs[0], new_cap,
+                                                       self.mesh)
             if ovf == 0:
                 self.runs, self._unit = [new_run], [False]
                 self._drop_stale_aux()
@@ -274,13 +279,14 @@ class DeBruijnGraph(_IndexBase):
     def _insert_cols(self, marshalled):
         cols, raw = marshalled
         bases = self._to_device(cols)
-        n_local = bases.codes.shape[1]
+        # the longest chunk of any rank: the bound and the buckets agree
+        n_local = self.mesh.all_max(bases.codes.shape[1])
         self._note_weight(n_local * self.nparts)
         cap = self._bucket_capacity(n_local)
         with self.timer.phase("insert"):
             while True:
                 rw, reb, rwt, rqs, ovf = dx.debruijn_ingest_step(
-                    bases, self.spec, self.canonical, self.nparts, cap,
+                    bases, self.spec, self.canonical, self.mesh, cap,
                     self.hash_name, raw=raw, codec=self._codec())
                 if ovf == 0:
                     break
@@ -313,11 +319,11 @@ class DeBruijnGraph(_IndexBase):
         with self.timer.phase("query"):
             (vals, qs), m = self._route_rows(
                 lambda q, v, cap: dx.runs_vec_query_step(
-                    q, v, self.runs, aux, self.nparts, cap, self.hash_name,
+                    q, v, self.runs, aux, self.mesh, cap, self.hash_name,
                     self.saturate), self._query_words(kmers))
-            vals = vals.reshape(-1, _DIM)[:m].cpu().numpy()
+            vals = self._replies(vals, m).cpu().numpy()
             if qs is not None:
-                qs = qs.reshape(-1)[:m].cpu().numpy()
+                qs = self._replies(qs, m).cpu().numpy()
         return vals, qs
 
     def node_counts(self, kmers):
@@ -362,10 +368,10 @@ class DeBruijnGraph(_IndexBase):
         self._consolidate()
         self._ensure_tables()
         parts = dx.run_vec_export_step(self.runs[0], self.saturate)
-        out = (np.concatenate([to_numpy_u32(k) for k, _, _ in parts]),
-               np.concatenate([v.cpu().numpy() for _, v, _ in parts]))
+        out = (to_numpy_u32(self._rows_of_all(k for k, _, _ in parts)),
+               self._rows_of_all(v for _, v, _ in parts).cpu().numpy())
         if self.with_quality:
-            out += (np.concatenate([q.cpu().numpy() for _, _, q in parts]),)
+            out += (self._rows_of_all(q for _, _, q in parts).cpu().numpy(),)
         return out
 
     def to_dict(self) -> dict:
@@ -381,8 +387,8 @@ class DeBruijnGraph(_IndexBase):
 
     # -- persistence: the JAX package's npz formats ---------------------
     def _npz_columns(self, run) -> dict:
-        return {"ebytes": run.ebytes.cpu().numpy(),
-                "weights": run.weights.cpu().numpy()}
+        return {"ebytes": self._whole(run.ebytes).cpu().numpy(),
+                "weights": self._whole(run.weights).cpu().numpy()}
 
     def save(self, path):
         """One npz file of the consolidated run's rows (keys [p, w, n],
@@ -395,24 +401,26 @@ class DeBruijnGraph(_IndexBase):
         run = self.runs[0]
         live = run.weights > 0
         idx = torch.arange(run.capacity, device=live.device)
-        n = int(torch.where(live, idx + 1, 0).max())
+        n = self.mesh.all_max(int(torch.where(live, idx + 1, 0).max()))
         run = type(run)(**{f: None if v is None else v[..., :n]
                            for f, v in vars(run).items()})
-        np.savez_compressed(
+        self._savez(
             path, kind=self._npz_kind, k=self.spec.k,
             alphabet=self.spec.alphabet.name, canonical=self.canonical,
             hash_name=self.hash_name, nparts=self.nparts,
-            keys=to_numpy_u32(run.keys), **self._npz_columns(run))
+            keys=to_numpy_u32(self._whole(run.keys)),
+            **self._npz_columns(run))
         return self
 
     @classmethod
-    def load(cls, path, device="cuda", nparts: int = 1):
-        """A graph of `nparts` shards holding a saved graph's rows (saved at
-        any shard count, by either package): the live rows are routed to
-        their owners, sorted and adopted as one weighted run."""
+    def load(cls, path, device="cuda", nparts: int = 1, mesh=None):
+        """A graph of `nparts` shards (or over `mesh`) holding a saved
+        graph's rows (saved at any shard count, by either package): the
+        live rows are routed to their owners, sorted and adopted as one
+        weighted run."""
         z, spec = _open_npz(path, (cls._npz_kind,))
         g = cls(spec, device, canonical=bool(z["canonical"]), nparts=nparts,
-                hash_name=str(z["hash_name"]))
+                hash_name=str(z["hash_name"]), mesh=mesh)
         keys, weights = z["keys"], z["weights"]
         live = weights > 0
         rows = np.concatenate([keys[p].T[live[p]]
@@ -437,7 +445,7 @@ class DeBruijnGraph(_IndexBase):
         def step(w, e, t, *rest):
             *q, valid, cap = rest
             return dx.run_vec_load_step(w, e, t, q[0] if q else None, valid,
-                                        self.nparts, cap, self.spec,
+                                        self.mesh, cap, self.spec,
                                         self.hash_name)
 
         extra = (ebytes, weights) + (() if qsums is None else (qsums,))
@@ -482,10 +490,11 @@ class QualityDeBruijnGraph(DeBruijnGraph):
                  nparts: int = 1, hash_name: str = "murmur",
                  saturate: int | None = None,
                  initial_capacity: int = 1 << 12, max_runs: int = 8,
-                 codec=None, timer: PhaseTimer | None = None):
+                 codec=None, timer: PhaseTimer | None = None,
+                 mesh: Mesh | None = None):
         self.codec = codec if codec is not None else ILLUMINA18
         super().__init__(spec, device, canonical, nparts, hash_name,
-                         saturate, initial_capacity, max_runs, timer)
+                         saturate, initial_capacity, max_runs, timer, mesh)
 
     def _empty_store(self, capacity: int, nwords: int, device):
         return st.empty_run_vecq_store(capacity, nwords, device)
@@ -504,4 +513,4 @@ class QualityDeBruijnGraph(DeBruijnGraph):
 
     def _npz_columns(self, run) -> dict:
         return dict(super()._npz_columns(run),
-                    qsums=run.qsums.cpu().numpy())
+                    qsums=self._whole(run.qsums).cpu().numpy())

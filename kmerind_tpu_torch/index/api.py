@@ -4,7 +4,22 @@ input path of every index.
 The port of ``kmerind_tpu.index.api`` (the reference's
 ``bliss::index::kmer::Index`` presets, src/index/kmer_index.hpp:98-411).
 An index lives on one `device` ("cuda" unless the caller names another),
-as `nparts` hash-partitioned shards stacked on it.
+as `nparts` hash-partitioned shards stacked on it — or, given a `mesh=`
+(``parallel/mesh.py``) over W `torch.distributed` ranks, as nparts / W
+shards on each rank's device.
+
+Under a mesh of several ranks every method of an index is a collective:
+each rank calls it, in the same order, with the same arguments.  Builds
+read each rank's own byte block of the file (``parallel/multihost.py``),
+and every rank runs one step per chunk of the rank with the most
+(`_stream_chunks_iter`'s lockstep: a rank whose blocks are exhausted feeds
+an all-invalid chunk); queries and explicit inserts take the same rows on
+every rank, each rank routing its share; exports (`items`, `to_dict`,
+`pairs`, the predicate scans) and answers come back whole on every rank;
+npz files are written by rank 0.  Every host decision between exchanges —
+bucket capacities and their overflow retries, growth, flushes,
+compactions — is taken on host ints reduced over the ranks, so all ranks
+take the same branch.  One process without a mesh behaves as before.
 
 Host-side responsibilities (this file): parsing files, cutting the base
 stream into fixed-shape chunks with a k-1 halo and each chunk into one
@@ -25,6 +40,7 @@ import torch
 
 from .. import alphabets
 from ..io.batch import ReadBatch
+from ..io.fasta import parse_fasta
 from ..io.files import (file_size, read_fasta_block, read_fastq_block,
                         read_file, sniff_format)
 from ..io.kmer_parsers import DeviceBases, transform_name
@@ -32,6 +48,10 @@ from ..kmer import KmerSpec
 from ..ops import bitops, packing
 from ..quality import ILLUMINA18
 from ..ops.keys import from_numpy_u32, to_numpy_u32, to_u64
+from ..parallel.mesh import Mesh
+from ..parallel.multihost import (distributed_fasta_grid_context,
+                                  distributed_fastq_grid_base,
+                                  host_block_batch)
 from ..utils.timers import PhaseTimer
 from . import distributed as dx
 from . import store as st
@@ -87,12 +107,20 @@ class _IndexBase:
     with_quality = False
 
     def __init__(self, spec: KmerSpec, device="cuda", canonical=True,
-                 nparts: int = 1, timer: PhaseTimer | None = None):
-        if nparts < 1:
-            raise ValueError(f"nparts must be >= 1, got {nparts}")
+                 nparts: int = 1, timer: PhaseTimer | None = None,
+                 mesh: Mesh | None = None):
+        if mesh is None:
+            if nparts < 1:
+                raise ValueError(f"nparts must be >= 1, got {nparts}")
+            mesh = Mesh(nparts, torch.device(device))
+        elif nparts not in (1, mesh.nparts):
+            raise ValueError(f"nparts={nparts} disagrees with the mesh's "
+                             f"{mesh.nparts} shards")
         self.spec = spec
-        self.device = torch.device(device)
-        self.nparts = nparts
+        #: the shard layout; with a mesh the index lives on its device
+        self.mesh = mesh
+        self.device = mesh.device
+        self.nparts = mesh.nparts
         self.canonical = canonical
         transform_name(canonical)  # rejects unknown transforms
         self.timer = timer if timer is not None else PhaseTimer()
@@ -147,18 +175,51 @@ class _IndexBase:
         return self.spec.alphabet
 
     def _shard_rows(self, rows: torch.Tensor, extra=()):
-        """[m, ...] rows -> ([p, mq, ...] tensors, valid bool[p, mq], m):
-        rows dealt in order to the shards, mq per shard, zero-padded."""
+        """[m, ...] rows -> ([p_local, mq, ...] tensors, valid
+        bool[p_local, mq], m): rows dealt in order to the p shards, mq per
+        shard, zero-padded; each rank keeps its own shards' share of the
+        rows, which every rank passes whole (the JAX package's SPMD
+        queries)."""
         m, p = rows.shape[0], self.nparts
         mq = max(1, -(-m // p))
+        lo, hi = self.mesh.shard_range
         valid = torch.arange(p * mq, device=rows.device) < m
 
         def put(a):
             a = torch.as_tensor(a).to(rows.device)
             pad = a.new_zeros((p * mq - m,) + tuple(a.shape[1:]))
-            return torch.cat([a, pad]).reshape((p, mq) + tuple(a.shape[1:]))
+            return torch.cat([a, pad]).reshape(
+                (p, mq) + tuple(a.shape[1:]))[lo:hi]
 
-        return [put(a) for a in (rows, *extra)], valid.reshape(p, mq), m
+        return ([put(a) for a in (rows, *extra)],
+                valid.reshape(p, mq)[lo:hi], m)
+
+    def _whole(self, t: torch.Tensor) -> torch.Tensor:
+        """A rank's [p_local, ...] tensor -> all p shards' [p, ...] (an
+        all-gather over several ranks; the shapes agree on every rank)."""
+        return self.mesh.all_gather(t)
+
+    def _replies(self, t: torch.Tensor, m: int) -> torch.Tensor:
+        """Routed per-query replies [p_local, mq, ...] -> [m, ...] in query
+        order, whole on every rank."""
+        return self._whole(t).reshape((-1,) + tuple(t.shape[2:]))[:m]
+
+    def _rows_of_all(self, parts) -> torch.Tensor:
+        """Per-shard row sets of this rank -> every shard's, in global shard
+        order (a ragged all-gather over several ranks)."""
+        return self.mesh.all_gather_ragged(torch.cat(list(parts)))
+
+    def _savez(self, path, **arrays):
+        """np.savez_compressed of arrays whole on every rank: rank 0 writes
+        and the others wait for it."""
+        if self.mesh.rank == 0:
+            np.savez_compressed(path, **arrays)
+        self.mesh.barrier()
+
+    def _chunk_capacity(self, bases: DeviceBases) -> int:
+        """Exchange bucket capacity of an ingest chunk: from the longest
+        chunk of any rank, so every rank's buckets agree."""
+        return self._bucket_capacity(self.mesh.all_max(bases.codes.shape[1]))
 
     def _bucket_capacity(self, n_per_shard: int) -> int:
         """Exchange bucket capacity per (source, destination) shard pair
@@ -240,7 +301,7 @@ class _IndexBase:
         gens = self._marshal_pool.get(key)
         if gens is None:
             gens = self._marshal_pool[key] = [
-                [{nm: np.empty((self.nparts, pad_to), dt)
+                [{nm: np.empty((self.mesh.p_local, pad_to), dt)
                   for nm, dt in layout} for _ in range(2)], 0]
         gens[1] ^= 1
         return gens[0][gens[1]]
@@ -255,7 +316,7 @@ class _IndexBase:
         one shard; short shards are padded (invalid, seg_id -1).  One shard
         takes the chunk as it is: it already carries its context."""
         with self.timer.phase("marshal"):
-            p, n = self.nparts, batch.num_bases
+            p, n = self.mesh.p_local, batch.num_bases
             halo, halo_left = self._chunk_halo()
             owned = -(-n // p)
             srcs = self._marshal_sources(batch)
@@ -283,27 +344,45 @@ class _IndexBase:
                                                          copy=True)
                               for nm, a in cols.items()})
 
-    def _stream_chunks_iter(self, it, marshal, consume):
+    def _stream_chunks_iter(self, it, marshal, consume, make_dummy):
         """Double-buffered streaming over a lazy chunk iterator: the worker
         thread pulls (parses) and marshals the next chunk — host work only —
         while the main thread copies the current one to the device and
         launches.  Parser ring slots (io/native.py, two of them) stay live
         for exactly this window: block p+1 parses only after block p's
         last chunk is marshalled, and block p's slot is rewritten only by
-        block p+2, after that chunk's copy returned."""
+        block p+2, after that chunk's copy returned.
+
+        Over several ranks the loop runs in lockstep (the JAX package's
+        `_stream_chunks_lockstep`): `consume` holds collectives, so before
+        each chunk one all-reduced flag asks whether any rank has one left,
+        and a rank that has none consumes the all-invalid batch that
+        `make_dummy()` builds on first need (no owned windows: it only
+        takes part in the exchanges).  With one rank the flag is the rank's
+        own and no dummy is built."""
 
         def produce():
             b = next(it, None)
             return None if b is None else marshal(b)
 
+        dummy = None
         with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
             fut = ex.submit(produce)
             while True:
                 cols = fut.result()
-                if cols is None:
+                if not self.mesh.all_max(cols is not None):
                     return
+                if cols is None:
+                    dummy = make_dummy() if dummy is None else dummy
+                    cols = marshal(dummy)
                 fut = ex.submit(produce)
                 consume(cols)
+
+    def _invalid_chunk(self, n: int) -> ReadBatch:
+        """An all-invalid batch of n bases (no valid base, no owned window):
+        what an exhausted rank feeds the lockstep loop."""
+        return parse_fasta(np.zeros(0, np.uint8),
+                           self.parse_alphabet).pad_to(n)
 
     def _query_words(self, kmers) -> torch.Tensor:
         """Query or insert rows as device key words, transformed like the
@@ -342,15 +421,20 @@ class _IndexBase:
     def insert_batch(self, batch: ReadBatch, chunk_bases: int | None = None):
         """Insert a parsed batch's k-mers, streamed through the device in
         chunks of `chunk_bases` bases (a k-1 lookahead keeps the windows
-        that span a chunk boundary; `_chunk_halo`)."""
+        that span a chunk boundary; `_chunk_halo`).  Under a mesh of
+        several ranks each rank passes its OWN batch (its block of the
+        input, `parallel.multihost.host_block_batch`)."""
         if chunk_bases is None:
             chunk_bases = self.default_chunk_bases
+        halo, halo_left = self._chunk_halo()
         if batch.num_bases > chunk_bases:
-            chunks = list(batch.iter_chunks(chunk_bases, *self._chunk_halo()))
+            chunks = list(batch.iter_chunks(chunk_bases, halo, halo_left))
         else:
-            chunks = [batch]
-        self._stream_chunks_iter(iter(chunks), self._marshal_chunk,
-                                 self._insert_cols)
+            chunks = [batch] if batch.num_bases or self.mesh.world == 1 \
+                else []
+        self._stream_chunks_iter(
+            iter(chunks), self._marshal_chunk, self._insert_cols,
+            lambda: self._invalid_chunk(halo_left + halo + 1))
         return self
 
     def build(self, path, fmt: str | None = None, file_id: int = 0):
@@ -363,8 +447,15 @@ class _IndexBase:
         if file_size(path) > self.stream_threshold_bytes:
             return self.build_stream(path, fmt, file_id)
         with self.timer.phase("read"):
-            batch = read_file(path, self.parse_alphabet, fmt, file_id,
-                              reuse=True)
+            if self.mesh.world > 1:
+                # each rank parses only its own byte block
+                halo, halo_left = self._chunk_halo()
+                batch = host_block_batch(path, self.parse_alphabet,
+                                         self.mesh, fmt, halo, file_id,
+                                         halo_left)
+            else:
+                batch = read_file(path, self.parse_alphabet, fmt, file_id,
+                                  reuse=True)
         return self.insert_batch(batch)
 
     def build_stream(self, path, fmt: str | None = None, file_id: int = 0,
@@ -372,7 +463,14 @@ class _IndexBase:
         """Build by streaming byte blocks of the file through the parser
         ring and the device — O(block) host memory for any corpus size
         (the reference's read_block loop, kmer_file_helper.hpp:293-331 +
-        file.hpp:1216-1432).  Every chunk has one shape."""
+        file.hpp:1216-1432).  Every chunk has one shape.
+
+        Over W ranks the file is a grid of W * b blocks, rank r streaming
+        blocks [r * b, (r + 1) * b) in lockstep with the others; a FASTA
+        block's record context comes from the distributed header scan, and
+        a FASTQ build that stores long ids numbers its records from the
+        count of the records before the rank's range (one collective scan
+        each, ``parallel/multihost.py``)."""
         fmt = fmt or sniff_format(path)
         halo, halo_left = self._chunk_halo()
         if block_bytes is None:
@@ -381,12 +479,21 @@ class _IndexBase:
                 2 if fmt == "fastq" else 1)
         # a block never yields more than block_bytes bases
         chunk_bases = min(self.default_chunk_bases, block_bytes)
-        nblocks = max(1, -(-file_size(path) // block_bytes))
+        w, r = self.mesh.world, self.mesh.rank
+        # the same on every rank: the grid is globally consistent
+        bph = max(1, -(-file_size(path) // (w * block_bytes)))
+        nblocks = w * bph
         alphabet = self.parse_alphabet
+        ctxs, base = [None] * bph, 0
+        if w > 1 and fmt == "fasta":
+            ctxs = distributed_fasta_grid_context(path, bph, self.mesh)
+        elif w > 1 and self.id_kind == "long":
+            base = distributed_fastq_grid_base(path, bph, self.mesh)
 
         def chunks():
-            n_records = 0
-            for p in range(nblocks):
+            n_records = base
+            for j in range(bph):
+                p = r * bph + j
                 with self.timer.phase("read"):
                     if fmt == "fastq":
                         # records numbered in the file, so long ids keep
@@ -398,12 +505,14 @@ class _IndexBase:
                     else:
                         b = read_fasta_block(path, alphabet, p, nblocks,
                                              file_id=file_id, halo=halo,
-                                             halo_left=halo_left, reuse=True)
+                                             halo_left=halo_left, reuse=True,
+                                             context=ctxs[j])
                 if b.num_bases:
                     yield from b.iter_chunks(chunk_bases, halo, halo_left)
 
-        self._stream_chunks_iter(chunks(), self._marshal_chunk,
-                                 self._insert_cols)
+        self._stream_chunks_iter(
+            chunks(), self._marshal_chunk, self._insert_cols,
+            lambda: self._invalid_chunk(halo_left + chunk_bases + halo))
         return self
 
     def build_posix(self, path, fmt: str | None = None, file_id: int = 0):
@@ -480,13 +589,13 @@ class _CountSurfaceMixin:
         pred, shard by shard in key order.  With kmers: the per-query
         counts, 0 where pred fails."""
         if kmers is None:
-            out = []
-            for rows, cnts in self._select(pred):
-                if rows.shape[0]:
-                    out.extend(zip(
-                        self.spec.to_ints(to_numpy_u32(rows)).tolist(),
-                        cnts.cpu().numpy().astype(int).tolist()))
-            return out
+            parts = self._select(pred)
+            rows = to_numpy_u32(self._rows_of_all(r for r, _ in parts))
+            cnts = self._rows_of_all(c for _, c in parts).cpu().numpy()
+            if rows.shape[0] == 0:
+                return []
+            return list(zip(self.spec.to_ints(rows).tolist(),
+                            cnts.astype(int).tolist()))
         words = self._query_words(kmers)
         counts = self._count_words(words)
         return np.where(_pred_mask(pred, words, counts), counts, 0)
@@ -552,8 +661,8 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
                  initial_capacity: int = 1 << 12, max_runs: int = 8,
                  nparts: int = 1, hash_name: str = "murmur",
                  saturate: int | None = None,
-                 timer: PhaseTimer | None = None):
-        super().__init__(spec, device, canonical, nparts, timer)
+                 timer: PhaseTimer | None = None, mesh: Mesh | None = None):
+        super().__init__(spec, device, canonical, nparts, timer, mesh)
         self.hash_name = hash_name
         self.saturate = saturate
         self.initial_capacity = initial_capacity
@@ -568,7 +677,7 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
         self.runs = [st.stack_run_stores(
             [st.empty_run_count_store(self.initial_capacity,
                                       self.spec.nwords, self.device)]
-            * self.nparts)]
+            * self.mesh.p_local)]
         #: per-run flag: every live row has weight 1 and sentinels mark
         #: exactly the dead tail (file-ingest output) — such pairs merge
         #: keys-only (st.run_merge_unit).  Only sentinel-safe specs.
@@ -598,16 +707,17 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
         return self
 
     def _distinct(self) -> list[int]:
-        """Distinct live keys per shard (one consolidated run)."""
+        """Distinct live keys per shard of every rank (one consolidated
+        run)."""
         assert len(self.runs) == 1
-        return dx.run_stats_step(self.runs[0])
+        return dx.run_stats_step(self.runs[0], self.mesh)
 
     def size(self) -> int:
         """Distinct-key count (dsc::map_base::size)."""
         return sum(self.local_sizes())
 
     def local_sizes(self) -> list[int]:
-        """Distinct keys per shard, in shard order (as `items` lists
+        """Distinct keys per shard, in global shard order (as `items` lists
         them)."""
         self._consolidate()
         return self._distinct()
@@ -630,8 +740,8 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
 
     def _shard_weight(self) -> int:
         """The largest shard's raw weight total over all runs."""
-        return int(sum(r.csum[:, -1].to(torch.int64)
-                       for r in self.runs).max())
+        return self.mesh.all_max(int(sum(r.csum[:, -1].to(torch.int64)
+                                         for r in self.runs).max()))
 
     def _note_weight(self, add: int):
         """Account `add` incoming weight against the int32 prefix-sum
@@ -723,16 +833,17 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
 
     def _compact_step(self, new_cap: int):
         """(the one run compacted to new_cap rows, overflow)."""
-        return dx.run_compact_step(self.runs[0], new_cap, self.saturate)
+        return dx.run_compact_step(self.runs[0], new_cap, self.saturate,
+                                   self.mesh)
 
     # ------------------------------------------------------------------
     def _insert_cols(self, cols: dict):
         bases = self._to_device(cols)
-        cap = self._bucket_capacity(bases.codes.shape[1])
+        cap = self._chunk_capacity(bases)
         with self.timer.phase("insert"):
             while True:
                 rw, rwt, ovf = dx.run_ingest_step(
-                    bases, self.spec, self.canonical, self.nparts, cap,
+                    bases, self.spec, self.canonical, self.mesh, cap,
                     self.hash_name)
                 if ovf == 0:
                     break
@@ -752,7 +863,7 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
         with self.timer.phase("insert"):
             (rw, rwt), _ = self._route_rows(
                 lambda w, c, v, cap: dx.run_insert_step(
-                    w, c, v, self.nparts, cap, self.hash_name),
+                    w, c, v, self.mesh, cap, self.hash_name),
                 words, extra=(counts,))
         self._append_run(rw, rwt)
         return self
@@ -801,9 +912,9 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
         with self.timer.phase("count"):
             (counts,), m = self._route_rows(
                 lambda q, v, cap: dx.runs_count_query_step(
-                    q, v, aux, self.nparts, cap, self.hash_name,
+                    q, v, aux, self.mesh, cap, self.hash_name,
                     self.saturate), words)
-            return counts.reshape(-1)[:m].cpu().numpy()
+            return self._replies(counts, m).cpu().numpy()
 
     def _erase_words(self, words: torch.Tensor) -> int:
         """Zero every row of the query keys in every run; the runs stop
@@ -812,7 +923,7 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
         with self.timer.phase("erase"):
             (runs, nerased), _ = self._route_rows(
                 lambda q, v, cap: dx.runs_erase_step(
-                    self.runs, aux, q, v, self.nparts, cap, self.hash_name),
+                    self.runs, aux, q, v, self.mesh, cap, self.hash_name),
                 words)
         self.runs, self._unit = runs, [False] * len(runs)
         self._drop_stale_aux()
@@ -822,7 +933,7 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
         self._consolidate()
         with self.timer.phase("filter"):
             store, nerased = dx.run_filter_step(self.runs[0], keep_pred,
-                                                self.saturate)
+                                                self.saturate, self.mesh)
         self.runs, self._unit = [store], [False]
         self._drop_stale_aux()
         return nerased
@@ -833,20 +944,19 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
 
     def _histogram(self, nbins: int) -> torch.Tensor:
         self._consolidate()
-        return dx.run_histogram_step(self.runs[0], nbins, self.saturate)
+        return dx.run_histogram_step(self.runs[0], nbins, self.saturate,
+                                     self.mesh)
 
     def items(self) -> tuple[np.ndarray, np.ndarray]:
         """(words uint32[t, w], counts int64[t]) — every distinct live entry,
         shard by shard, each shard in key order, counts clamped at
         `saturate` (to_vector analog, distributed_map_base.hpp:202-217)."""
         self._consolidate()
-        rows, cnts = [], []
-        for s in range(self.nparts):
-            keys, total = st.run_select(self.runs[0].shard(s),
-                                        saturate=self.saturate)
-            rows.append(to_numpy_u32(keys))
-            cnts.append(total.cpu().numpy().astype(np.int64))
-        return np.concatenate(rows), np.concatenate(cnts)
+        parts = [st.run_select(self.runs[0].shard(s), saturate=self.saturate)
+                 for s in range(self.mesh.p_local)]
+        return (to_numpy_u32(self._rows_of_all(k for k, _ in parts)),
+                self._rows_of_all(c for _, c in parts).cpu().numpy().astype(
+                    np.int64))
 
     def to_dict(self) -> dict[int, int]:
         """Full contents as {kmer_int: count} (host-side; tests/tools)."""
@@ -861,7 +971,7 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
         clamped) and the config, in the JAX package's format: either
         package loads it, at any shard count."""
         rows, cnts = self.items()
-        np.savez_compressed(
+        self._savez(
             path, kind="count", k=self.spec.k,
             alphabet=self.spec.alphabet.name, canonical=self.canonical,
             hash_name=self.hash_name,
@@ -870,16 +980,16 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
         return self
 
     @classmethod
-    def load(cls, path, device="cuda", nparts: int = 1):
-        """An index of `nparts` shards holding a saved index's contents
-        (saved at any shard count, by either package): the stored keys —
-        already transformed — go back in through the insert path without
-        another transform."""
+    def load(cls, path, device="cuda", nparts: int = 1, mesh=None):
+        """An index of `nparts` shards (or over `mesh`) holding a saved
+        index's contents (saved at any shard count, by either package): the
+        stored keys — already transformed — go back in through the insert
+        path without another transform."""
         z, spec = _open_npz(path, ("count",))
         sat = int(z["saturate"])
         idx = cls(spec, device, canonical=bool(z["canonical"]),
                   nparts=nparts, hash_name=str(z["hash_name"]),
-                  saturate=None if sat < 0 else sat)
+                  saturate=None if sat < 0 else sat, mesh=mesh)
         rows = z["rows"]
         if rows.shape[0]:
             idx._insert_rows(from_numpy_u32(rows, idx.device),
@@ -923,11 +1033,11 @@ class BimoleculeCountIndex(CountIndex):
     def __init__(self, spec: KmerSpec, device="cuda",
                  initial_capacity: int = 1 << 12, nparts: int = 1,
                  hash_name: str = "murmur", saturate: int | None = None,
-                 timer: PhaseTimer | None = None):
+                 timer: PhaseTimer | None = None, mesh: Mesh | None = None):
         super().__init__(spec, device, canonical=True,
                          initial_capacity=initial_capacity, max_runs=1,
                          nparts=nparts, hash_name=hash_name,
-                         saturate=saturate, timer=timer)
+                         saturate=saturate, timer=timer, mesh=mesh)
         #: pending rows per shard that trigger a flush while building
         self.flush_rows = 1 << 24
         #: ids of explicitly inserted k-mers rank after every file
@@ -940,7 +1050,7 @@ class BimoleculeCountIndex(CountIndex):
         self.runs = [st.stack_stores(
             [st.empty_run_bimol_store(self.initial_capacity,
                                       self.spec.nwords, self.device)]
-            * self.nparts)]
+            * self.mesh.p_local)]
         self._unit = [False]
         self._virgin = True
         self._ingested_weight = 0
@@ -956,7 +1066,7 @@ class BimoleculeCountIndex(CountIndex):
 
     def _compact_step(self, new_cap: int):
         return dx.run_bimol_compact_step(self.runs[0], new_cap,
-                                         self.saturate)
+                                         self.saturate, self.mesh)
 
     def _flush(self):
         """Adopt every pending run (K3) and merge them and the store, two
@@ -1018,11 +1128,11 @@ class BimoleculeCountIndex(CountIndex):
     # -- build and inserts --------------------------------------------------
     def _insert_cols(self, cols: dict):
         bases = self._to_device(cols)
-        cap = self._bucket_capacity(bases.codes.shape[1])
+        cap = self._chunk_capacity(bases)
         with self.timer.phase("insert"):
             while True:
                 *run, ovf = dx.bimol_ingest_step(bases, self.spec,
-                                                 self.nparts, cap,
+                                                 self.mesh, cap,
                                                  self.hash_name)
                 if ovf == 0:
                     break
@@ -1040,7 +1150,7 @@ class BimoleculeCountIndex(CountIndex):
         with self.timer.phase("insert"):
             run, _ = self._route_rows(
                 lambda w, wt, h, lo, s, v, cap: dx.bimol_tuples_step(
-                    w, wt, h, lo, s, v, self.nparts, cap, self.hash_name),
+                    w, wt, h, lo, s, v, self.mesh, cap, self.hash_name),
                 canon, extra=(weights, id_hi, id_lo, strand))
         return self._add_pending(run)
 
@@ -1111,9 +1221,9 @@ class BimoleculeCountIndex(CountIndex):
         with self.timer.phase("find"):
             (counts, strand), m = self._route_rows(
                 lambda q, v, cap: dx.run_bimol_find_step(
-                    q, v, aux, strands, self.nparts, cap, self.hash_name,
+                    q, v, aux, strands, self.mesh, cap, self.hash_name,
                     self.saturate), canon)
-        counts, strand = counts.reshape(-1)[:m], strand.reshape(-1)[:m]
+        counts, strand = self._replies(counts, m), self._replies(strand, m)
         hit = counts > 0
         words = self._stored(canon[hit], strand[hit])
         return to_numpy_u32(words), counts[hit].cpu().numpy()
@@ -1123,12 +1233,11 @@ class BimoleculeCountIndex(CountIndex):
         int64[t]): every distinct live entry, shard by shard, each shard in
         canonical key order, counts clamped at `saturate`."""
         self._consolidate()
-        rows, cnts = [], []
-        for keys, counts, strand in dx.run_bimol_export_step(
-                self.runs[0], self.saturate):
-            rows.append(to_numpy_u32(self._stored(keys, strand)))
-            cnts.append(counts.cpu().numpy().astype(np.int64))
-        return np.concatenate(rows), np.concatenate(cnts)
+        parts = dx.run_bimol_export_step(self.runs[0], self.saturate)
+        return (to_numpy_u32(self._rows_of_all(
+                    self._stored(k, o) for k, _, o in parts)),
+                self._rows_of_all(c for _, c, _ in parts).cpu().numpy()
+                .astype(np.int64))
 
     # -- persistence: the JAX package's "bimol_count" npz ---------------
     def save(self, path):
@@ -1139,8 +1248,8 @@ class BimoleculeCountIndex(CountIndex):
         self.compact()
         r = self.runs[0]
         n = max(self._distinct())
-        cut = lambda t: t[..., :n]  # noqa: E731
-        np.savez_compressed(
+        cut = lambda t: self._whole(t[..., :n])  # noqa: E731
+        self._savez(
             path, kind="bimol_count", k=self.spec.k,
             alphabet=self.spec.alphabet.name, hash_name=self.hash_name,
             saturate=-1 if self.saturate is None else self.saturate,
@@ -1152,14 +1261,14 @@ class BimoleculeCountIndex(CountIndex):
         return self
 
     @classmethod
-    def load(cls, path, device="cuda", nparts: int = 1):
-        """An index of `nparts` shards holding a saved Bimolecule index's
-        contents: the saved rows go back in with their weights, ids and
-        strands, so every stored orientation survives."""
+    def load(cls, path, device="cuda", nparts: int = 1, mesh=None):
+        """An index of `nparts` shards (or over `mesh`) holding a saved
+        Bimolecule index's contents: the saved rows go back in with their
+        weights, ids and strands, so every stored orientation survives."""
         z, spec = _open_npz(path, ("bimol_count",))
         sat = int(z["saturate"])
         idx = cls(spec, device, nparts=nparts, hash_name=str(z["hash_name"]),
-                  saturate=None if sat < 0 else sat)
+                  saturate=None if sat < 0 else sat, mesh=mesh)
         live = z["weights"] > 0
         cols = [np.concatenate([z[f][s][..., live[s]]
                                 for s in range(live.shape[0])], axis=-1)
@@ -1193,7 +1302,7 @@ class _MultimapSurfaceMixin:
         self.codec = codec if codec is not None else ILLUMINA18
         self.store = st.stack_multi_stores(
             [st.empty_multi_store(initial_capacity, self.spec.nwords,
-                                  self.device)] * self.nparts)
+                                  self.device)] * self.mesh.p_local)
         self._pending: list = []
         self._pending_rows = 0
         #: the store's val_q column is live: a quality index, or quals
@@ -1210,12 +1319,17 @@ class _MultimapSurfaceMixin:
     def size(self) -> int:
         """Total number of (k-mer, position) pairs."""
         self._flush()
-        return int(self.store.size.sum())
+        return self.mesh.all_sum(int(self.store.size.sum()))
+
+    def local_sizes(self) -> list[int]:
+        """Pairs per shard, in global shard order."""
+        self._flush()
+        return self._whole(self.store.size).tolist()
 
     def unique_size(self) -> int:
         """Distinct keys (map_base::unique_size)."""
         self._flush()
-        return dx.unique_size_step(self.store)
+        return dx.unique_size_step(self.store, self.mesh)
 
     def insert(self, kmers, ids, quals=None):
         """Insert explicit (k-mer, position id[, quality]) pairs — the
@@ -1256,9 +1370,9 @@ class _MultimapSurfaceMixin:
         with self.timer.phase("count"):
             (counts,), m = self._route_rows(
                 lambda w, v, cap: dx.multi_count_routed(
-                    self.store, aux, w, v, self._owners(w), self.nparts, cap),
+                    self.store, aux, w, v, self._owners(w), self.mesh, cap),
                 words)
-            return counts.reshape(-1)[:m].to(torch.int32).cpu().numpy()
+            return self._replies(counts, m).to(torch.int32).cpu().numpy()
 
     get_multiplicity = count
 
@@ -1286,14 +1400,15 @@ class _MultimapSurfaceMixin:
             with self.timer.phase("find"):
                 (hi, lo, q, mask, nfound), m = self._route_rows(
                     lambda w, v, cap: dx.multi_find_routed(
-                        self.store, aux, w, v, self._owners(w), self.nparts,
+                        self.store, aux, w, v, self._owners(w), self.mesh,
                         cap, max_per_query), words)
-                counts = nfound.reshape(-1)[:m].to(torch.int32).cpu().numpy()
+                counts = self._replies(nfound, m).to(
+                    torch.int32).cpu().numpy()
             worst = int(counts.max()) if m else 0
             if grow_to_fit and worst > max_per_query:
                 max_per_query = _next_pow2(worst)
                 continue
-            rows = lambda t: t.reshape(-1, max_per_query)[:m]  # noqa: E731
+            rows = lambda t: self._replies(t, m)  # noqa: E731
             ids = ((to_numpy_u32(rows(hi)).astype(np.uint64) << np.uint64(32))
                    | to_numpy_u32(rows(lo)).astype(np.uint64))
             out = (ids,) + ((rows(q).cpu().numpy(),) if with_quality else ())
@@ -1311,7 +1426,7 @@ class _MultimapSurfaceMixin:
         with self.timer.phase("erase"):
             (store, nerased), _ = self._route_rows(
                 lambda w, v, cap: dx.multi_erase_routed(
-                    self.store, aux, w, v, self._owners(w), self.nparts, cap,
+                    self.store, aux, w, v, self._owners(w), self.mesh, cap,
                     pred), words)
         self.store = store
         return nerased
@@ -1325,7 +1440,7 @@ class _MultimapSurfaceMixin:
         self._flush()
         with self.timer.phase("filter"):
             self.store, nerased = dx.multi_filter_step(
-                self.store, lambda k, h, l, q: ~pred(k, h, l, q))
+                self.store, lambda k, h, l, q: ~pred(k, h, l, q), self.mesh)
         return nerased
 
     def filter(self, pred) -> int:
@@ -1343,13 +1458,15 @@ class _MultimapSurfaceMixin:
             counts = self._count_words(words)
             return np.where(_pred_mask(pred, words, counts), counts, 0)
         self._flush()
+        parts = dx.multi_select_step(self.store, pred)
+        rows = to_numpy_u32(self._rows_of_all(r for r, _ in parts))
+        matches = self._rows_of_all(n for _, n in parts).cpu().numpy()
         out: dict = {}
-        for rows, matches in dx.multi_select_step(self.store, pred):
-            if rows.shape[0]:
-                # a key may straddle two range shards: sum its matches
-                for v, n in zip(self.spec.to_ints(to_numpy_u32(rows)).tolist(),
-                                matches.cpu().numpy().tolist()):
-                    out[v] = out.get(v, 0) + n
+        if rows.shape[0]:
+            # a key may straddle two range shards: sum its matches
+            for v, n in zip(self.spec.to_ints(rows).tolist(),
+                            matches.tolist()):
+                out[v] = out.get(v, 0) + n
         return sorted(out.items())
 
     def find_if(self, pred, kmers=None, max_per_query: int = 64):
@@ -1368,10 +1485,10 @@ class _MultimapSurfaceMixin:
         stored pair, shard by shard, each shard in key order — the
         vectorized host export behind `to_dict`."""
         self._flush()
-        keys, hi, lo = (to_numpy_u32(t) for t in (
+        keys, hi, lo = (to_numpy_u32(self._whole(t)) for t in (
             self.store.keys, self.store.val_hi, self.store.val_lo))
-        q = self.store.val_q.cpu().numpy()
-        sizes = self.store.size.cpu().numpy().tolist()
+        q = self._whole(self.store.val_q).cpu().numpy()
+        sizes = self._whole(self.store.size).cpu().numpy().tolist()
         rows = np.concatenate([keys[s][:, :n].T for s, n in enumerate(sizes)])
         take = lambda a: np.concatenate(  # noqa: E731
             [a[s, :n] for s, n in enumerate(sizes)])
@@ -1397,27 +1514,31 @@ class _MultimapSurfaceMixin:
         uint32): either package loads it, at any shard count."""
         self._flush()
         s = self.store
+        host = lambda t: to_numpy_u32(self._whole(t))  # noqa: E731
         extra = ({"hash_name": self.hash_name} if hasattr(self, "hash_name")
                  else {})
-        np.savez_compressed(
+        self._savez(
             path, kind=self._npz_kind, k=self.spec.k,
             alphabet=self.spec.alphabet.name, canonical=self.canonical,
             id_kind=self.id_kind, with_quality=self.with_quality,
-            nparts=self.nparts, keys=to_numpy_u32(s.keys).transpose(0, 2, 1),
-            val_hi=to_numpy_u32(s.val_hi), val_lo=to_numpy_u32(s.val_lo),
-            val_q=s.val_q.cpu().numpy(), sizes=s.size.cpu().numpy(), **extra)
+            nparts=self.nparts, keys=host(s.keys).transpose(0, 2, 1),
+            val_hi=host(s.val_hi), val_lo=host(s.val_lo),
+            val_q=self._whole(s.val_q).cpu().numpy(),
+            sizes=self._whole(s.size).cpu().numpy(), **extra)
         return self
 
     @classmethod
-    def load(cls, path, device="cuda", nparts: int = 1):
-        """An index of `nparts` shards holding a saved multimap's pairs
-        (saved at any shard count, by either package); the stored keys are
-        already transformed and go back in without another transform."""
+    def load(cls, path, device="cuda", nparts: int = 1, mesh=None):
+        """An index of `nparts` shards (or over `mesh`) holding a saved
+        multimap's pairs (saved at any shard count, by either package); the
+        stored keys are already transformed and go back in without another
+        transform."""
         z, spec = _open_npz(path, (cls._npz_kind,))
         extra = ({"hash_name": str(z["hash_name"])}
                  if "hash_name" in z.files else {})
         idx = cls(spec, device, canonical=bool(z["canonical"]),
-                  nparts=nparts, id_kind=str(z["id_kind"]), **extra)
+                  nparts=nparts, id_kind=str(z["id_kind"]), mesh=mesh,
+                  **extra)
         sizes = z["sizes"]
         rows = _live_rows(z["keys"], sizes)
         if rows.shape[0]:
@@ -1457,8 +1578,9 @@ class PositionIndex(_MultimapSurfaceMixin, _IndexBase):
     def __init__(self, spec: KmerSpec, device="cuda", canonical=False,
                  nparts: int = 1, hash_name: str = "murmur",
                  id_kind: str = "short", initial_capacity: int = 1 << 12,
-                 codec=None, timer: PhaseTimer | None = None):
-        super().__init__(spec, device, canonical, nparts, timer)
+                 codec=None, timer: PhaseTimer | None = None,
+                 mesh: Mesh | None = None):
+        super().__init__(spec, device, canonical, nparts, timer, mesh)
         self.hash_name = hash_name
         self._init_multimap(id_kind, initial_capacity, codec)
         #: pending rows that trigger a flush while building
@@ -1472,14 +1594,15 @@ class PositionIndex(_MultimapSurfaceMixin, _IndexBase):
         words, hi, lo, q, valid = dx.concat_pending(self._pending,
                                                     self._has_q)
         self._pending, self._pending_rows = [], 0
-        need = int((self.store.size + valid.sum(dim=1)).max())
+        need = self.mesh.all_max(int((self.store.size
+                                      + valid.sum(dim=1)).max()))
         if need > self.capacity:
             self._grow(_next_pow2(need))
         with self.timer.phase("merge"):
             while True:
                 store, ovf = dx.multi_merge_step(
                     self.store, words, hi, lo, q, valid,
-                    self.spec.sentinel_safe)
+                    self.spec.sentinel_safe, self.mesh)
                 if ovf == 0:
                     self.store = store
                     return
@@ -1490,11 +1613,11 @@ class PositionIndex(_MultimapSurfaceMixin, _IndexBase):
 
     def _insert_cols(self, cols: dict):
         bases = self._to_device(cols)
-        cap = self._bucket_capacity(bases.codes.shape[1])
+        cap = self._chunk_capacity(bases)
         with self.timer.phase("insert"):
             while True:
                 *tup, ovf = dx.multi_ingest_step(
-                    bases, self.spec, self.canonical, self.nparts, cap,
+                    bases, self.spec, self.canonical, self.mesh, cap,
                     self.hash_name, self.with_quality, self.codec)
                 if ovf == 0:
                     break
@@ -1517,7 +1640,7 @@ class PositionIndex(_MultimapSurfaceMixin, _IndexBase):
         cap = self._bucket_capacity(wsh.shape[1])
         while True:
             store, route_ovf, store_ovf = dx.multi_insert_step(
-                self.store, wsh, hsh, lsh, qsh, vsh, self.nparts, cap,
+                self.store, wsh, hsh, lsh, qsh, vsh, self.mesh, cap,
                 self.hash_name)
             if route_ovf == 0 and store_ovf == 0:
                 self.store = store

@@ -4,8 +4,8 @@ node stores and the unique-key value map.
 
 The port of ``kmerind_tpu.index.distributed``: each ``make_*_step``
 factory there returns a jitted ``shard_map`` program; here each step is a
-plain function (``*_step``, same stem) over stacked [p, ...] shard tensors
-on one device, looping over the shards between exchanges
+plain function (``*_step``, same stem) over a rank's stacked [p_local, ...]
+shard tensors, looping over them between exchanges
 (``parallel/distribute.py``).  Every key is owned by shard
 ``owner_from_hash(hash(key), p)`` (KeyToRank,
 distributed_densehash_map.hpp:148-171); inserts and queries ship tuples to
@@ -13,6 +13,14 @@ their owners, run the local store op, and queries route the replies back in
 the original order.  Steps that exchange return the exchange's overflow
 (the largest bucket excess; the caller retries with larger buckets).  The
 index classes in ``api.py`` hold the stores and orchestrate.
+
+Layouts over several ranks: a step that exchanges takes the index's
+`Mesh` where it takes `nparts` (a shard count is the one-process layout),
+and the shard-local steps that return host ints take it as `mesh=`.  Both
+are then collectives — every rank calls them in the same order — and
+every host int they return (overflows, keys erased, per-shard sizes,
+spectra) is already reduced over the ranks, so the callers' retry and
+growth decisions agree on every rank.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from ..io.kmer_parsers import DeviceBases, extract_tuples
 from ..ops import hashing, kernels, packing, sortops
 from ..ops.keys import SENTINEL
 from ..parallel import distribute as dist
+from ..parallel.mesh import as_mesh
 from ..quality import ILLUMINA18, window_quality
 from . import store as st
 
@@ -48,11 +57,12 @@ __all__ = ["owners_for", "run_ingest_step", "run_insert_step",
            "kv_select_step"]
 
 
-def owners_for(words: torch.Tensor, nparts: int, hash_name: str = "murmur",
+def owners_for(words: torch.Tensor, nparts, hash_name: str = "murmur",
                seed: int = 42) -> torch.Tensor | None:
     """Destination shard per key row [..., w] (KeyToRank): the owner map of
-    the named hash (``ops/hashing.py``).  None with one shard, where every
-    row is owned by shard 0."""
+    the named hash (``ops/hashing.py``) over the layout's shards.  None
+    with one shard, where every row is owned by shard 0."""
+    nparts = as_mesh(nparts).nparts
     if nparts == 1:
         return None
     return hashing.owner_from_hash(
@@ -73,7 +83,7 @@ def run_ingest_step(bases: DeviceBases, spec, canonical, nparts: int = 1,
     (rw,), rvalid, route = dist.distribute(
         (words,), owner, st.stack([t.valid for t in tups]), nparts, capacity)
     cols, weights = [], []
-    for s in range(nparts):
+    for s in range(rw.shape[0]):
         s_words, _, s_valid = sortops.sort_rows(
             rw[s], (), rvalid[s], is_stable=False,
             sentinel_ok=spec.sentinel_safe, as_cols=True)
@@ -97,7 +107,7 @@ def run_insert_step(words, weights, valid, nparts: int,
     (rw, rwt), rvalid, route = dist.distribute((words, weights), owner,
                                                valid, nparts, capacity)
     cols, wts = [], []
-    for s in range(nparts):
+    for s in range(rw.shape[0]):
         s_words, (s_wt,), s_valid = sortops.sort_rows(
             rw[s], (rwt[s],), rvalid[s], is_stable=False, as_cols=True)
         cols.append(torch.where(s_valid[None, :], s_words, SENTINEL))
@@ -115,10 +125,19 @@ def run_adopt_step(words: torch.Tensor, weights: torch.Tensor,
                                 for s in range(words.shape[0])])
 
 
-def run_stats_step(store: st.RunCountStore) -> list[int]:
-    """Distinct live keys per shard (the size surface)."""
-    return [int(st.run_distinct(store.shard(s)))
-            for s in range(store.keys.shape[0])]
+def _gather_sizes(local: list, mesh) -> list[int]:
+    """Per-shard host ints of a rank's shards -> those of every shard of
+    the layout, in global shard order (an all-gather over several
+    ranks)."""
+    t = torch.stack([torch.as_tensor(x, dtype=torch.int64).cpu()
+                     for x in local])
+    return as_mesh(mesh or 1).all_gather(t).tolist()
+
+
+def run_stats_step(store: st.RunCountStore, mesh=None) -> list[int]:
+    """Distinct live keys per shard of every rank (the size surface)."""
+    return _gather_sizes([st.run_distinct(store.shard(s))
+                          for s in range(store.keys.shape[0])], mesh)
 
 
 def _shards(store):
@@ -126,22 +145,22 @@ def _shards(store):
 
 
 def run_compact_step(store: st.RunCountStore, new_cap: int,
-                     saturate: int | None = None):
-    """(compacted stacked store, the largest shard overflow) — see
-    store.run_compact."""
+                     saturate: int | None = None, mesh=None):
+    """(compacted stacked store, the largest shard overflow of every rank)
+    — see store.run_compact."""
     out = [st.run_compact(sh, new_cap, saturate) for sh in _shards(store)]
     return (st.stack_run_stores([o[0] for o in out]),
-            max(o[1] for o in out))
+            as_mesh(mesh or 1).all_max(max(o[1] for o in out)))
 
 
 def run_filter_step(store: st.RunCountStore, keep_pred,
-                    saturate: int | None = None):
+                    saturate: int | None = None, mesh=None):
     """erase_if / filter over every shard of one run (store.run_filter; a
     Bimolecule run keeps its representatives): (new stacked store,
-    distinct keys removed)."""
+    distinct keys removed on every rank)."""
     out = [st.run_filter(sh, keep_pred, saturate) for sh in _shards(store)]
     return (st.stack_stores([o[0] for o in out]),
-            int(sum(o[1] for o in out)))
+            as_mesh(mesh or 1).all_sum(int(sum(o[1] for o in out))))
 
 
 def run_select_step(store: st.RunCountStore, pred,
@@ -152,10 +171,12 @@ def run_select_step(store: st.RunCountStore, pred,
 
 
 def run_histogram_step(store: st.RunCountStore, nbins: int,
-                       saturate: int | None = None) -> torch.Tensor:
-    """int64[nbins] spectrum over all shards: every key lives on one shard,
-    so the shards' spectra sum."""
-    return sum(st.run_histogram(sh, nbins, saturate) for sh in _shards(store))
+                       saturate: int | None = None,
+                       mesh=None) -> torch.Tensor:
+    """int64[nbins] spectrum over all shards of every rank: every key lives
+    on one shard, so the shards' spectra sum."""
+    return as_mesh(mesh or 1).all_sum_tensor(sum(
+        st.run_histogram(sh, nbins, saturate) for sh in _shards(store)))
 
 
 def run_aux_step(store: st.RunCountStore) -> list:
@@ -176,7 +197,7 @@ def runs_count_query_step(queries: torch.Tensor, qvalid: torch.Tensor, aux,
     (rq,), rvalid, route = dist.distribute((queries,), owner, qvalid, nparts,
                                            capacity)
     local = []
-    for s in range(nparts):
+    for s in range(rq.shape[0]):
         total = sum(st.run_lookup_aux(ext, bstart, rq[s])
                     for ext, bstart in (run[s] for run in aux))
         if saturate is not None:
@@ -199,7 +220,7 @@ def runs_erase_step(runs, aux, queries: torch.Tensor, qvalid: torch.Tensor,
     (rq,), rvalid, route = dist.distribute((queries,), owner, qvalid, nparts,
                                            capacity)
     shards, nerased = [], 0
-    for s in range(nparts):
+    for s in range(rq.shape[0]):
         total = sum(st.run_lookup_aux(ext, bstart, rq[s])
                     for ext, bstart in (run[s] for run in aux))
         had = rvalid[s] & (total > 0)
@@ -209,9 +230,9 @@ def runs_erase_step(runs, aux, queries: torch.Tensor, qvalid: torch.Tensor,
         s_words, _, s_had = sortops.sort_rows(rq[s], (), had,
                                               is_stable=False)
         nerased += sortops.compact_runs(s_words, s_had)[3]
-    new_runs = [st.stack_stores([shards[s][r] for s in range(nparts)])
+    new_runs = [st.stack_stores([sh[r] for sh in shards])
                 for r in range(len(runs))]
-    return new_runs, int(nerased), route.overflow
+    return new_runs, as_mesh(nparts).all_sum(int(nerased)), route.overflow
 
 
 def run_merge_pair_step(a: st.RunCountStore, b: st.RunCountStore,
@@ -227,14 +248,14 @@ def run_merge_pair_step(a: st.RunCountStore, b: st.RunCountStore,
 
 
 # ------------------------------------------------- unique-key count store
-def count_filter_step(store: st.CountStore, keep_pred):
+def count_filter_step(store: st.CountStore, keep_pred, mesh=None):
     """erase_if / filter over a CountStore's shards: entries whose (key,
     count) fails keep_pred(keys int64[cap, w], counts int32[cap]) ->
-    bool[cap] are removed.  Returns (new stacked store, entries
-    removed)."""
+    bool[cap] are removed.  Returns (new stacked store, entries removed
+    on every rank)."""
     out = [st.count_filter(sh, keep_pred) for sh in _shards(store)]
     return (st.stack_count_stores([o[0] for o in out]),
-            int(sum(o[1] for o in out)))
+            as_mesh(mesh or 1).all_sum(int(sum(o[1] for o in out))))
 
 
 def count_select_step(store: st.CountStore, pred) -> list:
@@ -243,9 +264,12 @@ def count_select_step(store: st.CountStore, pred) -> list:
     return [st.count_select(sh, pred) for sh in _shards(store)]
 
 
-def histogram_step(store: st.CountStore, nbins: int) -> torch.Tensor:
-    """int64[nbins] spectrum of a CountStore over all shards."""
-    return sum(st.count_histogram(sh, nbins) for sh in _shards(store))
+def histogram_step(store: st.CountStore, nbins: int,
+                   mesh=None) -> torch.Tensor:
+    """int64[nbins] spectrum of a CountStore over all shards of every
+    rank."""
+    return as_mesh(mesh or 1).all_sum_tensor(sum(
+        st.count_histogram(sh, nbins) for sh in _shards(store)))
 
 
 # ----------------------------------------------------------------- multimap
@@ -273,19 +297,19 @@ def multi_ingest_step(bases: DeviceBases, spec, canonical, nparts: int,
 
 
 def multi_merge_step(store: st.MultiStore, words, hi, lo, q, valid,
-                     sentinel_ok: bool):
+                     sentinel_ok: bool, mesh=None):
     """Deferred merge of owner-resident tuples into each shard's store:
     words [p, n, w], hi / lo / valid [p, n], q float32[p, n] or None (the
     store carries no quality).  Every shard flushes through the K2 merge
     (any key width), flagged where keys may equal the sentinel.  Returns
-    (new stacked store, the largest shard overflow)."""
+    (new stacked store, the largest shard overflow of every rank)."""
     flush = (st.multi_merge_flush if sentinel_ok
              else st.multi_merge_flush_flagged)
     out = [flush(store.shard(s), words[s], hi[s], lo[s], valid[s],
                  None if q is None else q[s])
            for s in range(words.shape[0])]
     return (st.stack_multi_stores([o[0] for o in out]),
-            max(int(o[1]) for o in out))
+            as_mesh(mesh or 1).all_max(max(int(o[1]) for o in out)))
 
 
 def multi_insert_step(store: st.MultiStore, words, hi, lo, q, valid,
@@ -298,9 +322,9 @@ def multi_insert_step(store: st.MultiStore, words, hi, lo, q, valid,
     (rw, rhi, rlo, rq), rvalid, route = dist.distribute(
         (words, hi, lo, q), owner, valid, nparts, capacity)
     out = [st.multi_insert(store.shard(s), rw[s], rhi[s], rlo[s], rvalid[s],
-                           rq[s]) for s in range(nparts)]
+                           rq[s]) for s in range(rw.shape[0])]
     return (st.stack_multi_stores([o[0] for o in out]), route.overflow,
-            max(int(o[1]) for o in out))
+            as_mesh(nparts).all_max(max(int(o[1]) for o in out)))
 
 
 def multi_aux_step(store: st.MultiStore) -> list:
@@ -309,11 +333,11 @@ def multi_aux_step(store: st.MultiStore) -> list:
             for s in range(store.keys.shape[0])]
 
 
-def _ranges(store, aux, rq, rvalid, nparts):
+def _ranges(store, aux, rq, rvalid):
     """Per shard (lo, hi) of the received queries; invalid slots get the
     empty range."""
     out = []
-    for s in range(nparts):
+    for s in range(rq.shape[0]):
         lo, hi = st.multi_lookup_ranges_aux(store.shard(s), *aux[s], rq[s])
         out.append((lo, torch.where(rvalid[s], hi, lo)))
     return out
@@ -325,7 +349,7 @@ def multi_count_routed(store, aux, queries, qvalid, owner, nparts, capacity):
     (rq,), rvalid, route = dist.distribute((queries,), owner, qvalid, nparts,
                                            capacity)
     local = st.stack([hi - lo for lo, hi in
-                      _ranges(store, aux, rq, rvalid, nparts)])
+                      _ranges(store, aux, rq, rvalid)])
     (back,) = dist.undistribute((local,), route, nparts, capacity)
     return back, route.overflow
 
@@ -338,7 +362,7 @@ def multi_find_routed(store, aux, queries, qvalid, owner, nparts, capacity,
     (rq,), rvalid, route = dist.distribute((queries,), owner, qvalid, nparts,
                                            capacity)
     parts, counts = [], []
-    for s, (lo, hi) in enumerate(_ranges(store, aux, rq, rvalid, nparts)):
+    for s, (lo, hi) in enumerate(_ranges(store, aux, rq, rvalid)):
         parts.append(st.multi_gather(store.shard(s), lo, hi, max_per_query))
         counts.append(hi - lo)
     back = dist.undistribute(
@@ -356,19 +380,20 @@ def multi_erase_routed(store, aux, keys, valid, owner, nparts, capacity,
     (rk,), rvalid, route = dist.distribute((keys,), owner, valid, nparts,
                                            capacity)
     out = [st.multi_erase(store.shard(s), rk[s], rvalid[s], aux[s], pred)
-           for s in range(nparts)]
+           for s in range(rk.shape[0])]
     return (st.stack_multi_stores([o[0] for o in out]),
-            sum(int(o[1]) for o in out), route.overflow)
+            as_mesh(nparts).all_sum(sum(int(o[1]) for o in out)),
+            route.overflow)
 
 
-def multi_filter_step(store: st.MultiStore, keep_pred):
+def multi_filter_step(store: st.MultiStore, keep_pred, mesh=None):
     """erase_if / filter over every pair: pairs failing keep_pred(keys
     int64[cap, w], id_hi int64[cap], id_lo int64[cap], qual float32[cap])
-    -> bool[cap] are removed.  Returns (new stacked store, pairs
-    removed)."""
+    -> bool[cap] are removed.  Returns (new stacked store, pairs removed
+    on every rank)."""
     out = [st.multi_filter(sh, keep_pred) for sh in _shards(store)]
     return (st.stack_multi_stores([o[0] for o in out]),
-            int(sum(o[1] for o in out)))
+            as_mesh(mesh or 1).all_sum(int(sum(o[1] for o in out))))
 
 
 def multi_select_step(store: st.MultiStore, pred) -> list:
@@ -377,11 +402,12 @@ def multi_select_step(store: st.MultiStore, pred) -> list:
     return [st.multi_select(sh, pred) for sh in _shards(store)]
 
 
-def unique_size_step(store: st.MultiStore) -> int:
-    """Distinct keys over all shards (map_base::unique_size): each key
-    lives on one shard, so per-shard counts sum."""
-    return sum(int(st.multi_distinct(store.shard(s)))
-               for s in range(store.keys.shape[0]))
+def unique_size_step(store: st.MultiStore, mesh=None) -> int:
+    """Distinct keys over all shards of every rank (map_base::unique_size):
+    each key lives on one shard, so per-shard counts sum."""
+    return as_mesh(mesh or 1).all_sum(sum(
+        int(st.multi_distinct(store.shard(s)))
+        for s in range(store.keys.shape[0])))
 
 
 def concat_pending(parts, with_q: bool):
@@ -397,13 +423,13 @@ def concat_pending(parts, with_q: bool):
 
 
 # ------------------------------------------------------ de Bruijn node stores
-def _sorted_edge_runs(rw, pays, rvalid, spec, nparts: int):
+def _sorted_edge_runs(rw, pays, rvalid, spec):
     """Each shard's routed (key, payload columns) rows ([p, n, ...]) sorted
     into an adoptable run: (key columns [p, w, n], sentinel keys after the
     valid rows; the payloads [p, n] in the same order, 0 on the dead rows;
     the valid flags [p, n])."""
     cols, out, valid = [], [[] for _ in pays], []
-    for s in range(nparts):
+    for s in range(rw.shape[0]):
         c, s_pays, s_valid = sortops.sort_rows(
             rw[s], tuple(p[s] for p in pays), rvalid[s], is_stable=False,
             sentinel_ok=spec.sentinel_safe, as_cols=True)
@@ -463,7 +489,7 @@ def debruijn_ingest_step(bases: DeviceBases, spec, canonical: bool,
     owner = owners_for(words, nparts, hash_name)
     (rw, *pays), rvalid, route = dist.distribute(
         cols, owner, st.stack(wvalid), nparts, capacity)
-    kc, pays, valid = _sorted_edge_runs(rw, pays, rvalid, spec, nparts)
+    kc, pays, valid = _sorted_edge_runs(rw, pays, rvalid, spec)
     qs = pays[1].view(torch.float32) if quals else None
     return kc, pays[0], valid.to(torch.int32), qs, route.overflow
 
@@ -480,7 +506,7 @@ def run_vec_load_step(words, ebytes, weights, qsums, valid, nparts: int,
     owner = owners_for(words, nparts, hash_name)
     (rw, *pays), rvalid, route = dist.distribute(cols, owner, valid, nparts,
                                                  capacity)
-    kc, pays, _ = _sorted_edge_runs(rw, pays, rvalid, spec, nparts)
+    kc, pays, _ = _sorted_edge_runs(rw, pays, rvalid, spec)
     qs = pays[2].view(torch.float32) if qsums is not None else None
     return kc, pays[0], pays[1], qs, route.overflow
 
@@ -520,16 +546,18 @@ def run_vec_table_step(store, unit: bool = False):
                             for sh in _shards(store)])
 
 
-def run_vec_stats_step(store) -> list[int]:
-    """Distinct live nodes per shard."""
-    return [int(st.run_vec_distinct(sh)) for sh in _shards(store)]
+def run_vec_stats_step(store, mesh=None) -> list[int]:
+    """Distinct live nodes per shard of every rank."""
+    return _gather_sizes([st.run_vec_distinct(sh) for sh in _shards(store)],
+                         mesh)
 
 
-def run_vec_compact_step(store, new_cap: int):
-    """(compacted stacked store, the largest shard overflow) — see
-    store.run_vec_compact."""
+def run_vec_compact_step(store, new_cap: int, mesh=None):
+    """(compacted stacked store, the largest shard overflow of every rank)
+    — see store.run_vec_compact."""
     out = [st.run_vec_compact(sh, new_cap) for sh in _shards(store)]
-    return st.stack_stores([o[0] for o in out]), max(o[1] for o in out)
+    return (st.stack_stores([o[0] for o in out]),
+            as_mesh(mesh or 1).all_max(max(o[1] for o in out)))
 
 
 def run_vec_aux_step(store) -> list:
@@ -551,7 +579,7 @@ def runs_vec_query_step(queries: torch.Tensor, qvalid: torch.Tensor, runs,
     (rq,), rvalid, route = dist.distribute((queries,), owner, qvalid, nparts,
                                            capacity)
     counts, qsums = [], []
-    for s in range(nparts):
+    for s in range(rq.shape[0]):
         parts = [st.run_vec_lookup(run.shard(s), rq[s], run_aux[s])
                  for run, run_aux in zip(runs, aux)]
         total = sum(c for c, _ in parts)
@@ -589,9 +617,9 @@ def _bimol_run(words, pays, valid, sentinel_ok: bool):
             torch.where(v, stc, 0))
 
 
-def _bimol_runs(rw, pays, rvalid, nparts: int, sentinel_ok: bool):
+def _bimol_runs(rw, pays, rvalid, sentinel_ok: bool):
     runs = [_bimol_run(rw[s], tuple(p[s] for p in pays), rvalid[s],
-                       sentinel_ok) for s in range(nparts)]
+                       sentinel_ok) for s in range(rw.shape[0])]
     return tuple(st.stack([r[i] for r in runs]) for i in range(5))
 
 
@@ -613,7 +641,7 @@ def bimol_ingest_step(bases: DeviceBases, spec, nparts: int,
     owner = owners_for(words, nparts, hash_name)
     (rw, *pays), rvalid, route = dist.distribute(cols, owner, valid, nparts,
                                                  capacity)
-    return (*_bimol_runs(rw, pays, rvalid, nparts, spec.sentinel_safe),
+    return (*_bimol_runs(rw, pays, rvalid, spec.sentinel_safe),
             route.overflow)
 
 
@@ -627,7 +655,7 @@ def bimol_tuples_step(words, weights, id_hi, id_lo, strand, valid,
     (rw, *pays), rvalid, route = dist.distribute(
         (words, weights, id_hi, id_lo, strand), owner, valid, nparts,
         capacity)
-    return (*_bimol_runs(rw, pays, rvalid, nparts, False), route.overflow)
+    return (*_bimol_runs(rw, pays, rvalid, False), route.overflow)
 
 
 def run_bimol_adopt_step(kcols, weights, id_hi, id_lo,
@@ -647,12 +675,13 @@ def run_bimol_merge_pair_step(a: st.RunBimolStore,
 
 
 def run_bimol_compact_step(store: st.RunBimolStore, new_cap: int,
-                           saturate: int | None = None):
-    """(compacted stacked store, the largest shard overflow) — see
-    store.run_bimol_compact."""
+                           saturate: int | None = None, mesh=None):
+    """(compacted stacked store, the largest shard overflow of every rank)
+    — see store.run_bimol_compact."""
     out = [st.run_bimol_compact(sh, new_cap, saturate)
            for sh in _shards(store)]
-    return st.stack_stores([o[0] for o in out]), max(o[1] for o in out)
+    return (st.stack_stores([o[0] for o in out]),
+            as_mesh(mesh or 1).all_max(max(o[1] for o in out)))
 
 
 def run_bimol_strands_step(store: st.RunBimolStore) -> list:
@@ -674,7 +703,7 @@ def run_bimol_find_step(queries: torch.Tensor, qvalid: torch.Tensor, aux,
     (rq,), rvalid, route = dist.distribute((queries,), owner, qvalid, nparts,
                                            capacity)
     counts, strand = [], []
-    for s in range(nparts):
+    for s in range(rq.shape[0]):
         c, o = st.run_bimol_find_aux(*aux[s], strands[s], rq[s], saturate)
         counts.append(torch.where(rvalid[s], c, 0))
         strand.append(torch.where(rvalid[s], o, 0))
@@ -691,10 +720,11 @@ def run_bimol_export_step(store: st.RunBimolStore,
 
 
 # ------------------------------------------------- unique-key value map
-def _kv_stack(reduced, capacity: int) -> st.KVStore:
+def _kv_stack(reduced, capacity: int, mesh) -> st.KVStore:
     """Per-shard `kv_reduce` outputs -> one stacked store of capacity
-    max(capacity, next_pow2 of the largest shard's distinct keys)."""
-    largest = max(int(r[3]) for r in reduced)
+    max(capacity, next_pow2 of the largest shard's distinct keys on every
+    rank)."""
+    largest = as_mesh(mesh).all_max(max(int(r[3]) for r in reduced))
     cap = max(capacity, 1 << max(4, (largest - 1).bit_length()))
     return st.stack_stores([st.kv_cut(*r, cap) for r in reduced])
 
@@ -711,8 +741,8 @@ def kv_insert_step(store: st.KVStore, words, val_hi, val_lo, valid,
     (rw, rhi, rlo), rvalid, route = dist.distribute(
         (words, val_hi, val_lo), owner, valid, nparts, capacity)
     reduced = [st.kv_insert(store.shard(s), rw[s], rhi[s], rlo[s], rvalid[s],
-                            reduce) for s in range(nparts)]
-    return _kv_stack(reduced, store.capacity), route.overflow
+                            reduce) for s in range(rw.shape[0])]
+    return _kv_stack(reduced, store.capacity, nparts), route.overflow
 
 
 def kv_ingest_step(store: st.KVStore, bases: DeviceBases, spec, canonical,
@@ -735,7 +765,7 @@ def kv_find_routed(store: st.KVStore, queries, qvalid, owner, nparts: int,
     bool[p, m], overflow)."""
     (rq,), rvalid, route = dist.distribute((queries,), owner, qvalid, nparts,
                                            capacity)
-    out = [st.kv_lookup(store.shard(s), rq[s]) for s in range(nparts)]
+    out = [st.kv_lookup(store.shard(s), rq[s]) for s in range(rq.shape[0])]
     hi, lo, found = (st.stack([o[i] for o in out]) for i in range(3))
     back = dist.undistribute((hi, lo, found & rvalid), route, nparts,
                              capacity)
@@ -749,18 +779,20 @@ def kv_erase_routed(store: st.KVStore, keys, valid, owner, nparts: int,
     (rk,), rvalid, route = dist.distribute((keys,), owner, valid, nparts,
                                            capacity)
     out = [st.kv_erase(store.shard(s), rk[s], rvalid[s])
-           for s in range(nparts)]
+           for s in range(rk.shape[0])]
     return (st.stack_stores([o[0] for o in out]),
-            sum(int(o[1]) for o in out), route.overflow)
+            as_mesh(nparts).all_sum(sum(int(o[1]) for o in out)),
+            route.overflow)
 
 
-def kv_filter_step(store: st.KVStore, keep_pred):
+def kv_filter_step(store: st.KVStore, keep_pred, mesh=None):
     """erase_if / filter over every entry: entries failing keep_pred(keys
     int64[cap, w], val_hi int64[cap], val_lo int64[cap]) -> bool[cap] are
-    removed.  Returns (new stacked store, entries removed)."""
+    removed.  Returns (new stacked store, entries removed on every
+    rank)."""
     out = [st.kv_filter(sh, keep_pred) for sh in _shards(store)]
     return (st.stack_stores([o[0] for o in out]),
-            int(sum(o[1] for o in out)))
+            as_mesh(mesh or 1).all_sum(int(sum(o[1] for o in out))))
 
 
 def kv_select_step(store: st.KVStore, pred) -> list:

@@ -10,7 +10,10 @@ the first query after an insert runs `_flush` — a global samplesort that
 moves ALL rows across shards by key range and recomputes the p-1
 splitters; queries then route by splitter instead of by hash.  Contents
 equal the hash index's; only placement differs: shard i holds a contiguous
-key range, which makes range scans (`items_in_range`) local.
+key range, which makes range scans (`items_in_range`) local.  Under a
+mesh of several ranks the flush is a collective samplesort (the splitters
+come from every rank's samples) and every query a splitter-routed
+collective, as in ``api.py``.
 
 Example::
 
@@ -27,6 +30,7 @@ import torch
 
 from ..kmer import KmerSpec
 from ..ops.keys import from_numpy_u32, to_numpy_u32, to_u64
+from ..parallel.mesh import Mesh
 from ..utils.timers import PhaseTimer
 from . import sorted_dist as sx
 from . import store as st
@@ -42,8 +46,9 @@ class _SortedBase(_IndexBase):
     """Splitter bookkeeping of the sorted indexes."""
 
     def __init__(self, spec: KmerSpec, device="cuda", canonical=True,
-                 nparts: int = 1, timer: PhaseTimer | None = None):
-        super().__init__(spec, device, canonical, nparts, timer)
+                 nparts: int = 1, timer: PhaseTimer | None = None,
+                 mesh: Mesh | None = None):
+        super().__init__(spec, device, canonical, nparts, timer, mesh)
         #: int32[p-1, w] range boundaries; None until the first flush
         self.splitters = None
 
@@ -65,7 +70,7 @@ class _SortedBase(_IndexBase):
         self._flush()
         return self._route_rows(
             lambda w, v, cap: step(self.store, self.splitters, w, v,
-                                   self.nparts, cap), words)
+                                   self.mesh, cap), words)
 
 
 class SortedCountIndex(_CountSurfaceMixin, _SortedBase):
@@ -78,12 +83,12 @@ class SortedCountIndex(_CountSurfaceMixin, _SortedBase):
     def __init__(self, spec: KmerSpec, device="cuda", canonical=True,
                  saturate: int | None = None,
                  initial_capacity: int = 1 << 12, nparts: int = 1,
-                 timer: PhaseTimer | None = None):
-        super().__init__(spec, device, canonical, nparts, timer)
+                 timer: PhaseTimer | None = None, mesh: Mesh | None = None):
+        super().__init__(spec, device, canonical, nparts, timer, mesh)
         self.saturate = saturate
         self.store = st.stack_count_stores(
             [st.empty_count_store(initial_capacity, spec.nwords,
-                                  self.device)] * nparts)
+                                  self.device)] * self.mesh.p_local)
         #: appended rows awaiting the flush: (words [p, n, w], weights
         #: [p, n], valid [p, n])
         self._pending: list = []
@@ -95,7 +100,12 @@ class SortedCountIndex(_CountSurfaceMixin, _SortedBase):
     def size(self) -> int:
         """Distinct-key count."""
         self._flush()
-        return int(self.store.size.sum())
+        return self.mesh.all_sum(int(self.store.size.sum()))
+
+    def local_sizes(self) -> list[int]:
+        """Distinct keys per shard, in global (key range) order."""
+        self._flush()
+        return self._whole(self.store.size).tolist()
 
     # -- ingest --------------------------------------------------------
     def _insert_cols(self, cols: dict):
@@ -137,11 +147,12 @@ class SortedCountIndex(_CountSurfaceMixin, _SortedBase):
                                  for i in range(3))
         self._pending = []
         del parts
-        cap = max(self._bucket_capacity(max(int(valid.sum()), 1)), 16)
+        cap = max(self._bucket_capacity(max(self.mesh.all_sum(
+            int(valid.sum())), 1)), 16)
         while True:
             with self.timer.phase("flush"):
                 store, splitters, ovf = sx.count_flush_step(
-                    words, weights, valid, self.nparts, cap, self.saturate,
+                    words, weights, valid, self.mesh, cap, self.saturate,
                     self.spec.sentinel_safe)
             if ovf == 0:
                 self.store, self.splitters = store, splitters
@@ -152,19 +163,20 @@ class SortedCountIndex(_CountSurfaceMixin, _SortedBase):
     def _count_words(self, words: torch.Tensor) -> np.ndarray:
         with self.timer.phase("count"):
             (counts,), m = self._routed(sx.count_query_step, words)
-            return counts.reshape(-1)[:m].cpu().numpy()
+            return self._replies(counts, m).cpu().numpy()
 
     def _erase_words(self, words: torch.Tensor) -> int:
         """Remove the keys; returns how many were present.  Erasing never
         moves keys between shards, so the splitters stay."""
         (store, nerased), _ = self._routed(sx.count_erase_step, words)
         self.store = store
-        return int(nerased.sum())
+        return nerased
 
     # predicate scans and the spectrum are shard-local: no routing
     def _filter(self, keep_pred) -> int:
         self._flush()
-        self.store, nerased = dx.count_filter_step(self.store, keep_pred)
+        self.store, nerased = dx.count_filter_step(self.store, keep_pred,
+                                                   self.mesh)
         return nerased
 
     def _select(self, pred) -> list:
@@ -173,7 +185,7 @@ class SortedCountIndex(_CountSurfaceMixin, _SortedBase):
 
     def _histogram(self, nbins: int) -> torch.Tensor:
         self._flush()
-        return dx.histogram_step(self.store, nbins)
+        return dx.histogram_step(self.store, nbins, self.mesh)
 
     # -- range scan: the capability hash distribution cannot offer ------
     def items_in_range(self, lo_kmer, hi_kmer):
@@ -200,23 +212,25 @@ class SortedCountIndex(_CountSurfaceMixin, _SortedBase):
     def save(self, path):
         """npz in the JAX package's format: either package loads it."""
         self._flush()
-        np.savez_compressed(
+        self._savez(
             path, kind="sorted_count", k=self.spec.k,
             alphabet=self.spec.alphabet.name, canonical=self.canonical,
             saturate=-1 if self.saturate is None else self.saturate,
-            nparts=self.nparts, keys=to_numpy_u32(self.store.keys),
-            counts=self.store.counts.cpu().numpy(),
-            sizes=self.store.size.cpu().numpy())
+            nparts=self.nparts,
+            keys=to_numpy_u32(self._whole(self.store.keys)),
+            counts=self._whole(self.store.counts).cpu().numpy(),
+            sizes=self._whole(self.store.size).cpu().numpy())
         return self
 
     @classmethod
-    def load(cls, path, device="cuda", nparts: int = 1):
-        """An index of `nparts` shards holding a saved index's contents
-        (saved at any shard count, by either package)."""
+    def load(cls, path, device="cuda", nparts: int = 1, mesh=None):
+        """An index of `nparts` shards (or over `mesh`) holding a saved
+        index's contents (saved at any shard count, by either package)."""
         z, spec = _open_npz(path, ("sorted_count",))
         sat = int(z["saturate"])
         idx = cls(spec, device, canonical=bool(z["canonical"]),
-                  saturate=None if sat < 0 else sat, nparts=nparts)
+                  saturate=None if sat < 0 else sat, nparts=nparts,
+                  mesh=mesh)
         rows = _live_rows(z["keys"], z["sizes"])
         if rows.shape[0]:
             vals = _live_rows(z["counts"], z["sizes"]).astype(np.int32)
@@ -237,8 +251,8 @@ class SortedPositionIndex(_MultimapSurfaceMixin, _SortedBase):
     def __init__(self, spec: KmerSpec, device="cuda", canonical=False,
                  nparts: int = 1, id_kind: str = "short",
                  initial_capacity: int = 1 << 12, codec=None,
-                 timer: PhaseTimer | None = None):
-        super().__init__(spec, device, canonical, nparts, timer)
+                 timer: PhaseTimer | None = None, mesh: Mesh | None = None):
+        super().__init__(spec, device, canonical, nparts, timer, mesh)
         self._init_multimap(id_kind, initial_capacity, codec)
 
     def _insert_cols(self, cols: dict):
@@ -272,11 +286,12 @@ class SortedPositionIndex(_MultimapSurfaceMixin, _SortedBase):
         words, hi, lo, q, valid = dx.concat_pending(parts, self._has_q)
         self._pending, self._pending_rows = [], 0
         del parts, s
-        cap = max(self._bucket_capacity(max(int(valid.sum()), 1)), 16)
+        cap = max(self._bucket_capacity(max(self.mesh.all_sum(
+            int(valid.sum())), 1)), 16)
         while True:
             with self.timer.phase("merge"):
                 store, splitters, ovf = sx.multi_flush_step(
-                    words, hi, lo, q, valid, self.nparts, cap,
+                    words, hi, lo, q, valid, self.mesh, cap,
                     self.spec.sentinel_safe)
             if ovf == 0:
                 self.store, self.splitters = store, splitters

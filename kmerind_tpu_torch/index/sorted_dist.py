@@ -23,8 +23,12 @@ and its queries share the hash multimap's routed lookups
 one in its flush, and shares the hash value map's routed lookups.
 
 Each JAX ``make_*_step`` factory returns a jitted ``shard_map`` program;
-here each step is a plain function over stacked [p, ...] shard tensors
-(``parallel/distribute.py``), looping over the shards between exchanges.
+here each step is a plain function over a rank's stacked [p_local, ...]
+shard tensors (``parallel/distribute.py``), looping over them between
+exchanges.  `nparts` is the shard count or, over several ranks, the
+index's `Mesh`: the steps are then collectives (the splitters come from
+every rank's samples, the exchanges are all-to-alls) and the host ints
+they return are reduced over the ranks.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from ..io.kmer_parsers import DeviceBases, extract_tuples
 from ..ops import sortops
 from ..ops.keys import SENTINEL
 from ..parallel import distribute as dist
+from ..parallel.mesh import as_mesh
 from ..parallel.sample_sort import global_splitters, owners_from_splitters
 from ..quality import ILLUMINA18
 from . import store as st
@@ -62,7 +67,7 @@ def local_ingest_step(bases: DeviceBases, spec, canonical):
     return torch.stack(words), torch.stack(weights), torch.stack(emit)
 
 
-def count_flush_step(words, weights, valid, nparts: int, capacity: int,
+def count_flush_step(words, weights, valid, nparts, capacity: int,
                      saturate: int | None = None, sentinel_ok: bool = False,
                      oversample: int = 64):
     """(words [p, n, w], weights [p, n], valid [p, n]) -> (store [p, cap, w],
@@ -80,7 +85,7 @@ def count_flush_step(words, weights, valid, nparts: int, capacity: int,
     (rw, rwts), rvalid, route = dist.distribute(
         (words, weights), owner, valid, nparts, capacity)
     reduced = []
-    for s in range(nparts):
+    for s in range(rw.shape[0]):
         s2, (v2,), sv2 = sortops.sort_rows(
             rw[s], (rwts[s],), rvalid[s], is_stable=False,
             sentinel_ok=sentinel_ok)
@@ -88,7 +93,7 @@ def count_flush_step(words, weights, valid, nparts: int, capacity: int,
         if saturate is not None:
             red = red.clamp(max=saturate)
         reduced.append((uniq, red, n_unique.to(torch.int32)))
-    largest = max(int(r[2]) for r in reduced)
+    largest = as_mesh(nparts).all_max(max(int(r[2]) for r in reduced))
     cap = min(reduced[0][0].shape[0], 1 << max(4, (largest - 1).bit_length()))
     store = st.stack_count_stores(
         [st.CountStore(u[:cap], r[:cap], n) for u, r, n in reduced])
@@ -96,7 +101,7 @@ def count_flush_step(words, weights, valid, nparts: int, capacity: int,
 
 
 def count_query_step(store: st.CountStore, splitters, queries, qvalid,
-                     nparts: int, capacity: int):
+                     nparts, capacity: int):
     """Splitter-routed count: (counts int32[p, m], overflow) for queries
     [p, m, w] (qvalid [p, m]); invalid queries count 0."""
     owner = owners_from_splitters(queries, splitters, nparts)
@@ -104,22 +109,24 @@ def count_query_step(store: st.CountStore, splitters, queries, qvalid,
                                            nparts, capacity)
     local = torch.stack([
         torch.where(rvalid[s], st.count_lookup(store.shard(s), rq[s]), 0)
-        for s in range(nparts)])
+        for s in range(rq.shape[0])])
     (back,) = dist.undistribute((local,), route, nparts, capacity)
     return back, route.overflow
 
 
 def count_erase_step(store: st.CountStore, splitters, keys, valid,
-                     nparts: int, capacity: int):
-    """Splitter-routed erase: (new store, n_erased int32[p], overflow).
-    Erasing never moves keys between shards, so the splitters stay."""
+                     nparts, capacity: int):
+    """Splitter-routed erase: (new store, keys erased on every shard,
+    overflow).  Erasing never moves keys between shards, so the splitters
+    stay."""
     owner = owners_from_splitters(keys, splitters, nparts)
     (rk,), rvalid, route = dist.distribute((keys,), owner, valid, nparts,
                                            capacity)
     out = [st.count_erase(store.shard(s), rk[s], rvalid[s])
-           for s in range(nparts)]
+           for s in range(rk.shape[0])]
     return (st.stack_count_stores([o[0] for o in out]),
-            torch.stack([o[1] for o in out]), route.overflow)
+            as_mesh(nparts).all_sum(int(sum(int(o[1]) for o in out))),
+            route.overflow)
 
 
 # ----------------------------------------------------------------- multimap
@@ -136,7 +143,7 @@ def multi_local_ingest_step(bases: DeviceBases, spec, canonical,
             get("qual") if with_quality else None, get("valid"))
 
 
-def multi_flush_step(words, hi, lo, q, valid, nparts: int, capacity: int,
+def multi_flush_step(words, hi, lo, q, valid, nparts, capacity: int,
                      sentinel_ok: bool = False, oversample: int = 64):
     """The sorted multimap's rebuild (sorted_multimap's global sort,
     distributed_sorted_map.hpp:2333+): (words [p, n, w], hi, lo, q float32
@@ -152,7 +159,7 @@ def multi_flush_step(words, hi, lo, q, valid, nparts: int, capacity: int,
     recv, rvalid, route = dist.distribute(cols, owner, valid, nparts,
                                           capacity)
     stores = []
-    for s in range(nparts):
+    for s in range(rvalid.shape[0]):
         pays = tuple(r[s] for r in recv[1:])
         if q is None:
             pays += (torch.zeros(rvalid.shape[1], dtype=torch.float32,
@@ -162,7 +169,7 @@ def multi_flush_step(words, hi, lo, q, valid, nparts: int, capacity: int,
         stores.append(st.MultiStore(
             torch.where(s_valid[None, :], s_cols, SENTINEL), s_hi, s_lo, s_q,
             s_valid.sum(dtype=torch.int32)))
-    largest = max(int(x.size) for x in stores)
+    largest = as_mesh(nparts).all_max(max(int(x.size) for x in stores))
     cap = min(stores[0].capacity, 1 << max(4, (largest - 1).bit_length()))
     return (st.stack_multi_stores([st.MultiStore(
         x.keys[:, :cap].contiguous(), x.val_hi[:cap], x.val_lo[:cap],
@@ -170,7 +177,7 @@ def multi_flush_step(words, hi, lo, q, valid, nparts: int, capacity: int,
 
 
 # ------------------------------------------------ unique-key value map
-def kv_flush_step(words, val_hi, val_lo, order, valid, nparts: int,
+def kv_flush_step(words, val_hi, val_lo, order, valid, nparts,
                   capacity: int, reduce: str = "first",
                   sentinel_ok: bool = False, oversample: int = 64):
     """The sorted value map's rebuild (sorted_map's global sort,
@@ -190,8 +197,8 @@ def kv_flush_step(words, val_hi, val_lo, order, valid, nparts: int,
         (words, val_hi, val_lo) + order, owner, valid, nparts, capacity)
     reduced = [st.kv_reduce(rw[s], rhi[s], rlo[s], rvalid[s], reduce,
                             tuple(o[s] for o in rord))
-               for s in range(nparts)]
-    largest = max(int(r[3]) for r in reduced)
+               for s in range(rw.shape[0])]
+    largest = as_mesh(nparts).all_max(max(int(r[3]) for r in reduced))
     cap = min(rw.shape[1], 1 << max(4, (largest - 1).bit_length()))
     return (st.stack_stores([st.kv_cut(*r, cap) for r in reduced]),
             splitters, route.overflow)

@@ -21,6 +21,11 @@ shard count.  `KmerValueIndex` is hash-partitioned and inserts eagerly
 is range-partitioned: inserts wait as shard-local rows until the first
 query's samplesort flush.
 
+Under a mesh of several ranks every method is a collective, as in
+``api.py``: the hash map's inserts, finds and erases are routed
+collectives, the sorted map's flush a collective samplesort, and the
+exports come back whole on every rank.
+
 Predicates take (keys int64[n, w], val_hi int64[n], val_lo int64[n]) —
 each key word and value half an int64 holding its unsigned value — and
 return bool[n].
@@ -40,6 +45,7 @@ import torch
 
 from ..kmer import KmerSpec
 from ..ops.keys import from_numpy_u32, to_numpy_u32, to_u64
+from ..parallel.mesh import Mesh
 from ..utils.timers import PhaseTimer
 from . import distributed as dx
 from . import sorted_dist as sx
@@ -78,7 +84,7 @@ class _KVCommon:
         self.id_kind = id_kind
         self.store = st.stack_stores(
             [st.empty_kv_store(initial_capacity, self.spec.nwords,
-                               self.device)] * self.nparts)
+                               self.device)] * self.mesh.p_local)
 
     @property
     def capacity(self) -> int:
@@ -88,12 +94,12 @@ class _KVCommon:
     def size(self) -> int:
         """Distinct keys."""
         self._flush()
-        return int(self.store.size.sum())
+        return self.mesh.all_sum(int(self.store.size.sum()))
 
     def local_sizes(self) -> list[int]:
-        """Distinct keys per shard, in shard order."""
+        """Distinct keys per shard, in global shard order."""
         self._flush()
-        return self.store.size.cpu().numpy().tolist()
+        return self._whole(self.store.size).tolist()
 
     def unique_size(self) -> int:
         return self.size()
@@ -144,12 +150,13 @@ class _KVCommon:
             vals, found = self.find_if(pred, kmers)
             return found.astype(np.int32)
         self._flush()
-        out = []
-        for keys, hi, lo in dx.kv_select_step(self.store, pred):
-            if keys.shape[0]:
-                out.extend(zip(self.spec.to_ints(to_numpy_u32(keys)).tolist(),
-                               _join64(hi, lo).tolist()))
-        return out
+        parts = dx.kv_select_step(self.store, pred)
+        keys = to_numpy_u32(self._rows_of_all(k for k, _, _ in parts))
+        if keys.shape[0] == 0:
+            return []
+        return list(zip(self.spec.to_ints(keys).tolist(), _join64(
+            self._rows_of_all(h for _, h, _ in parts),
+            self._rows_of_all(lo for _, _, lo in parts)).tolist()))
 
     def erase(self, kmers) -> int:
         """Erase the query keys; returns how many were present."""
@@ -162,7 +169,7 @@ class _KVCommon:
             self._flush()
             with self.timer.phase("filter"):
                 self.store, nerased = dx.kv_filter_step(
-                    self.store, lambda k, h, lo: ~pred(k, h, lo))
+                    self.store, lambda k, h, lo: ~pred(k, h, lo), self.mesh)
             return nerased
         words = self._query_words(kmers)
         vals, found = self._find_words(words)
@@ -178,21 +185,23 @@ class _KVCommon:
         return self.erase_if(lambda k, h, lo: ~pred(k, h, lo))
 
     def _values_of(self, hi, lo, found, m: int):
-        """Routed replies [p, mq] -> (values uint64[m], found bool[m])."""
-        return (_join64(hi.reshape(-1)[:m], lo.reshape(-1)[:m]),
-                found.reshape(-1)[:m].to(torch.bool).cpu().numpy())
+        """Routed replies [p_local, mq] -> (values uint64[m], found
+        bool[m]), whole on every rank."""
+        return (_join64(self._replies(hi, m), self._replies(lo, m)),
+                self._replies(found, m).to(torch.bool).cpu().numpy())
 
     def to_dict(self) -> dict[int, int]:
         """Full contents as {kmer_int: value} (host-side; tests/tools)."""
         self._flush()
         s = self.store
-        sizes = s.size.cpu().numpy()
-        rows = _live_rows(to_numpy_u32(s.keys), sizes)
+        host = lambda t: to_numpy_u32(self._whole(t))  # noqa: E731
+        sizes = self._whole(s.size).cpu().numpy()
+        rows = _live_rows(host(s.keys), sizes)
         if rows.shape[0] == 0:
             return {}
-        vals = ((_live_rows(to_numpy_u32(s.val_hi), sizes).astype(np.uint64)
+        vals = ((_live_rows(host(s.val_hi), sizes).astype(np.uint64)
                  << np.uint64(32))
-                | _live_rows(to_numpy_u32(s.val_lo), sizes).astype(np.uint64))
+                | _live_rows(host(s.val_lo), sizes).astype(np.uint64))
         return dict(zip(self.spec.to_ints(rows).tolist(), vals.tolist()))
 
     # -- persistence: the JAX package's "kv" / "sorted_kv" npz ----------
@@ -202,29 +211,29 @@ class _KVCommon:
         format: either package loads it, at any shard count."""
         self._flush()
         s = self.store
-        n = int(s.size.max())
+        n = self.mesh.all_max(int(s.size.max()))
+        host = lambda t: to_numpy_u32(self._whole(t[:, :n]))  # noqa: E731
         extra = ({"hash_name": self.hash_name} if hasattr(self, "hash_name")
                  else {})
-        np.savez_compressed(
+        self._savez(
             path, kind=self._npz_kind, k=self.spec.k,
             alphabet=self.spec.alphabet.name, canonical=self.canonical,
-            reduce=self.reduce, nparts=self.nparts,
-            keys=to_numpy_u32(s.keys[:, :n]),
-            val_hi=to_numpy_u32(s.val_hi[:, :n]),
-            val_lo=to_numpy_u32(s.val_lo[:, :n]),
-            sizes=s.size.cpu().numpy(), **extra)
+            reduce=self.reduce, nparts=self.nparts, keys=host(s.keys),
+            val_hi=host(s.val_hi), val_lo=host(s.val_lo),
+            sizes=self._whole(s.size).cpu().numpy(), **extra)
         return self
 
     @classmethod
-    def load(cls, path, device="cuda", nparts: int = 1):
-        """An index of `nparts` shards holding a saved value map's entries
-        (saved at any shard count, by either package); the stored keys are
-        already transformed and go back in without another transform."""
+    def load(cls, path, device="cuda", nparts: int = 1, mesh=None):
+        """An index of `nparts` shards (or over `mesh`) holding a saved
+        value map's entries (saved at any shard count, by either package);
+        the stored keys are already transformed and go back in without
+        another transform."""
         z, spec = _open_npz(path, (cls._npz_kind,))
         extra = ({"hash_name": str(z["hash_name"])}
                  if "hash_name" in z.files else {})
         idx = cls(spec, device, canonical=bool(z["canonical"]),
-                  reduce=str(z["reduce"]), nparts=nparts, **extra)
+                  reduce=str(z["reduce"]), nparts=nparts, mesh=mesh, **extra)
         sizes = z["sizes"]
         rows = _live_rows(z["keys"], sizes)
         if rows.shape[0]:
@@ -248,8 +257,8 @@ class KmerValueIndex(_KVCommon, _IndexBase):
                  nparts: int = 1, hash_name: str = "murmur",
                  reduce: str = "first", id_kind: str = "short",
                  initial_capacity: int = 1 << 12,
-                 timer: PhaseTimer | None = None):
-        super().__init__(spec, device, canonical, nparts, timer)
+                 timer: PhaseTimer | None = None, mesh: Mesh | None = None):
+        super().__init__(spec, device, canonical, nparts, timer, mesh)
         self.hash_name = hash_name
         self._init_kv(reduce, id_kind, initial_capacity)
 
@@ -270,7 +279,7 @@ class KmerValueIndex(_KVCommon, _IndexBase):
         with self.timer.phase("insert"):
             (store,), _ = self._route_rows(
                 lambda w, h, lo, v, cap: dx.kv_insert_step(
-                    self.store, w, h, lo, v, self.nparts, cap,
+                    self.store, w, h, lo, v, self.mesh, cap,
                     self.hash_name, self.reduce),
                 words, extra=(val_hi, val_lo))
         self.store = store
@@ -278,13 +287,13 @@ class KmerValueIndex(_KVCommon, _IndexBase):
 
     def _insert_cols(self, cols: dict):
         bases = self._to_device(cols)
-        cap = self._bucket_capacity(bases.codes.shape[1])
+        cap = self._chunk_capacity(bases)
         reduce = "min" if self.reduce == "first" else self.reduce
         with self.timer.phase("insert"):
             while True:
                 store, ovf = dx.kv_ingest_step(
                     self.store, bases, self.spec, self.canonical,
-                    self.nparts, cap, self.hash_name, reduce)
+                    self.mesh, cap, self.hash_name, reduce)
                 if ovf == 0:
                     break
                 cap = _next_pow2(cap + ovf)
@@ -295,7 +304,7 @@ class KmerValueIndex(_KVCommon, _IndexBase):
         with self.timer.phase("find"):
             (hi, lo, found), m = self._route_rows(
                 lambda q, v, cap: dx.kv_find_routed(
-                    self.store, q, v, self._owners(q), self.nparts, cap),
+                    self.store, q, v, self._owners(q), self.mesh, cap),
                 words)
             return self._values_of(hi, lo, found, m)
 
@@ -303,7 +312,7 @@ class KmerValueIndex(_KVCommon, _IndexBase):
         with self.timer.phase("erase"):
             (store, nerased), _ = self._route_rows(
                 lambda q, v, cap: dx.kv_erase_routed(
-                    self.store, q, v, self._owners(q), self.nparts, cap),
+                    self.store, q, v, self._owners(q), self.mesh, cap),
                 words)
         self.store = store
         return nerased
@@ -324,8 +333,8 @@ class SortedKmerValueIndex(_KVCommon, _SortedBase):
     def __init__(self, spec: KmerSpec, device="cuda", canonical=True,
                  nparts: int = 1, reduce: str = "first",
                  id_kind: str = "short", initial_capacity: int = 1 << 12,
-                 timer: PhaseTimer | None = None):
-        super().__init__(spec, device, canonical, nparts, timer)
+                 timer: PhaseTimer | None = None, mesh: Mesh | None = None):
+        super().__init__(spec, device, canonical, nparts, timer, mesh)
         self._init_kv(reduce, id_kind, initial_capacity)
         #: pending (words [p, n, w], val_hi, val_lo, prio, tie, valid):
         #: under "first" a row ranks by (prio, tie) — an explicit insert's
@@ -371,11 +380,12 @@ class SortedKmerValueIndex(_KVCommon, _SortedBase):
             torch.cat([t[i] for t in parts], dim=1) for i in range(6))
         self._pending = []
         del parts, s
-        cap = max(self._bucket_capacity(max(int(valid.sum()), 1)), 16)
+        cap = max(self._bucket_capacity(max(self.mesh.all_sum(
+            int(valid.sum())), 1)), 16)
         while True:
             with self.timer.phase("flush"):
                 store, splitters, ovf = sx.kv_flush_step(
-                    words, hi, lo, (prio, tie), valid, self.nparts, cap,
+                    words, hi, lo, (prio, tie), valid, self.mesh, cap,
                     self.reduce, self.spec.sentinel_safe)
             if ovf == 0:
                 self.store, self.splitters = store, splitters

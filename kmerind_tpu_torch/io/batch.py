@@ -16,7 +16,7 @@ import numpy as np
 
 from ..alphabets import Alphabet
 
-__all__ = ["ReadBatch"]
+__all__ = ["ReadBatch", "concat_batches"]
 
 _POS40 = np.uint64((1 << 40) - 1)
 
@@ -156,3 +156,25 @@ class ReadBatch:
             owned[stop - lo:] = False
             yield dataclasses.replace(sub, owned=owned)
             start = stop
+
+
+def concat_batches(batches: list[ReadBatch]) -> ReadBatch:
+    """Concatenate batches (e.g. several files); the valid bases' seg ids
+    are re-based onto the concatenated record table."""
+    if not batches:
+        raise ValueError("no batches")
+    seg_offset = 0
+    segs = []
+    for b in batches:
+        seg = b.seg_id.copy()
+        seg[b.valid] += seg_offset
+        segs.append(seg)
+        seg_offset += b.num_records
+    cat = lambda f: np.concatenate([getattr(b, f) for b in batches])  # noqa: E731
+    return ReadBatch(
+        codes=cat("codes"), valid=cat("valid"), owned=cat("owned"),
+        seg_id=np.concatenate(segs),
+        offset_in_record=cat("offset_in_record"),
+        global_pos=cat("global_pos"), qual=cat("qual"),
+        record_start=cat("record_start"), seq_index=cat("seq_index"),
+        file_id=cat("file_id"), alphabet=batches[0].alphabet)

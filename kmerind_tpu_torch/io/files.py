@@ -16,7 +16,9 @@ Rebuild of the reference file stack (src/io/file.hpp):
   every byte to exactly one owner.
 
 Memory-mapped numpy views replace mmap_file/posix_file.  The block readers
-feed the streaming build (`CountIndex.build_stream`), one block at a time.
+feed the streaming build (`CountIndex.build_stream`), one block at a time,
+and each rank of a multi-process build reads its own blocks
+(``parallel/multihost.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,9 @@ __all__ = [
     "sniff_format",
     "read_bytes",
     "block_partition",
+    "cyclic_partition",
+    "fastq_block_span",
+    "owned_base_count",
     "read_file",
     "read_fastq_block",
     "read_fasta_block",
@@ -79,6 +84,21 @@ def block_partition(total: int, nparts: int, part: int) -> tuple[int, int]:
     start = part * base + min(part, rem)
     end = start + base + (1 if part < rem else 0)
     return start, end
+
+
+def cyclic_partition(total: int, nparts: int, part: int,
+                     chunk: int) -> list[tuple[int, int]]:
+    """Round-robin chunked decomposition (CyclicPartitioner,
+    partitioner.hpp:442): part p owns chunks p, p+nparts, p+2*nparts, ...
+    Returns the list of [start, end) spans.  (The reference's
+    DemandDrivenPartitioner has no SPMD analog — static decompositions
+    only.)"""
+    spans = []
+    start = part * chunk
+    while start < total:
+        spans.append((start, min(start + chunk, total)))
+        start += nparts * chunk
+    return spans
 
 
 def read_file(
@@ -156,20 +176,30 @@ def read_fastq_block(
     the records of the blocks before it; 0, as in the JAX package, numbers
     them within the block).
     """
-    total = file_size(path)
-    bs, be = block_partition(total, nparts, part)
-    finder = (native.find_record_start if native.available()
-              else find_record_start)
-    first = _find_boundary(path, total, bs, finder)
-    if first >= be:
+    first, nxt = fastq_block_span(path, block_partition(
+        file_size(path), nparts, part))
+    if first >= nxt:
         return parse_fastq(np.zeros(0, np.uint8), alphabet, 0, file_id)
-    nxt = _find_boundary(path, total, be, finder)
     data = read_bytes(path, first, nxt)
     if native.available():
         return native.fastq_parse(data, alphabet, first, file_id,
                                   seq_index_base, reuse=reuse)
     return parse_fastq(data, alphabet, file_offset=first, file_id=file_id,
                        seq_index_base=seq_index_base)
+
+
+def fastq_block_span(path, block: tuple[int, int]) -> tuple[int, int]:
+    """[first, next) bytes of the FASTQ records starting in byte range
+    `block` = [bs, be): the first record start at or after bs, and the
+    first at or after be (first == next when none starts in the range)."""
+    total = file_size(path)
+    bs, be = block
+    finder = (native.find_record_start if native.available()
+              else find_record_start)
+    first = _find_boundary(path, total, bs, finder)
+    if first >= be:
+        return first, first
+    return first, _find_boundary(path, total, be, finder)
 
 
 _HEADER_CACHE: dict = {}
@@ -276,6 +306,7 @@ def read_fasta_block(
     halo: int = 0,
     halo_left: int = 0,
     reuse: bool = False,
+    context: tuple[int, int] | None = None,
 ) -> ReadBatch:
     """Parse the FASTA sequence bases within byte block `part` of `nparts`,
     plus `halo` following bases (k-1 overlap so windows crossing the block
@@ -283,9 +314,15 @@ def read_fasta_block(
     kmer_file_helper.hpp:361, file.hpp:1264-1295) and `halo_left`
     preceding bases (the de Bruijn edges' left context, not owned).
 
-    Record context for a block that begins mid-sequence comes from the
-    cached whole-file header table (`fasta_header_table`).  Only
-    [block_start, block_end + halo slack) bytes are read and parsed.
+    Cost is O(block): record context for a block that begins mid-sequence
+    comes either from `context=(hidx, lead_abs)` — the ordinal and start
+    position of the record containing the block start, as the ranks of a
+    multi-process build compute it (``parallel.multihost.
+    distributed_fasta_context``, the reference's distributed header scan,
+    fasta_loader.hpp:202-360); (-1, -1) means no record starts at or before
+    the block — or, when `context` is None, from the cached whole-file
+    header table (`fasta_header_table`).  Only [block_start, block_end +
+    halo slack) bytes are read and parsed.
 
     Ownership: this part owns k-mer windows whose first base lies within its
     byte block; `ReadBatch.owned` is True for owned bases, False for halo
@@ -295,10 +332,13 @@ def read_fasta_block(
     bs, be = block_partition(total, nparts, part)
     if bs >= be:
         return parse_fasta(np.zeros(0, np.uint8), alphabet)
-    headers = fasta_header_table(path)
-    # containing/most-recent record at or before bs
-    hidx = int(np.searchsorted(headers, bs, side="right")) - 1
-    lead_abs = int(headers[hidx]) if hidx >= 0 else -1
+    if context is not None:
+        hidx, lead_abs = context
+    else:
+        headers = fasta_header_table(path)
+        # containing/most-recent record at or before bs
+        hidx = int(np.searchsorted(headers, bs, side="right")) - 1
+        lead_abs = int(headers[hidx]) if hidx >= 0 else -1
     if hidx < 0:
         # block lies before the first record: skip to the first record
         # start within the block (O(block) local scan), empty if none
@@ -356,3 +396,8 @@ def read_fasta_block(
     owned = np.zeros(hi_i - lo2, bool)
     owned[lo_i - lo2:cut - lo2] = True
     return dataclasses.replace(sub, owned=owned)
+
+
+def owned_base_count(batch: ReadBatch) -> int:
+    """Bases this block owns (its halo bases excluded)."""
+    return int(batch.owned.sum())

@@ -1,4 +1,5 @@
-"""Record filters — the SplitSequencesIterator equivalent.
+"""Record filters — the FilteredSequencesIterator and
+SplitSequencesIterator equivalents.
 
 The reference filters records through predicate iterators
 (src/io/filtered_sequence_iterator.hpp:63-247) testing
@@ -6,8 +7,9 @@ The reference filters records through predicate iterators
 letter set (e.g. 'N' under the strict DNA alphabet, which would otherwise
 silently encode as 'A' — alphabets.hpp:139).
 
-Here the filter is a vectorized pass over the parsed batch: per-base
-validity from `Alphabet.valid_ascii`.
+Here each filter is a vectorized pass over the parsed batch: per-base
+validity from `Alphabet.valid_ascii`, OR-reduced per record where whole
+records are dropped.
 """
 
 from __future__ import annotations
@@ -19,7 +21,37 @@ import numpy as np
 from ..alphabets import Alphabet
 from .batch import ReadBatch
 
-__all__ = ["split_records_at_invalid"]
+__all__ = ["drop_records_with_invalid", "records_with_invalid",
+           "split_records_at_invalid"]
+
+
+def records_with_invalid(batch: ReadBatch, raw_data: np.ndarray,
+                         alphabet: Alphabet,
+                         file_offset: int = 0) -> np.ndarray:
+    """bool[num_records]: records containing a byte outside the alphabet's
+    explicit letter set (the SequenceNPredicate test)."""
+    pos = (batch.global_pos - np.uint64(file_offset)).astype(np.int64)
+    raw = np.asarray(raw_data, dtype=np.uint8)[pos]
+    bad_base = ~alphabet.valid_ascii[raw] & batch.valid
+    bad = np.zeros(batch.num_records, dtype=bool)
+    bad[batch.seg_id[bad_base]] = True
+    return bad
+
+
+def drop_records_with_invalid(batch: ReadBatch, raw_data: np.ndarray,
+                              alphabet: Alphabet,
+                              file_offset: int = 0) -> ReadBatch:
+    """A new batch without any base of the records that contain invalid
+    letters (FilteredSequencesIterator + SequenceNPredicate semantics).
+    The per-record table stays as it is (ids and indices unchanged); only
+    the base stream shrinks."""
+    bad = records_with_invalid(batch, raw_data, alphabet, file_offset)
+    keep = ~bad[batch.seg_id] & batch.valid
+    return dataclasses.replace(
+        batch, codes=batch.codes[keep], valid=batch.valid[keep],
+        owned=batch.owned[keep], seg_id=batch.seg_id[keep],
+        offset_in_record=batch.offset_in_record[keep],
+        global_pos=batch.global_pos[keep], qual=batch.qual[keep])
 
 
 def split_records_at_invalid(batch: ReadBatch, raw_data: np.ndarray,

@@ -14,6 +14,11 @@ lazy index flushes.  The config of a
 `QualityDeBruijnGraph` is a de Bruijn one (the JAX package's
 `IndexConfig` has no quality graph), and the meta file marks it.
 
+Under a mesh of several ranks both are collectives: each rank writes and
+reads only its own shards' files (the JAX package's ``save_index``, where
+every process writes its own shards), rank 0 the splitters and the meta
+file once every shard is on disk.
+
 Restoring needs the shard count the checkpoint was written with, as in the
 JAX package.  The two packages' checkpoints are not interchangeable (the
 JAX package writes an Orbax store); only their npz files are.
@@ -35,7 +40,7 @@ from ..index import sorted_api as sx
 from ..index import store as st
 from ..index import value_api as vx
 
-__all__ = ["save_index", "load_index"]
+__all__ = ["save_index", "load_index", "saved_nparts"]
 
 _META = "kmerind_meta.json"
 _PACKAGE = "kmerind_tpu_torch"
@@ -97,22 +102,33 @@ def save_index(idx, path) -> None:
     path = pathlib.Path(path)
     path.mkdir(parents=True, exist_ok=True)
     store = _store_of(idx)
-    for s in range(idx.nparts):
+    lo, _ = idx.mesh.shard_range
+    for s in range(idx.mesh.p_local):
         torch.save({f.name: getattr(store, f.name)[s].to("cpu", copy=True)
                     for f in dataclasses.fields(store)},
-                   path / f"shard_{s}.pt")
-    if getattr(idx, "splitters", None) is not None:
-        torch.save(idx.splitters.to("cpu", copy=True), path / "splitters.pt")
-    meta = {"package": _PACKAGE, "format": 1, "config": _config_of(idx),
-            "nparts": idx.nparts,
-            "quality_graph": isinstance(idx, QualityDeBruijnGraph)}
-    (path / _META).write_text(json.dumps(meta))
+                   path / f"shard_{lo + s}.pt")
+    idx.mesh.barrier()
+    if idx.mesh.rank == 0:
+        if getattr(idx, "splitters", None) is not None:
+            torch.save(idx.splitters.to("cpu", copy=True),
+                       path / "splitters.pt")
+        meta = {"package": _PACKAGE, "format": 1, "config": _config_of(idx),
+                "nparts": idx.nparts,
+                "quality_graph": isinstance(idx, QualityDeBruijnGraph)}
+        (path / _META).write_text(json.dumps(meta))
+    idx.mesh.barrier()
 
 
-def load_index(path, device="cuda", nparts: int | None = None):
-    """Rebuild an index from `save_index` output on `device`.  `nparts`, if
-    given, must equal the checkpoint's shard count (use the npz save / load
-    to change it)."""
+def saved_nparts(path) -> int:
+    """The shard count of a `save_index` checkpoint."""
+    return json.loads((pathlib.Path(path) / _META).read_text())["nparts"]
+
+
+def load_index(path, device="cuda", nparts: int | None = None, mesh=None):
+    """Rebuild an index from `save_index` output on `device` — or over
+    `mesh`, each rank reading its own shards' files (a collective).
+    `nparts`, if given, must equal the checkpoint's shard count, and so
+    must the mesh's (use the npz save / load to change it)."""
     path = pathlib.Path(path)
     meta = json.loads((path / _META).read_text())
     if meta.get("package") != _PACKAGE:
@@ -120,6 +136,8 @@ def load_index(path, device="cuda", nparts: int | None = None):
                          "package's Orbax checkpoints do not load here; its "
                          "npz files do)")
     p = meta["nparts"]
+    if mesh is not None:
+        nparts = mesh.nparts
     if nparts is not None and nparts != p:
         raise ValueError(
             f"checkpoint has {p} shards, not {nparts}; use the npz save / "
@@ -132,11 +150,14 @@ def load_index(path, device="cuda", nparts: int | None = None):
         idx = QualityDeBruijnGraph(c.spec(), device, canonical=c.canonical,
                                    nparts=p, hash_name=c.hash_name,
                                    saturate=c.saturate,
-                                   codec=quality.by_name(c.quality_codec))
+                                   codec=quality.by_name(c.quality_codec),
+                                   mesh=mesh)
     else:
-        idx = IndexConfig(**cfg).make_index(device=device, nparts=p)
+        idx = IndexConfig(**cfg).make_index(device=device, nparts=p,
+                                            mesh=mesh)
+    lo, hi = idx.mesh.shard_range
     shards = [torch.load(path / f"shard_{s}.pt", map_location=idx.device,
-                         weights_only=True) for s in range(p)]
+                         weights_only=True) for s in range(lo, hi)]
     store = type(_store_of(idx))(**{
         name: st.stack([sh[name] for sh in shards]) for name in shards[0]})
     if isinstance(idx, (hx.CountIndex, DeBruijnGraph)):
@@ -146,5 +167,5 @@ def load_index(path, device="cuda", nparts: int | None = None):
         idx.splitters = torch.load(path / "splitters.pt",
                                    map_location=idx.device, weights_only=True)
     if isinstance(store, st.MultiStore):
-        idx._has_q |= bool((store.val_q != 0).any())
+        idx._has_q |= bool(idx.mesh.all_max(int((store.val_q != 0).any())))
     return idx

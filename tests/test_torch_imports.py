@@ -27,6 +27,12 @@ def test_the_file_list_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"chip_smoke.py", "kmerind_tpu_torch/debruijn/graph.py",
             "kmerind_tpu_torch/index/api.py",
+            "kmerind_tpu_torch/parallel/mesh.py",
+            "kmerind_tpu_torch/parallel/multihost.py",
+            "kmerind_tpu_torch/bench/cli.py",
+            "kmerind_tpu_torch/bench/micro.py",
+            "kmerind_tpu_torch/utils/logging.py",
+            "kmerind_tpu_torch/utils/profiling.py",
             "tools/profile_p4.py"} <= names
 
 

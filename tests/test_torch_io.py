@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 import kmerind_tpu.io as jio
+import kmerind_tpu.io.files as jfiles
 import kmerind_tpu_torch as kp
 import kmerind_tpu_torch.io as tio
 from kmerind_tpu import DNA as J_DNA, DNA16 as J_DNA16
@@ -98,3 +99,63 @@ def test_position_ids_match_jax(corpus, fmt):
                                           chunk.ids(kind))
     with pytest.raises(ValueError, match="id kind"):
         got.ids("medium")
+
+
+@pytest.mark.parametrize("total,nparts,chunk", [(0, 3, 5), (17, 3, 5),
+                                                (100, 4, 7), (9, 1, 100)])
+def test_cyclic_partition_matches_jax(total, nparts, chunk):
+    for part in range(nparts):
+        assert tio.cyclic_partition(total, nparts, part, chunk) == \
+            jio.cyclic_partition(total, nparts, part, chunk)
+
+
+def test_concat_batches_and_owned_base_count_match_jax(corpus):
+    """Blocks concatenated (seg ids re-based onto the joined record table)
+    equal the JAX package's, and their owned bases the whole file's."""
+    parts = [(tio.read_fasta_block(corpus["fasta"], T_DNA, p, 3, halo=20),
+              jio.read_fasta_block(corpus["fasta"], J_DNA, p, 3, halo=20))
+             for p in range(3)]
+    got = tio.concat_batches([g for g, _ in parts])
+    assert_batches_equal(got, jio.concat_batches([w for _, w in parts]))
+    assert tio.owned_base_count(got) == sum(
+        jfiles.owned_base_count(w) for _, w in parts) == tio.read_file(
+            corpus["fasta"], T_DNA).num_bases
+    with pytest.raises(ValueError):
+        tio.concat_batches([])
+
+
+def test_drop_records_with_invalid_matches_jax(corpus):
+    """Records holding an 'N' lose every base (the record table stays);
+    the per-record test equals the JAX package's."""
+    raw = np.fromfile(corpus["fastq"], np.uint8)
+    want_batch = jio.read_file(corpus["fastq"], J_DNA)
+    got_batch = tio.read_file(corpus["fastq"], T_DNA)
+    bad = tio.records_with_invalid(got_batch, raw, T_DNA)
+    np.testing.assert_array_equal(
+        bad, jio.records_with_invalid(want_batch, raw, J_DNA))
+    assert 0 < bad.sum() < bad.size
+    got = tio.drop_records_with_invalid(got_batch, raw, T_DNA)
+    assert_batches_equal(got, jio.drop_records_with_invalid(
+        want_batch, raw, J_DNA))
+    assert not np.isin(got.seg_id, np.flatnonzero(bad)).any()
+
+
+@pytest.mark.parametrize("nparts", [2, 5])
+def test_fasta_block_context_equals_the_header_table(corpus, nparts):
+    """A block read with its record context given (as the ranks' header
+    scan computes it) equals the read through the whole-file header
+    table, and the JAX package's read with the same context."""
+    from kmerind_tpu_torch.io.files import (block_partition,
+                                            fasta_header_table, file_size)
+    path = corpus["fasta"]
+    headers = fasta_header_table(path)
+    for part in range(nparts):
+        bs, _ = block_partition(file_size(path), nparts, part)
+        h = int(np.searchsorted(headers, bs, side="right")) - 1
+        ctx = (h, int(headers[h]) if h >= 0 else -1)
+        got = tio.read_fasta_block(path, T_DNA, part, nparts, halo=20,
+                                   context=ctx)
+        assert_batches_equal(got, tio.read_fasta_block(path, T_DNA, part,
+                                                       nparts, halo=20))
+        assert_batches_equal(got, jio.read_fasta_block(
+            path, J_DNA, part, nparts, halo=20, context=ctx))

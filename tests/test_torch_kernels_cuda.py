@@ -913,3 +913,18 @@ def test_value_maps_cuda_match_cpu(dev, tmp_path, k, p, reduce):
                 assert g == w
             else:
                 np.testing.assert_array_equal(g, w)
+
+
+def test_dryrun_multichip_on_the_card(dev):
+    """The multi-process dry run with its shards on the card: one rank per
+    card over NCCL where there are two cards, else two ranks sharing
+    cuda:0 over gloo."""
+    from kmerind_tpu_torch.parallel.multihost import dryrun_multichip
+    if torch.cuda.device_count() >= 2:
+        out = dryrun_multichip(2)
+        assert out["backend"] == "nccl"
+    else:
+        out = dryrun_multichip(2, device="cuda:0", backend="gloo")
+        assert out["device"] == "cuda:0" and out["backend"] == "gloo"
+    assert out["ranks"] == 2 and out["windows"] == 8 * (60 - 21 + 1)
+    assert 0 < out["size"] <= out["windows"]
