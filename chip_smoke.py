@@ -38,8 +38,10 @@ and power limit as nvidia-smi reports them):
       patterns, strand) at 8,388,628 + 8,388,628 rows and at a flush's
       2^26 + 2^24.  K3 also runs on a 2^28 edge-bit
       stream (0 / 1, a quarter ones) of the graph's counter tables.  K2′
-      (the row-major merge, which no index calls) runs only here, at w = 2
-      and w = 8 with one payload.
+      (the row-major merge) runs at w = 2 and w = 8 with one payload, and
+      through its public caller `sortops.bitonic_merge` on a [2^24, 2]
+      bitonic run with one payload against the plain half-cleaner network
+      on the card (keys bitwise, payloads per key run).
 * P3  exact reference: ~12M bases of synthetic reads indexed through
       CountIndex.insert_batch in 2^20-base chunks with max_runs=2 (many K2
       merges), then compact(); to_dict() must equal an independent numpy
@@ -173,12 +175,28 @@ and power limit as nvidia-smi reports them):
       K2 and K3 ran on every rank in the count build, K1 and K4 in the
       sorted one; the per-rank counts join the kernels line.  A rank that
       fails or outlives 600 s fails the smoke.
+* P12 the headline bench (`kmerind_tpu_torch.bench.headline`, `bench.py`'s
+      counterpart) in this process, after P7: its nine modes at bench.py's
+      defaults (2^24 bases a chunk, 8 chunks, max_runs 4, 2^20 queries, 3
+      iterations) and e2e at k = 63 and k = 16, each JSON line printed
+      with the card, the iterations' times and the peak device memory;
+      answers held: e2e / ingest / the graphs / the multimaps store the
+      closed-form count of in-read windows (the multimaps without
+      overflow), every sampled query counts > 0 (counts summing to >= m),
+      the erase takes the same positive count from the same snapshot every
+      time, the multimap finds >= m pairs.  Then `sortops.bitonic_merge`
+      (K2′) and `bitonic_merge_cols` (K2) on a [2^24, 2] bitonic run: a
+      sorted permutation of their input.  Then `p12_exact`: e2e, debruijn
+      and position_quality at 2^20 bases x 3 chunks, held exactly against
+      numpy (counts per canonical 21-mer, each node's 9 counters and each
+      run's table totals, every pair with its quality at rtol 1e-5).
+      Counters zeroed before P12, read after: K1, K2, K2′ and K3 ran.
 
 Exits non-zero, printing no result, when there is no CUDA device, a build
 fails or any check fails.  The last line of standard output is the
 contract JSON; the line before it lists the kernels with their launches
-in the main-path runs P4 + P5 + P6 + P7 + P8 + P9 + P10 + P11 (P11: the
-ranks' sum; `p11_launches_by_rank` per rank).
+in the main-path runs P4 + P5 + P6 + P7 + P8 + P9 + P10 + P11 + P12 (P11:
+the ranks' sum; `p11_launches_by_rank` per rank; K2′'s all in P12).
 """
 
 from __future__ import annotations
@@ -1873,6 +1891,251 @@ def phase_p11(tmp, path4, path3, queries, want_counts, distinct: int,
     return [r["launches"] for r in ranks]
 
 
+# ------------------------------------------------ P12: the headline bench
+#: P12's runs of the headline bench: bench.py's nine modes at its defaults,
+#: and the e2e build at k = 63 (128-bit K1 state) and k = 16 (weighted runs)
+P12_RUNS = (("e2e",), ("e2e", "--k", "63"), ("e2e", "--k", "16"),
+            ("ingest",), ("count_query",), ("erase",), ("multimap_find",),
+            ("debruijn",), ("debruijn_quality",), ("position",),
+            ("position_quality",))
+
+
+def bench_windows(codes: np.ndarray, seg: np.ndarray, k: int = K):
+    """(start int64[t], canonical uint64[t], was_rc bool[t]) of every
+    in-read window of a flat DNA code stream (k <= 32): base-4 dot products
+    of the windows and of their reverse complements, independent of the
+    port and of the bench's own numpy baseline."""
+    win = np.lib.stride_tricks.sliding_window_view(codes, k).astype(np.uint64)
+    pw = np.uint64(4) ** np.arange(k - 1, -1, -1, dtype=np.uint64)
+    fwd = win @ pw
+    rc = (np.uint64(3) - win) @ pw[::-1]
+    start = np.nonzero(seg[: codes.size - k + 1] == seg[k - 1:])[0]
+    return start, np.minimum(fwd, rc)[start], (rc < fwd)[start]
+
+
+def bench_chunks(codes: np.ndarray, chunks: int):
+    """The headline bench's chunks of a salt-0 build: chunk i flips the low
+    bit of base 0 when i is odd."""
+    for i in range(chunks):
+        c = codes.copy()
+        c[0] ^= i & 1
+        yield c
+
+
+def p12_exact(dev, headline, smi, bases: int = 1 << 20, chunks: int = 3):
+    """P12's exact check: e2e, debruijn and position_quality at a reduced
+    size, their built state held against numpy — counts per canonical
+    k-mer, each node's 9 counters (and each run's counter tables' totals),
+    every (k-mer, read, offset) pair with its quality at rtol 1e-5."""
+    from kmerind_tpu_torch import DNA, KmerSpec
+    from kmerind_tpu_torch.ops.keys import to_numpy_u32
+    spec = KmerSpec(K, DNA)
+    t0 = time.perf_counter()
+
+    def ctx(mode):
+        return headline.Context.create(headline.parse_args(
+            ["--mode", mode, "--device", str(dev), "--bases", str(bases),
+             "--chunks", str(chunks), "--iters", "1", "--json-only",
+             "--pinned-baseline", "1"]))
+
+    def key_ints(kcols, rows):
+        return spec.to_ints(to_numpy_u32(kcols).T[rows])
+
+    c = ctx("e2e")
+    seg = c.seg_np
+    windows = [bench_windows(x, seg) for x in bench_chunks(c.codes_np,
+                                                           chunks)]
+    want_k, want_c = np.unique(np.concatenate([w[1] for w in windows]),
+                               return_counts=True)
+    _, stores = headline.e2e(c)
+    keys, wts = [], []
+    for s in stores:
+        live = (s.weights > 0).cpu().numpy()
+        keys.append(key_ints(s.keys, live))
+        wts.append(s.weights.cpu().numpy()[live])
+    got_k, inv = np.unique(np.concatenate(keys), return_inverse=True)
+    got_c = np.bincount(inv, weights=np.concatenate(wts)).astype(np.int64)
+    if not (np.array_equal(got_k, want_k) and np.array_equal(got_c, want_c)):
+        raise AssertionError("P12 exact: e2e counts != numpy")
+    del stores
+
+    # the graph: each node's counters from its windows' edge bytes
+    rev4 = np.array([int(f"{v:04b}"[::-1], 2) for v in range(16)], np.uint8)
+    n = bases
+    rows, ebytes = [], []
+    for x, (start, canon, was_rc) in zip(bench_chunks(c.codes_np, chunks),
+                                         windows):
+        d = np.uint8(1) << x
+        left_ok = (start >= 1) & (seg[np.maximum(start - 1, 0)] == seg[start])
+        right = start + K
+        right_ok = (right < n) & (seg[np.minimum(right, n - 1)] == seg[start])
+        left = np.where(left_ok, d[np.maximum(start - 1, 0)], 0)
+        right = np.where(right_ok, d[np.minimum(right, n - 1)], 0)
+        e = (left << 4) | right
+        e = np.where(was_rc, (rev4[e & 15] << 4) | rev4[e >> 4], e)
+        rows.append(canon)
+        ebytes.append(e.astype(np.uint8))
+
+    def counters(keys, eb, weight):
+        uniq, inv = np.unique(keys, return_inverse=True)
+        cols = [((eb >> j) & 1) * weight for j in range(8)] + [weight]
+        return uniq, np.stack([np.bincount(inv, weights=col,
+                                           minlength=uniq.size)
+                               for col in cols], axis=1).astype(np.int64)
+
+    want_n, want_cnt = counters(np.concatenate(rows),
+                                np.concatenate(ebytes),
+                                np.ones(sum(r.size for r in rows), np.int64))
+    _, runs = headline.debruijn(ctx("debruijn"))
+    keys, ebs, wts = [], [], []
+    for r in runs:
+        live = (r.weights > 0).cpu().numpy()
+        eb = r.ebytes.cpu().numpy()[live].astype(np.uint8)
+        wt = r.weights.cpu().numpy()[live].astype(np.int64)
+        bits = (eb[:, None] >> np.arange(8, dtype=np.uint8)) & 1
+        totals = np.concatenate([(bits * wt[:, None]).sum(0), [wt.sum()]])
+        if not np.array_equal(r.bsum[:, -1].cpu().numpy(), totals):
+            raise AssertionError("P12 exact: a run's counter tables do not "
+                                 "end at its counter totals")
+        keys.append(key_ints(r.keys, live))
+        ebs.append(eb)
+        wts.append(wt)
+    got_n, got_cnt = counters(np.concatenate(keys), np.concatenate(ebs),
+                              np.concatenate(wts))
+    if not (np.array_equal(got_n, want_n)
+            and np.array_equal(got_cnt, want_cnt)):
+        raise AssertionError("P12 exact: de Bruijn node counters != numpy")
+    del runs
+
+    # the multimap: every (k-mer, read, offset) pair and its quality
+    pc = ctx("position_quality")
+    phred = pc.qual_np().astype(np.float64) - 33
+    with np.errstate(divide="ignore"):
+        logp = np.where(phred == 0, 0.0, np.log2(1.0 - 10.0 ** (-phred / 10)))
+    cs = np.concatenate([[0.0], np.cumsum(logp)])
+    zs = np.concatenate([[0], np.cumsum(phred == 0)])
+    start = windows[0][0]
+    wq = np.where(zs[start + K] > zs[start], 0.0,
+                  np.exp2(cs[start + K] - cs[start]))
+    want = (np.concatenate([w[1] for w in windows]),
+            np.tile(seg[start].astype(np.int64), chunks),
+            np.tile(start % pc.args.read_len, chunks))
+    want_q = np.tile(wq, chunks)
+    _, (store, ovf) = headline.position_quality(pc)
+    size = int(store.size)
+    got = (key_ints(store.keys, np.arange(size)),
+           to_numpy_u32(store.val_hi[:size]).astype(np.int64),
+           to_numpy_u32(store.val_lo[:size]).astype(np.int64))
+    got_q = store.val_q[:size].cpu().numpy()
+    go, wo = np.lexsort(got[::-1]), np.lexsort(want[::-1])
+    if ovf != 0 or size != want_q.size or not all(
+            np.array_equal(g[go], w[wo]) for g, w in zip(got, want)):
+        raise AssertionError("P12 exact: position-quality pairs != numpy")
+    np.testing.assert_allclose(got_q[go], want_q[wo], rtol=1e-5, atol=0,
+                               err_msg="P12 exact: window qualities")
+    log(f"P12 exact at {bases} bases x {chunks} chunks: e2e {want_k.size} "
+        f"canonical 21-mers == numpy counts, debruijn {want_n.size} nodes' "
+        f"9 counters == numpy, position_quality {size} pairs == numpy "
+        f"(qualities rtol 1e-5); seconds {time.perf_counter() - t0:.2f} "
+        f"[{smi}]")
+
+
+def phase_p12(dev, smi, argv=(), exact=(1 << 20, 3)) -> dict:
+    """P12: the headline bench (`kmerind_tpu_torch.bench.headline`) in
+    this process: every run of `P12_RUNS` (with `argv` appended) through
+    the mode's function, its JSON line printed with the card, its
+    iterations and its peak device memory, and its answers held; then the
+    public sortops callers of K2′ and K2 (`bitonic_merge`,
+    `bitonic_merge_cols`) on a [2^24, 2] bitonic run; then `p12_exact`.
+    Returns the kernel launches of the whole phase (counters zeroed just
+    before, read just after)."""
+    import torch
+    from kmerind_tpu_torch.bench import headline
+    from kmerind_tpu_torch.ops import kernels, sortops
+    t_all = time.perf_counter()
+    kernels.reset_launches()
+    for run in P12_RUNS:
+        args = headline.parse_args(["--mode", *run, "--device", str(dev),
+                                    "--json-only", *argv])
+        ctx = headline.Context.create(args)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        result, state = headline.MODES[args.mode](ctx)
+        wall = time.perf_counter() - t0
+        log(f"P12 {json.dumps(result)}")
+        windows = headline.in_read_windows(args.bases, args.read_len, args.k)
+        m = args.queries
+        if args.mode == "e2e":
+            got = sum(int(s.csum[-1]) for s in state)
+            ok = got == args.chunks * windows
+        elif args.mode == "ingest":
+            got = int(state[1].sum())
+            ok = got == windows
+        elif args.mode == "count_query":
+            counts = state[1]
+            got = int(counts.sum())
+            ok = bool((counts > 0).all()) and got >= m
+        elif args.mode == "erase":
+            got = [int(x) for x in state[1]]
+            ok = got[0] > 0 and len(set(got)) == 1
+        elif args.mode == "multimap_find":
+            got = int(state[1].sum())
+            ok = got >= m
+        elif args.mode.startswith("debruijn"):
+            got = sum(int(r.bsum[8, -1]) for r in state)
+            ok = got == args.chunks * windows
+        else:
+            got = (int(state[0].size), state[1])
+            ok = got == (args.chunks * windows, 0)
+        peak = peak_bytes(dev)
+        log(f"P12 {' '.join(run)}: held {got} ({'ok' if ok else 'WRONG'}), "
+            f"iterations {[round(t, 6) for t in ctx.times]} s, peak device "
+            f"memory {peak} bytes, wall {wall:.2f} s [{smi}]")
+        if not ok:
+            raise AssertionError(f"P12 {' '.join(run)}: wrong answer {got}")
+        del ctx, state
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # the public callers of K2′ and K2: a bitonic run of 2^24 key rows
+    gen = torch.Generator(device=dev).manual_seed(12)
+    half = 1 << (23 if dev.type == "cuda" else 11)
+    a = sortops.sort_rows(torch.randint(-(2**31), 2**31 - 1, (half, 2),
+                                        dtype=torch.int32, device=dev,
+                                        generator=gen))[0]
+    b = sortops.sort_rows(torch.randint(-(2**31), 2**31 - 1, (half, 2),
+                                        dtype=torch.int32, device=dev,
+                                        generator=gen))[0]
+    keys = torch.cat([a, b.flip(0)])
+    pay = torch.arange(2 * half, dtype=torch.int32, device=dev)
+    for fn, src in ((sortops.bitonic_merge, keys),
+                    (sortops.bitonic_merge_cols, keys.t().contiguous())):
+        out, (p,) = fn(src, (pay,))
+        rows = out if fn is sortops.bitonic_merge else out.t()
+        less, _ = sortops._lex_cmp([rows[1:, 0], rows[1:, 1]],
+                                   [rows[:-1, 0], rows[:-1, 1]])
+        if bool(less.any()) or not torch.equal(
+                torch.sort(p).values, pay) or not torch.equal(
+                rows, keys[p.to(torch.int64)]):
+            raise AssertionError(f"P12 {fn.__name__}: not a sorted "
+                                 "permutation of its input")
+    del a, b, keys, pay, out, p, rows, less
+    launches = dict(kernels.LAUNCHES)
+    log(f"P12 sortops.bitonic_merge / bitonic_merge_cols of [{2 * half}, 2] "
+        f"bitonic key rows, 1 payload: sorted permutations [{smi}]")
+    log(f"P12 launches: {launches}; K2 by payload count "
+        f"{dict(kernels.K2_PAYLOAD_LAUNCHES)}")
+    if exact:
+        p12_exact(dev, headline, smi, *exact)
+    log(f"P12 seconds {time.perf_counter() - t_all:.2f} [{smi}]")
+    for kname in ("extract_canonical", "merge_runs_cols",
+                  "merge_sorted_runs", "prefix_sum_i32"):
+        if not launches[kname]:
+            raise AssertionError(f"P12: {kname} never ran: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1885,7 +2148,7 @@ def main() -> int:
                                    SortedPositionQualityIndex)
     from kmerind_tpu_torch.io import native, read_file, split_records_at_invalid
     from kmerind_tpu_torch.ops import kernels, packing, sortops
-    from kmerind_tpu_torch.ops.keys import biased, to_numpy_u32
+    from kmerind_tpu_torch.ops.keys import biased, lex_argsort, to_numpy_u32
 
     dev = torch.device("cuda")
     t_all = time.perf_counter()
@@ -2102,16 +2365,13 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # K2′: row-major runs, w=2 and w=8, one payload
-    k2r_launches = 0
     for w in (2, 8):
         a, b = (sorted_run(CHUNK, w=w).t().contiguous() for _ in range(2))
         pa, pb = ((torch.randint(0, 100, (CHUNK,), dtype=torch.int32,
                                  device=dev, generator=gen),)
                   for _ in range(2))
-        kernels.LAUNCHES["merge_sorted_runs"] = 0
         gk, gp = kernels.merge_sorted_runs(a, pa, b, pb)
         wk, wp = kernels.merge_sorted_runs_plain(a, pa, b, pb)
-        k2r_launches += kernels.LAUNCHES["merge_sorted_runs"]
         err, n_out = max(err_of(gk, wk), err_of(gp[0], wp[0])), gk.shape[0]
         del gk, gp, wk, wp
         record("merge_sorted_runs", f"{CHUNK}+{CHUNK} rows w={w} payloads=1",
@@ -2121,6 +2381,33 @@ def main() -> int:
                             n_out=n_out, w=w, npay=1),
                packed_sort(a[:, :2].t(), b[:, :2].t()), slow_plain=w > 2)
         del a, b, pa, pb
+
+    # K2′ through its public caller, sortops.bitonic_merge: a bitonic run
+    # of 2^24 rows (w=2: an ascending half, then a descending one) with one
+    # payload, against the plain network on the same card (keys bitwise,
+    # payloads per key run: neither merge is stable)
+    a, b = (sorted_run(1 << 23).t().contiguous() for _ in range(2))
+    keys = torch.cat([a, b.flip(0)])
+    pay = torch.randint(0, 100, (1 << 24,), dtype=torch.int32, device=dev,
+                        generator=gen)
+    split = sortops._bitonic_split([keys[:, 0], keys[:, 1]])
+    gk, (gp,) = sortops.bitonic_merge(keys, (pay,))
+    wk, (wp,) = sortops.bitonic_merge_plain(keys, (pay,))
+
+    def by_run(k, p):
+        order = lex_argsort([biased(k[:, 0]), biased(k[:, 1]), p])
+        return p[order]
+
+    err = max(err_of(gk, wk), err_of(by_run(gk, gp), by_run(wk, wp)))
+    del gk, gp, wk, wp, a, b
+    record("merge_sorted_runs", f"sortops.bitonic_merge [2^24, 2] bitonic "
+           f"(split {split}) payloads=1, plain: the network",
+           lambda: sortops.bitonic_merge(keys, (pay,)),
+           lambda: sortops.bitonic_merge_plain(keys, (pay,)), err,
+           kernel_bytes("merge_sorted_runs", na=split, nb=(1 << 24) - split,
+                        n_out=1 << 24, w=2, npay=1),
+           packed_sort(keys[:split].t(), keys[split:].t()))
+    del keys, pay
 
     # values 0..1 and 0..100, and one edge-bit stream of the graph's
     # counter tables (an out-edge bit: 1 in 4 rows)
@@ -2430,16 +2717,20 @@ def main() -> int:
         t0 = time.perf_counter()
         launches["P7"] = phase_p7(dev, path, codes, quals, smi)
         log(f"P7 seconds {time.perf_counter() - t0:.2f} [{smi}]")
+        del codes, quals
+        torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------------- P12
+    launches["P12"] = phase_p12(dev, smi)
 
     log(f"total seconds {time.perf_counter() - t_all:.2f} [{smi}]")
     entries = []
     for kname, (src, replaces) in kernels.KERNELS.items():
-        # main-path launches (P4 + P5 + P6 + P7 + P8 + P9 + P10 + P11 — the
-        # P11 ranks' sum —, and per run); K2′ is on no index's path: P2's
+        # main-path launches (P4 + ... + P11 — the P11 ranks' sum — + P12,
+        # and per run); K2′'s come from P12's sortops.bitonic_merge
         by_run = {r: launches[r][kname] for r in (
-            "P4", "P5", "P6", "P7", "P8", "P9", "P10", "P11")}
-        n = (k2r_launches if kname == "merge_sorted_runs"
-             else sum(by_run.values()))
+            "P4", "P5", "P6", "P7", "P8", "P9", "P10", "P11", "P12")}
+        n = sum(by_run.values())
         p11_by_rank = [sum(ln.get(kname, 0) for ln in runs.values())
                        for runs in p11]
         entries.append({"name": kname, "route": "cuda", "source": src,

@@ -24,7 +24,8 @@ Hopper (``ops/csrc``).  It mirrors the JAX package's module layout:
   also has npz `save` / `load` in the JAX package's formats);
 * ``utils.timers`` / ``logging`` / ``profiling`` — phase timers (over
   ranks too), the ``kmerind_tpu_torch`` logger, `torch.profiler` traces;
-* ``bench`` — the BenchmarkKmerIndex CLI and the micro-benchmarks.
+* ``bench`` — the BenchmarkKmerIndex CLI, the micro-benchmarks and the
+  headline bench (``bench.py``'s modes on the port).
 
 Every tensor function runs on the device its inputs live on; an index
 lives on ``device="cuda"`` unless the caller names another (the tests pass
@@ -42,6 +43,8 @@ from .index.sorted_api import (SortedCountIndex, SortedPositionIndex,
                                SortedPositionQualityIndex)
 from .index.value_api import KmerValueIndex, SortedKmerValueIndex
 from .kmer import KmerSpec
+
+__version__ = "0.1.0"
 
 __all__ = ["alphabets", "KmerSpec", "IndexConfig", "CountIndex",
            "BimoleculeCountIndex", "PositionIndex", "PositionQualityIndex",

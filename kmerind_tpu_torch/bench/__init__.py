@@ -1,2 +1,3 @@
-"""Command-line tools: the BenchmarkKmerIndex driver (`cli`) and the per-op
-micro-benchmarks (`micro`)."""
+"""Command-line tools: the BenchmarkKmerIndex command line (`cli`), the
+per-op micro-benchmarks (`micro`) and the headline bench (`headline`, the
+counterpart of the repo's ``bench.py``)."""

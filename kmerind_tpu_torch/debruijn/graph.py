@@ -108,6 +108,17 @@ class DeBruijnGraph(_IndexBase):
 
     # ------------------------------------------------------------------
     @property
+    def store(self) -> list:
+        """The run list, as the JAX package's `store`; assigning a run or a
+        list of runs adopts them (`adopt_runs`)."""
+        return self.runs
+
+    @store.setter
+    def store(self, value):
+        self.adopt_runs(list(value) if isinstance(value, (list, tuple))
+                        else [value])
+
+    @property
     def capacity(self) -> int:
         """Rows per shard over all runs."""
         return sum(r.capacity for r in self.runs)

@@ -147,6 +147,11 @@ class _IndexBase:
     def transform(self) -> str:
         return transform_name(self.canonical)
 
+    @property
+    def num_shards(self) -> int:
+        """Shards of the whole index, over every rank (`nparts`)."""
+        return self.nparts
+
     def _maybe_canonicalize_queries(self, words: torch.Tensor) -> torch.Tensor:
         """Canonical presets transform queries too (transform_input on the
         query path, distributed_map_base.hpp:286-301)."""
@@ -692,6 +697,18 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
 
     # ------------------------------------------------------------------
     @property
+    def store(self) -> list:
+        """The run list, as the JAX package's `store` (its checkpoints
+        flatten it); assigning a run or a list of runs adopts them
+        (`adopt_runs`)."""
+        return self.runs
+
+    @store.setter
+    def store(self, value):
+        self.adopt_runs(list(value) if isinstance(value, (list, tuple))
+                        else [value])
+
+    @property
     def capacity(self) -> int:
         """Rows per shard over all runs."""
         return sum(r.capacity for r in self.runs)
@@ -788,6 +805,7 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
             return self
         self.runs, self._virgin = list(runs), False
         self._unit = [False] * len(self.runs)
+        self._drop_stale_aux()
         self._ingested_weight = self._shard_weight()
         while len(self.runs) > self.max_runs:
             self._merge_two_smallest()
@@ -1061,6 +1079,16 @@ class BimoleculeCountIndex(CountIndex):
         return self
 
     # -- the run list: pending runs, one consolidated store -------------
+    @property
+    def store(self) -> st.RunBimolStore:
+        """The one consolidated stacked run (pending runs wait apart), as
+        the JAX package's `store`; assigning one adopts it."""
+        return self.runs[0]
+
+    @store.setter
+    def store(self, value):
+        self.adopt_runs([value])
+
     def _merge_pair(self, a, b, unit: bool):
         return dx.run_bimol_merge_pair_step(a, b)
 

@@ -90,6 +90,10 @@ class CountStore:
     counts: torch.Tensor
     size: torch.Tensor
 
+    @property
+    def capacity(self) -> int:
+        return self.keys.shape[-2]
+
     def shard(self, s: int) -> "CountStore":
         return CountStore(self.keys[s], self.counts[s], self.size[s])
 
@@ -1057,6 +1061,12 @@ def run_vec_merge_unit(a: RunVecStore, b: RunVecStore,
     qs = m[1].view(torch.float32)
     return RunVecQStore(**vars(run), qsums=qs,
                         qcsum=_qcsum(qs) if table else None)
+
+
+#: the quality store's merges: `run_vec_merge` / `run_vec_merge_unit` carry
+#: the quality bits of a `RunVecQStore` (the JAX package's separate twins)
+run_vecq_merge = run_vec_merge
+run_vecq_merge_unit = run_vec_merge_unit
 
 
 def run_vec_with_table(store: RunVecStore, unit: bool = False) -> RunVecStore:

@@ -134,6 +134,29 @@ class ReadBatch:
             qual=self.qual[start:stop],
         )
 
+    def shard_with_halo(self, nshards: int, halo: int, halo_left: int = 0):
+        """Split the base stream into `nshards` equal owned blocks, each
+        with `halo` following and `halo_left` preceding bases of context
+        (the k-1 overlap, kmer_file_helper.hpp:361; the de Bruijn edges
+        need one more base on each side), all padded to one length.
+
+        Returns (list[ReadBatch], owned_len): halo bases are valid but not
+        owned, so every window starts on exactly one shard."""
+        n = self.num_bases
+        owned = -(-n // nshards)
+        shards = []
+        for s in range(nshards):
+            own_start = min(s * owned, n)
+            lo = max(0, own_start - halo_left)
+            left = own_start - lo
+            sub = self.slice_bases(lo, min(own_start + owned + halo, n)
+                                   ).pad_to(halo_left + owned + halo)
+            local_owned = sub.owned.copy()
+            local_owned[:left] = False
+            local_owned[left + owned:] = False
+            shards.append(dataclasses.replace(sub, owned=local_owned))
+        return shards, owned
+
     def iter_chunks(self, chunk_bases: int, halo: int, halo_left: int = 0):
         """Yield base-stream chunks of ~chunk_bases with `halo` lookahead
         and `halo_left` bases of preceding context (de Bruijn edges need

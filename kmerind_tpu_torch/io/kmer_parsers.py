@@ -16,15 +16,17 @@ package computes them in XLA outside its Pallas kernel.
 from __future__ import annotations
 
 import dataclasses
+import sys
 
+import numpy as np
 import torch
 
 from ..kmer import KmerSpec
 from ..ops import kernels, packing
 from ..quality import ILLUMINA18, QualityCodec, window_quality
 
-__all__ = ["DeviceBases", "KmerTuples", "TRANSFORMS", "extract_tuples",
-           "transform_name"]
+__all__ = ["DeviceBases", "KmerTuples", "TRANSFORMS", "batch_to_arrays",
+           "extract_tuples", "transform_name"]
 
 
 @dataclasses.dataclass
@@ -58,6 +60,27 @@ class KmerTuples:
     id_hi: torch.Tensor | None = None  # position id of the window's first
     id_lo: torch.Tensor | None = None  # base, as in DeviceBases
     qual: torch.Tensor | None = None   # float32[n] windowed quality
+
+
+def batch_to_arrays(batch, id_kind: str | None = None,
+                    device="cuda") -> DeviceBases:
+    """A host `ReadBatch` as `DeviceBases` on `device`: every per-base
+    column, the position ids of `id_kind` ("short" / "long"; zeros when
+    None) split into their uint32 halves."""
+    ids = (np.zeros(batch.num_bases, np.uint64) if id_kind is None
+           else batch.ids(id_kind))
+    halves = ids.view(np.uint32).reshape(-1, 2)
+    hi, lo = (halves[:, 1], halves[:, 0]) if sys.byteorder == "little" \
+        else (halves[:, 0], halves[:, 1])
+
+    def put(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    return DeviceBases(
+        codes=put(batch.codes), valid=put(batch.valid),
+        owned=put(batch.owned), seg_id=put(batch.seg_id),
+        id_hi=put(hi.view(np.int32)), id_lo=put(lo.view(np.int32)),
+        qual=put(batch.qual))
 
 
 TRANSFORMS = ("single", "lex_less", "lex_greater", "xor_rev_comp")

@@ -23,11 +23,12 @@ Two stream layouts, as in the JAX package:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .keys import to_u64
 
-__all__ = ["hash64_words", "hash64_kmers", "farm32"]
+__all__ = ["hash64_words", "hash64_kmers", "hash64_bytes", "farm32"]
 
 _M32 = 0xFFFFFFFF
 _M64 = (1 << 64) - 1
@@ -179,6 +180,18 @@ def hash64_kmers(words: torch.Tensor, spec, seed: int = 42):
     a (hi, lo) pair of int64 in [0, 2^32)."""
     return _hash64_with_seed(_kmer_stream(words, spec), (spec.nbits + 7) // 8,
                              seed)
+
+
+def hash64_bytes(data: bytes, seed: int = 42) -> int:
+    """FarmHash64WithSeed of a byte string of 1 to 64 bytes, as a Python
+    int — a host helper for checks and tools."""
+    n = len(data)
+    if n == 0 or n > 64:
+        raise ValueError("1..64 bytes supported")
+    buf = np.frombuffer(data + b"\x00" * ((-n) % 4 + 8), dtype="<u4")
+    words = torch.from_numpy(buf.astype(np.uint32).view(np.int32))[None]
+    hi, lo = _hash64_with_seed(_word_stream(words), n, seed)
+    return (int(hi[0]) << 32) | int(lo[0])
 
 
 def farm32(words: torch.Tensor, seed: int = 42) -> torch.Tensor:

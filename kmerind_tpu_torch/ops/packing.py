@@ -24,9 +24,9 @@ import torch
 from ..kmer import KmerSpec
 from .keys import biased
 
-__all__ = ["extract_kmers", "extract_revcomp", "extract_canonical",
-           "extract_canonical_greater", "extract_xor_rev_comp", "lex_less",
-           "window_valid"]
+__all__ = ["sliding_packs", "extract_kmers", "extract_revcomp",
+           "extract_canonical", "extract_canonical_greater",
+           "extract_xor_rev_comp", "lex_less", "window_valid"]
 
 _U32 = 0xFFFFFFFF
 
@@ -64,6 +64,18 @@ def _combine(pows: dict, bits: int, m: int) -> torch.Tensor:
                 ((acc << (bits * (1 << t))) & _U32) | part)
             consumed += 1 << t
     return acc
+
+
+def sliding_packs(codes: torch.Tensor, m: int, bits: int) -> torch.Tensor:
+    """int32[n] (uint32 bits): entry i packs codes[i : i+m) (codes [n] of
+    any integer dtype, values < 2**bits), first char most significant;
+    m * bits <= 32.  Entries past n-m hold partial packs (mask them with
+    `window_valid`)."""
+    if m * bits > 32:
+        raise ValueError(f"window of {m} chars x {bits} bits exceeds "
+                         "32-bit word")
+    return _combine(_pow_packs(codes.to(torch.int64), bits, m), bits,
+                    m).to(torch.int32)
 
 
 def _window_words(codes: torch.Tensor, spec: KmerSpec) -> torch.Tensor:

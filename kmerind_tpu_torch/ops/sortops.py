@@ -1,6 +1,5 @@
-"""Sort / merge / reduce / binary-search primitives over multi-word keys
-(the subset of ``kmerind_tpu.ops.sortops`` that the port's indexes
-call).
+"""Sort / merge / reduce / binary-search / join primitives over multi-word
+keys: the port of ``kmerind_tpu.ops.sortops``.
 
 Keys are int32-held uint32 words (``ops/keys.py``), word 0 most
 significant, so lexicographic row order is k-mer order.  Row-major keys are
@@ -10,6 +9,13 @@ Where the JAX package avoids TPU gathers and scatters — cummax / cummin
 broadcasts, compaction by a stable sort — the port gathers and compacts
 with boolean masks: same results, and torch's cummax is a slow
 single-block scan on CUDA.
+
+The two bitonic merges are the JAX package's half-cleaner network on a CPU
+tensor (`bitonic_merge_plain`, `bitonic_merge_cols_plain`) and, on a CUDA
+tensor, one merge of the ascending prefix with the flipped descending
+suffix: K2′ (row-major) and K2 (column-major).  The sort-merge joins
+(`lookup_join*`) give the same answers as the bucket-seeded searches the
+port's indexes call; no index routes through them.
 """
 
 from __future__ import annotations
@@ -19,11 +25,15 @@ import torch
 from . import kernels
 from .keys import SENTINEL, biased, lex_argsort, to_u64
 
-__all__ = ["sort_rows", "compact_runs", "run_weight_totals",
+__all__ = ["sort_rows", "compact_runs", "unique_counts", "run_weight_totals",
            "run_length_counts", "segment_reduce_sorted", "kv_order",
-           "merge_sorted_runs",
-           "merge_sorted_runs_cols", "lower_bound_cols_prebuilt",
-           "lower_bound_bucketed", "rows_equal_at"]
+           "lower_bound", "upper_bound", "rows_equal_at", "bitonic_merge",
+           "bitonic_merge_cols", "merge_sorted_runs",
+           "merge_sorted_runs_cols", "lookup_join_runs",
+           "lookup_join_runs_cols", "lower_bound_cols", "upper_bound_cols",
+           "lower_bound_cols_bucketed", "lower_bound_cols_prebuilt",
+           "lower_bound_bucketed", "lookup_join", "lookup_join_vals",
+           "lookup_join_ranges"]
 
 
 def sort_rows(words: torch.Tensor, payloads=(), valid=None,
@@ -81,6 +91,33 @@ def compact_runs(sorted_words: torch.Tensor, sorted_valid: torch.Tensor,
                         torch.nonzero(~is_new).squeeze(1)])
     return (sorted_words[starts], tuple(p[starts] for p in payloads), starts,
             is_new.sum(), sorted_valid.sum())
+
+
+def _i32(value: int) -> int:
+    """An unsigned 32-bit value as the int32 with the same bits."""
+    value &= 0xFFFFFFFF
+    return value - (1 << 32) if value >> 31 else value
+
+
+def unique_counts(sorted_words: torch.Tensor, sorted_valid: torch.Tensor,
+                  sentinel: int = 0xFFFFFFFF):
+    """Deduplicate sorted rows [n, w] (valid rows first) and count each
+    key's multiplicity — the counting map's insert semantics
+    (distributed_densehash_map.hpp:2669+).
+
+    Returns (uniq [n, w] — the distinct keys, then `sentinel` rows;
+    counts int32[n] — each distinct key's run length, 0 past n_unique;
+    n_unique 0-d)."""
+    n = sorted_words.shape[0]
+    uniq, _, starts, n_unique, total_valid = compact_runs(sorted_words,
+                                                          sorted_valid)
+    j = torch.arange(n, device=sorted_words.device)
+    next_start = torch.cat([starts[1:], starts.new_zeros(1)])
+    counts = torch.where(j + 1 < n_unique, next_start - starts,
+                         torch.where(j + 1 == n_unique, total_valid - starts,
+                                     0))
+    uniq = torch.where((j < n_unique)[:, None], uniq, _i32(sentinel))
+    return uniq, counts.to(torch.int32), n_unique
 
 
 def run_weight_totals(sorted_words: torch.Tensor, sorted_valid: torch.Tensor,
@@ -208,12 +245,138 @@ def merge_sorted_runs_cols(a_kcols: torch.Tensor, a_payloads,
                                    b_kcols, tuple(b_payloads))
 
 
+def _lex_cmp(a_cols, b_cols):
+    """(a < b, a > b) row-wise over aligned int32-held uint32 word columns,
+    word 0 most significant."""
+    less = torch.zeros(a_cols[0].shape, dtype=torch.bool,
+                       device=a_cols[0].device)
+    gt = torch.zeros_like(less)
+    for a, b in zip(reversed(a_cols), reversed(b_cols)):
+        a, b = biased(a), biased(b)
+        less = torch.where(a != b, a < b, less)
+        gt = torch.where(a != b, a > b, gt)
+    return less, gt
+
+
+def _half_cleaners(cols: list, w: int) -> list:
+    """The JAX package's bitonic network over aligned [n] columns (the
+    first w the key words, the rest payloads), n a power of two: log2(n)
+    half-cleaner stages; at distance d row i meets row i ^ d, the lower
+    row keeps the smaller key, ties keep their own rows."""
+    n = cols[0].shape[0]
+    idx = torch.arange(n, device=cols[0].device)
+    d = n >> 1
+    while d:
+        is_lo = (idx & d) == 0
+        partner = [torch.where(is_lo, torch.roll(c, -d), torch.roll(c, d))
+                   for c in cols]
+        less, gt = _lex_cmp(cols[:w], partner[:w])
+        take = torch.where(is_lo, gt, less)
+        cols = [torch.where(take, p, c) for c, p in zip(cols, partner)]
+        d >>= 1
+    return cols
+
+
+def bitonic_merge_plain(keys: torch.Tensor, payloads=()):
+    """Plain `bitonic_merge`: the half-cleaner network on any device."""
+    n, w = keys.shape
+    cols = _half_cleaners([keys[:, j] for j in range(w)] + list(payloads), w)
+    return torch.stack(cols[:w], dim=1), tuple(cols[w:])
+
+
+def bitonic_merge_cols_plain(kcols: torch.Tensor, payloads=()):
+    """Plain `bitonic_merge_cols`: the half-cleaner network on any
+    device."""
+    w = kcols.shape[0]
+    cols = _half_cleaners(list(kcols) + list(payloads), w)
+    return torch.stack(cols[:w]), tuple(cols[w:])
+
+
+def _bitonic_split(key_cols) -> int:
+    """The first row smaller than its predecessor (the start of the
+    descending suffix; n when there is none): one reduction on the device
+    and one host read."""
+    n = key_cols[0].shape[0]
+    less, _ = _lex_cmp([c[1:] for c in key_cols], [c[:-1] for c in key_cols])
+    idx = torch.arange(1, n, device=key_cols[0].device)
+    return int(torch.where(less, idx, n).min()) if n > 1 else n
+
+
+def _as_i32(payloads):
+    """Payload columns as int32 (a float32 column travels as its bits);
+    K2 carries 32-bit payloads only."""
+    out = []
+    for p in payloads:
+        if p.dtype not in (torch.int32, torch.float32):
+            raise TypeError("bitonic_merge: int32 or float32 payloads only, "
+                            f"got {p.dtype}")
+        out.append(p.contiguous().view(torch.int32))
+    return out
+
+
+def _merge_bitonic(keys: torch.Tensor, payloads, row_major: bool):
+    """A bitonic run sorted by one merge of its ascending prefix with its
+    reversed descending suffix: K2′ over row-major keys [n, w], K2 over
+    column-major keys [w, n] (their plain versions on a CPU tensor).
+    The output has exactly n rows (na + nb = n, a power of two)."""
+    cols = [keys[:, j] for j in range(keys.shape[1])] if row_major \
+        else list(keys)
+    n = cols[0].shape[0]
+    split = _bitonic_split(cols)
+    if split == n:
+        return keys.clone(), tuple(p.clone() for p in payloads)
+    pays = _as_i32(payloads)
+    a_pays = tuple(p[:split] for p in pays)
+    b_pays = tuple(p[split:].flip(0) for p in pays)
+    if row_major:
+        out, m = kernels.merge_sorted_runs(
+            keys[:split].contiguous(), a_pays,
+            keys[split:].flip(0).contiguous(), b_pays)
+    else:
+        out, m = kernels.merge_runs_cols(
+            keys[:, :split].contiguous(), a_pays,
+            keys[:, split:].flip(1).contiguous(), b_pays)
+    return out, tuple(x.view(p.dtype) for x, p in zip(m, payloads))
+
+
+def bitonic_merge(keys: torch.Tensor, payloads=()):
+    """Sort a bitonic run of rows — an ascending prefix followed by a
+    descending suffix — of keys [n, w] (n a power of two) with aligned [n]
+    payloads.  Not stable: equal keys leave in no set order.
+
+    On a CPU tensor: the JAX package's half-cleaner network
+    (`bitonic_merge_plain`).  On a CUDA tensor: the split found on the
+    device, then the K2′ kernel (``kernels.merge_sorted_runs``) merges the
+    prefix with the reversed suffix; payloads are int32 or float32 there.
+
+    Returns (sorted_keys [n, w], payloads_tuple)."""
+    if keys.shape[0] & (keys.shape[0] - 1):
+        raise ValueError("bitonic_merge needs power-of-two length")
+    if keys.device.type == "cpu":
+        return bitonic_merge_plain(keys, payloads)
+    return _merge_bitonic(keys, payloads, row_major=True)
+
+
+def bitonic_merge_cols(kcols: torch.Tensor, payloads=()):
+    """`bitonic_merge` over column-major keys [w, n] (word 0 most
+    significant): on a CUDA tensor the K2 kernel
+    (``kernels.merge_runs_cols``) merges the prefix with the reversed
+    suffix.  Returns ([w, n], payloads_tuple)."""
+    if kcols.shape[1] & (kcols.shape[1] - 1):
+        raise ValueError("bitonic_merge needs power-of-two length")
+    if kcols.device.type == "cpu":
+        return bitonic_merge_cols_plain(kcols, payloads)
+    return _merge_bitonic(kcols, payloads, row_major=False)
+
+
 def _bsearch_rounds(kcols: torch.Tensor, queries: torch.Tensor,
-                    lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
-    """lower_bound refinement from per-query [lo, hi) ranges over sorted
-    column-major keys [w, cap].  The round count is the bit length of the
-    widest range (one host read), after which every range has converged —
-    the JAX package's while_loop, unrolled on the host."""
+                    lo: torch.Tensor, hi: torch.Tensor,
+                    side: str = "left") -> torch.Tensor:
+    """lower_bound (side "left") or upper_bound ("right") refinement from
+    per-query [lo, hi) ranges over sorted column-major keys [w, cap].  The
+    round count is the bit length of the widest range (one host read),
+    after which every range has converged — the JAX package's while_loop,
+    unrolled on the host."""
     w, cap = kcols.shape
     m = queries.shape[0]
     if m == 0:
@@ -224,13 +387,49 @@ def _bsearch_rounds(kcols: torch.Tensor, queries: torch.Tensor,
         active = lo < hi
         mid = (lo + hi) >> 1
         kmid = kcols[:, mid.clamp(0, cap - 1)]
-        less = torch.zeros(m, dtype=torch.bool, device=kcols.device)
+        # left: kmid < q; right: kmid <= q (not kmid > q)
+        go_right = torch.zeros(m, dtype=torch.bool, device=kcols.device) \
+            if side == "left" else torch.ones(m, dtype=torch.bool,
+                                              device=kcols.device)
         for j in reversed(range(w)):
             kj = biased(kmid[j])
-            less = torch.where(kj != q_cols[j], kj < q_cols[j], less)
-        lo = torch.where(active & less, mid + 1, lo)
-        hi = torch.where(active & ~less, mid, hi)
+            go_right = torch.where(kj != q_cols[j], kj < q_cols[j],
+                                   go_right)
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
     return lo
+
+
+def _bsearch(kcols: torch.Tensor, size, queries: torch.Tensor,
+             side: str) -> torch.Tensor:
+    """int64[m] insertion index of each query row [m, w] among the sorted
+    first `size` rows of column-major keys [w, cap]."""
+    m = queries.shape[0]
+    size = torch.as_tensor(size, device=kcols.device).to(torch.int64)
+    lo = torch.zeros(m, dtype=torch.int64, device=kcols.device)
+    return _bsearch_rounds(kcols, queries, lo, lo + size, side)
+
+
+def lower_bound(keys: torch.Tensor, size, queries: torch.Tensor):
+    """int64[m]: the first row of the sorted rows [0, size) of keys [cap, w]
+    not less than each query row [m, w]."""
+    return _bsearch(keys.t(), size, queries, "left")
+
+
+def upper_bound(keys: torch.Tensor, size, queries: torch.Tensor):
+    """int64[m]: the first row of the sorted rows [0, size) of keys [cap, w]
+    greater than each query row [m, w]."""
+    return _bsearch(keys.t(), size, queries, "right")
+
+
+def lower_bound_cols(kcols: torch.Tensor, size, queries: torch.Tensor):
+    """`lower_bound` over column-major keys [w, cap]; queries [m, w]."""
+    return _bsearch(kcols, size, queries, "left")
+
+
+def upper_bound_cols(kcols: torch.Tensor, size, queries: torch.Tensor):
+    """`upper_bound` over column-major keys [w, cap]; queries [m, w]."""
+    return _bsearch(kcols, size, queries, "right")
 
 
 def _prefix_starts(hi_word: torch.Tensor, tbits: int) -> torch.Tensor:
@@ -239,6 +438,18 @@ def _prefix_starts(hi_word: torch.Tensor, tbits: int) -> torch.Tensor:
     buck = to_u64(hi_word) >> (32 - tbits)
     probes = torch.arange((1 << tbits) + 1, device=hi_word.device)
     return torch.searchsorted(buck, probes, side="left", out_int32=True)
+
+
+def lower_bound_cols_bucketed(kcols: torch.Tensor, size,
+                              queries: torch.Tensor,
+                              tbits: int = 16) -> torch.Tensor:
+    """`lower_bound_cols` seeded by a 2^tbits-entry prefix-bucket table of
+    word 0: each search starts inside its query's bucket.  It searches all
+    cap rows, as the JAX function does: the run stores' sentinel tails are
+    sorted too, so `size` does not bound the result."""
+    starts = _prefix_starts(kcols[0], tbits).to(torch.int64)
+    b = to_u64(queries[:, 0]) >> (32 - tbits)
+    return _bsearch_rounds(kcols, queries, starts[b], starts[b + 1])
 
 
 def lower_bound_cols_prebuilt(ext: torch.Tensor, w: int, bstart: torch.Tensor,
@@ -276,3 +487,133 @@ def rows_equal_at(keys: torch.Tensor, idx: torch.Tensor, queries: torch.Tensor,
     present)."""
     rows = keys[idx.clamp(0, keys.shape[0] - 1)]
     return (idx < size) & (rows == queries).all(dim=-1)
+
+
+# ------------------------------------------------------------ sort-merge joins
+# The JAX package's gather-free lookups: one stable sort of the store rows
+# and the query rows by (key words, flag), scans, and the queries' answers
+# put back in query order.  Its cummax broadcasts become gathers through a
+# cumsum of the flags here (torch's cummax is a single-block scan on CUDA).
+
+def _join_sort(store_cols, flag_store: torch.Tensor, queries: torch.Tensor):
+    """Sort the store rows (column-major [w, cap]) and the query rows
+    ([m, w]) together by (key words, flag): store rows carry
+    `flag_store` (0 live, 2 padding), queries 1.  Returns (perm, flag,
+    neq_prev — each sorted row differs from the one before)."""
+    w = store_cols.shape[0]
+    m = queries.shape[0]
+    words = [torch.cat([store_cols[j], queries[:, j]]) for j in range(w)]
+    flag = torch.cat([flag_store, torch.ones(m, dtype=torch.int32,
+                                             device=queries.device)])
+    perm = lex_argsort([biased(c) for c in words] + [flag])
+    s = [c[perm] for c in words]
+    neq = torch.zeros(perm.shape[0], dtype=torch.bool, device=perm.device)
+    neq[0] = True
+    for c in s:
+        neq[1:] |= c[1:] != c[:-1]
+    return perm, flag[perm], neq
+
+
+def _at_run_head(values: torch.Tensor, neq_prev: torch.Tensor):
+    """Each row's value at the head of its run of equal keys."""
+    return values[neq_prev][torch.cumsum(neq_prev, 0) - 1]
+
+
+def _last_where(mask: torch.Tensor) -> torch.Tensor:
+    """int64 per row: the last row at or before it where mask holds, -1 if
+    none (the JAX package's cummax of the flagged positions)."""
+    idx = torch.arange(mask.shape[0], device=mask.device)
+    pos = torch.cat([idx[mask], idx.new_full((1,), -1)])
+    cnt = torch.cumsum(mask, 0)
+    return pos[torch.where(cnt > 0, cnt - 1, pos.shape[0] - 1)]
+
+
+def _to_query_order(values, perm, s_flag, cap: int, m: int):
+    """The sorted query rows' values back in query order."""
+    q = s_flag == 1
+    qidx = perm[q] - cap
+    out = []
+    for v in values:
+        o = v.new_zeros(m)
+        o[qidx] = v[q]
+        out.append(o)
+    return out
+
+
+def _store_flag(cap: int, size, device) -> torch.Tensor:
+    return torch.where(torch.arange(cap, device=device) < size, 0,
+                       2).to(torch.int32)
+
+
+def lookup_join(keys: torch.Tensor, size, vals: torch.Tensor,
+                queries: torch.Tensor) -> torch.Tensor:
+    """int32[m] value of each query row [m, w] in a unique-key store (keys
+    [cap, w] with live rows [0, size), vals [cap]), 0 when absent: the
+    sort-merge join.  Padding rows sort after the queries of their key,
+    so a real all-ones key is never shadowed by the sentinel tail."""
+    cap = keys.shape[0]
+    perm, s_flag, neq = _join_sort(keys.t(), _store_flag(
+        cap, size, keys.device), queries)
+    s_val = torch.cat([vals.to(torch.int32),
+                       vals.new_zeros(queries.shape[0],
+                                      dtype=torch.int32)])[perm]
+    idx = torch.arange(perm.shape[0], device=perm.device)
+    last_store = _last_where(s_flag == 0)
+    match = last_store >= _at_run_head(idx, neq)
+    res = torch.where(match, s_val[last_store.clamp(min=0)], 0)
+    return _to_query_order([res], perm, s_flag, cap, queries.shape[0])[0]
+
+
+def lookup_join_vals(keys: torch.Tensor, size, vals: tuple,
+                     queries: torch.Tensor):
+    """`lookup_join` carrying any number of value columns ([cap] each, any
+    dtype).  Returns (matched — one [m] column per value column, 0 where
+    absent; found bool[m]) in query order."""
+    cap, m = keys.shape[0], queries.shape[0]
+    perm, s_flag, neq = _join_sort(keys.t(), _store_flag(
+        cap, size, keys.device), queries)
+    idx = torch.arange(perm.shape[0], device=perm.device)
+    last_store = _last_where(s_flag == 0)
+    match = last_store >= _at_run_head(idx, neq)
+    at = perm[last_store.clamp(min=0)].clamp(max=cap - 1)
+    cols = [torch.where(match, v[at], 0).to(v.dtype) for v in vals]
+    *out, found = _to_query_order(cols + [match], perm, s_flag, cap, m)
+    return tuple(out), found
+
+
+def lookup_join_ranges(keys: torch.Tensor, size, queries: torch.Tensor):
+    """(lo int32[m], hi int32[m]): the rows [lo, hi) of each query's key
+    in a sorted multimap store (keys [cap, w], live rows [0, size)), lo ==
+    hi when absent — from live-store-row counts over the joined order."""
+    cap = keys.shape[0]
+    perm, s_flag, neq = _join_sort(keys.t(), _store_flag(
+        cap, size, keys.device), queries)
+    is_store = (s_flag == 0).to(torch.int64)
+    incl = torch.cumsum(is_store, 0)
+    lo = _at_run_head(incl - is_store, neq)
+    out = _to_query_order([lo, incl], perm, s_flag, cap, queries.shape[0])
+    return tuple(o.to(torch.int32) for o in out)
+
+
+def lookup_join_runs_cols(kcols: torch.Tensor, csum: torch.Tensor,
+                          queries: torch.Tensor) -> torch.Tensor:
+    """int32[m] total weight of each query's key run in a run store
+    (column-major keys [w, cap] sorted over all rows, csum int32[cap + 1]
+    the exclusive prefix sum of its weights): the sort-merge join, the
+    sums wrapping like int32."""
+    cap, m = kcols.shape[1], queries.shape[0]
+    perm, s_flag, neq = _join_sort(
+        kcols, torch.zeros(cap, dtype=torch.int32, device=kcols.device),
+        queries)
+    wts = (csum[1:] - csum[:-1]).to(torch.int64)
+    s_wts = torch.cat([wts, wts.new_zeros(m)])[perm]
+    incl = torch.cumsum(s_wts, 0)
+    counts = torch.where(s_flag == 1, incl - _at_run_head(incl - s_wts, neq),
+                         0)
+    return _to_query_order([counts], perm, s_flag, cap, m)[0].to(torch.int32)
+
+
+def lookup_join_runs(keys: torch.Tensor, csum: torch.Tensor,
+                     queries: torch.Tensor) -> torch.Tensor:
+    """`lookup_join_runs_cols` over row-major store keys [cap, w]."""
+    return lookup_join_runs_cols(keys.t(), csum, queries)

@@ -928,3 +928,86 @@ def test_dryrun_multichip_on_the_card(dev):
         assert out["device"] == "cuda:0" and out["backend"] == "gloo"
     assert out["ranks"] == 2 and out["windows"] == 8 * (60 - 21 + 1)
     assert 0 < out["size"] <= out["windows"]
+
+
+def _bitonic_rows(rng, n, w, n_asc):
+    """int32[n, w] key rows: n_asc ascending, then descending, with ties."""
+    pool = sorted_key_cols(rng, w, max(n // 4, 1)).T
+    asc = pool[np.sort(rng.integers(0, pool.shape[0], n_asc))]
+    dsc = pool[np.sort(rng.integers(0, pool.shape[0], n - n_asc))][::-1]
+    return words_t(np.concatenate([asc, dsc]))
+
+
+def _by_key_run(keys, pay):
+    """Payloads sorted within each run of equal key rows."""
+    cols = [keys[:, j].to(torch.int64) for j in range(keys.shape[1])]
+    order = np.lexsort([pay.numpy()] + [c.numpy() for c in cols[::-1]])
+    return pay[torch.from_numpy(order)]
+
+
+@pytest.mark.parametrize("n,w,n_asc", [
+    (2, 1, 1), (1024, 2, 1), (1024, 2, 1024), (4096, 3, 1000),
+    (1 << 16, 2, 40_000), (1 << 18, 9, 1 << 17), (1 << 12, 33, 3000)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_bitonic_merges_on_card(dev, n, w, n_asc, dtype):
+    """sortops.bitonic_merge (K2′) and bitonic_merge_cols (K2) on the card
+    against the half-cleaner network on the CPU: keys bitwise, payloads
+    per key run (neither is stable); an already sorted run launches
+    nothing."""
+    from kmerind_tpu_torch.ops import sortops
+    rng = np.random.default_rng(n + w + n_asc)
+    keys = _bitonic_rows(rng, n, w, n_asc)
+    pay = torch.from_numpy(rng.integers(-50, 50, n).astype(np.int32))
+    pay = pay.to(dtype)
+    want_k, (want_p,) = sortops.bitonic_merge(keys, (pay,))
+    unsorted = int(sortops._bitonic_split(list(keys.t())) < n)
+    for fn, src, kname in (
+            (sortops.bitonic_merge, keys, "merge_sorted_runs"),
+            (sortops.bitonic_merge_cols, keys.t().contiguous(),
+             "merge_runs_cols")):
+        before = kernels.LAUNCHES[kname]
+        got_k, (got_p,) = fn(src.to(dev), (pay.to(dev),))
+        torch.cuda.synchronize()
+        got_k = got_k.cpu() if fn is sortops.bitonic_merge else got_k.t().cpu()
+        assert kernels.LAUNCHES[kname] == before + unsorted
+        assert got_p.dtype == dtype
+        assert torch.equal(got_k, want_k)
+        assert torch.equal(_by_key_run(got_k, got_p.cpu()),
+                           _by_key_run(want_k, want_p))
+
+
+@pytest.mark.parametrize("mode", ["e2e", "ingest", "count_query", "erase",
+                                  "multimap_find", "debruijn",
+                                  "debruijn_quality", "position",
+                                  "position_quality"])
+def test_headline_modes_on_card(dev, mode):
+    """Every headline bench mode on the card at a small size: its JSON line
+    and the windows, counts or pairs it holds equal the CPU run's."""
+    import json
+
+    from kmerind_tpu_torch.bench import headline
+    got = {}
+    for d in ("cuda", "cpu"):
+        args = headline.parse_args(
+            ["--mode", mode, "--device", d, "--bases", "20000", "--chunks",
+             "3", "--max-runs", "2", "--queries", "1000", "--iters", "1",
+             "--inner", "2", "--json-only", "--pinned-baseline", "1"])
+        res, state = headline.MODES[mode](headline.Context.create(args))
+        assert set(json.loads(json.dumps(res))) >= {
+            "metric", "value", "unit", "vs_baseline", "compile_s",
+            "baseline"}
+        if mode in ("e2e", "debruijn", "debruijn_quality"):
+            rows = [r.csum if mode == "e2e" else r.bsum for r in state]
+            got[d] = [r[..., -1].cpu().tolist() for r in rows]
+        elif mode == "ingest":
+            got[d] = [t.cpu() for t in state]
+        elif mode in ("position", "position_quality"):
+            got[d] = (int(state[0].size), state[1])
+        elif mode == "erase":
+            got[d] = [int(x) for x in state[1]]
+        else:
+            got[d] = state[1].cpu().tolist()
+    if mode == "ingest":
+        assert all(torch.equal(a, b) for a, b in zip(got["cuda"], got["cpu"]))
+    else:
+        assert got["cuda"] == got["cpu"]

@@ -225,3 +225,43 @@ def test_p10_dry_run_on_the_cpu(capsys):
     inner = record["runs"]["p10 index phases"]
     assert {"insert", "compact", "count"} <= set(inner)
     assert all(v["device_busy_s"] == 0.0 for v in inner.values())
+
+
+def test_headline_profile_reads_the_last_timed_iteration(capsys):
+    """tools/profile_headline.py: the range it reads is the last timed
+    iteration of the bench; on the CPU it runs end to end with no device
+    time."""
+    import profile_headline
+    from kmerind_tpu_torch.bench import headline
+    trace = {"traceEvents": [
+        {"cat": "user_annotation", "name": headline.ITER_RANGE, "ts": 5,
+         "dur": 10},
+        {"cat": "user_annotation", "name": "other", "ts": 50, "dur": 10},
+        {"cat": "user_annotation", "name": headline.ITER_RANGE, "ts": 30,
+         "dur": 4},
+    ]}
+    assert profile_headline.iter_range(trace, headline.ITER_RANGE) == (
+        30.0, 34.0)
+    with pytest.raises(ValueError):
+        profile_headline.iter_range(trace, "missing")
+    assert profile_headline.main(
+        ["--modes", "e2e,position", "--device", "cpu", "--bases", "4096",
+         "--chunks", "2"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(out["modes"]) == {"e2e", "position"}
+    assert out["modes"]["e2e"]["device_busy_s"] == 0.0
+    assert out["modes"]["e2e"]["wall_s"] > 0
+
+
+@pytest.mark.parametrize("name,want", [
+    ("void at::native::index_elementwise_kernel<128, 4, x<y> >(int, z)",
+     "index_elementwise_kernel"),
+    ("void cub::DeviceRadixSortOnesweepKernel<P, int>(int)",
+     "DeviceRadixSortOnesweepKernel"),
+    ("(anonymous namespace)::prefix_scan_kernel(unsigned int const*)",
+     "prefix_scan_kernel"),
+    ("Memcpy DtoD (Device -> Device)", "Memcpy DtoD"),
+])
+def test_headline_profile_short_names(name, want):
+    import profile_headline
+    assert profile_headline.short_name(name) == want
