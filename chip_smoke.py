@@ -38,10 +38,13 @@ and power limit as nvidia-smi reports them):
       patterns, strand) at 8,388,628 + 8,388,628 rows and at a flush's
       2^26 + 2^24.  K3 also runs on a 2^28 edge-bit
       stream (0 / 1, a quarter ones) of the graph's counter tables.  K2′
-      (the row-major merge) runs at w = 2 and w = 8 with one payload, and
-      through its public caller `sortops.bitonic_merge` on a [2^24, 2]
-      bitonic run with one payload against the plain half-cleaner network
-      on the card (keys bitwise, payloads per key run).
+      (the row-major merge) runs at w = 2 and w = 8 with one payload.  The
+      one-run bitonic kernels run through their public callers,
+      `sortops.bitonic_merge` (rows) and `bitonic_merge_cols`, on a
+      [2^24, 2] bitonic run with one payload against the plain
+      half-cleaner network on the card (keys bitwise, payloads per key
+      run); the profiler must see no device kernel in a call but their
+      split, partition and tile launches (no flipped or sliced copies).
 * P3  exact reference: ~12M bases of synthetic reads indexed through
       CountIndex.insert_batch in 2^20-base chunks with max_runs=2 (many K2
       merges), then compact(); to_dict() must equal an independent numpy
@@ -185,18 +188,21 @@ and power limit as nvidia-smi reports them):
       overflow), every sampled query counts > 0 (counts summing to >= m),
       the erase takes the same positive count from the same snapshot every
       time, the multimap finds >= m pairs.  Then `sortops.bitonic_merge`
-      (K2′) and `bitonic_merge_cols` (K2) on a [2^24, 2] bitonic run: a
-      sorted permutation of their input.  Then `p12_exact`: e2e, debruijn
-      and position_quality at 2^20 bases x 3 chunks, held exactly against
-      numpy (counts per canonical 21-mer, each node's 9 counters and each
-      run's table totals, every pair with its quality at rtol 1e-5).
-      Counters zeroed before P12, read after: K1, K2, K2′ and K3 ran.
+      and `bitonic_merge_cols` (the one-run kernels) on a [2^24, 2]
+      bitonic run, and `sortops.merge_sorted_runs` (K2′) on its two
+      halves: each a sorted permutation of its input.  Then
+      `p12_exact`: e2e, debruijn and position_quality at 2^20 bases x 3
+      chunks, held exactly against numpy (counts per canonical 21-mer,
+      each node's 9 counters and each run's table totals, every pair with
+      its quality at rtol 1e-5).  Counters zeroed before P12, read after:
+      K1, K2, K2′, both one-run kernels and K3 ran.
 
 Exits non-zero, printing no result, when there is no CUDA device, a build
 fails or any check fails.  The last line of standard output is the
 contract JSON; the line before it lists the kernels with their launches
 in the main-path runs P4 + P5 + P6 + P7 + P8 + P9 + P10 + P11 + P12 (P11:
-the ranks' sum; `p11_launches_by_rank` per rank; K2′'s all in P12).
+the ranks' sum; `p11_launches_by_rank` per rank; K2′'s and the one-run
+kernels' all in P12).
 """
 
 from __future__ import annotations
@@ -233,7 +239,9 @@ def kernel_bytes(kname: str, **shape) -> int:
     and bool [n] was_rc out.  merge_runs_cols(na, nb, n_out, w, npay): w
     key words ([w, n] column-major) and npay payloads of int32 per row, na
     + nb rows in, n_out out; merge_sorted_runs the same with row-major [n,
-    w] keys (the same bytes).  prefix_sum_i32(n): int32 in and out.
+    w] keys (the same bytes).  bitonic_merge_rows / bitonic_merge_cols(n,
+    w, npay): one run of n rows of w key words and npay int32 payloads in,
+    n rows out.  prefix_sum_i32(n): int32 in and out.
     run_length_weights(n, w): int32 [w, n] keys and the int32 valid count
     in, int32 [n] weights out."""
     if kname == "extract_canonical":
@@ -241,6 +249,8 @@ def kernel_bytes(kname: str, **shape) -> int:
     if kname in ("merge_runs_cols", "merge_sorted_runs"):
         row = 4 * (shape["w"] + shape["npay"])
         return (shape["na"] + shape["nb"] + shape["n_out"]) * row
+    if kname in ("bitonic_merge_rows", "bitonic_merge_cols"):
+        return 2 * shape["n"] * 4 * (shape["w"] + shape["npay"])
     if kname == "prefix_sum_i32":
         return 8 * shape["n"]
     if kname == "run_length_weights":
@@ -2045,8 +2055,9 @@ def phase_p12(dev, smi, argv=(), exact=(1 << 20, 3)) -> dict:
     this process: every run of `P12_RUNS` (with `argv` appended) through
     the mode's function, its JSON line printed with the card, its
     iterations and its peak device memory, and its answers held; then the
-    public sortops callers of K2′ and K2 (`bitonic_merge`,
-    `bitonic_merge_cols`) on a [2^24, 2] bitonic run; then `p12_exact`.
+    public sortops callers of the one-run kernels (`bitonic_merge`,
+    `bitonic_merge_cols`) on a [2^24, 2] bitonic run and of K2′
+    (`merge_sorted_runs`) on its two halves; then `p12_exact`.
     Returns the kernel launches of the whole phase (counters zeroed just
     before, read just after)."""
     import torch
@@ -2098,7 +2109,8 @@ def phase_p12(dev, smi, argv=(), exact=(1 << 20, 3)) -> dict:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
-    # the public callers of K2′ and K2: a bitonic run of 2^24 key rows
+    # the public callers of the one-run kernels: a bitonic run of 2^24 key
+    # rows; then K2′'s, on its two halves
     gen = torch.Generator(device=dev).manual_seed(12)
     half = 1 << (23 if dev.type == "cuda" else 11)
     a = sortops.sort_rows(torch.randint(-(2**31), 2**31 - 1, (half, 2),
@@ -2110,10 +2122,14 @@ def phase_p12(dev, smi, argv=(), exact=(1 << 20, 3)) -> dict:
     keys = torch.cat([a, b.flip(0)])
     pay = torch.arange(2 * half, dtype=torch.int32, device=dev)
     for fn, src in ((sortops.bitonic_merge, keys),
-                    (sortops.bitonic_merge_cols, keys.t().contiguous())):
-        out, (p,) = fn(src, (pay,))
-        rows = out if fn is sortops.bitonic_merge else out.t()
-        less, _ = sortops._lex_cmp([rows[1:, 0], rows[1:, 1]],
+                    (sortops.bitonic_merge_cols, keys.t().contiguous()),
+                    (sortops.merge_sorted_runs, None)):
+        if src is None:
+            out, (p,) = fn(a, (pay[:half],), b, (pay[half:].flip(0),))
+        else:
+            out, (p,) = fn(src, (pay,))
+        rows = out if fn is not sortops.bitonic_merge_cols else out.t()
+        less, _ = kernels._lex_cmp([rows[1:, 0], rows[1:, 1]],
                                    [rows[:-1, 0], rows[:-1, 1]])
         if bool(less.any()) or not torch.equal(
                 torch.sort(p).values, pay) or not torch.equal(
@@ -2123,14 +2139,16 @@ def phase_p12(dev, smi, argv=(), exact=(1 << 20, 3)) -> dict:
     del a, b, keys, pay, out, p, rows, less
     launches = dict(kernels.LAUNCHES)
     log(f"P12 sortops.bitonic_merge / bitonic_merge_cols of [{2 * half}, 2] "
-        f"bitonic key rows, 1 payload: sorted permutations [{smi}]")
+        f"bitonic key rows and merge_sorted_runs of its halves, 1 payload: "
+        f"sorted permutations [{smi}]")
     log(f"P12 launches: {launches}; K2 by payload count "
         f"{dict(kernels.K2_PAYLOAD_LAUNCHES)}")
     if exact:
         p12_exact(dev, headline, smi, *exact)
     log(f"P12 seconds {time.perf_counter() - t_all:.2f} [{smi}]")
     for kname in ("extract_canonical", "merge_runs_cols",
-                  "merge_sorted_runs", "prefix_sum_i32"):
+                  "merge_sorted_runs", "bitonic_merge_rows",
+                  "bitonic_merge_cols", "prefix_sum_i32"):
         if not launches[kname]:
             raise AssertionError(f"P12: {kname} never ran: {launches}")
     return launches
@@ -2382,32 +2400,52 @@ def main() -> int:
                packed_sort(a[:, :2].t(), b[:, :2].t()), slow_plain=w > 2)
         del a, b, pa, pb
 
-    # K2′ through its public caller, sortops.bitonic_merge: a bitonic run
-    # of 2^24 rows (w=2: an ascending half, then a descending one) with one
+    # the one-run bitonic kernels through their public callers,
+    # sortops.bitonic_merge (rows) and bitonic_merge_cols: a bitonic run of
+    # 2^24 rows (w=2: an ascending half, then a descending one) with one
     # payload, against the plain network on the same card (keys bitwise,
-    # payloads per key run: neither merge is stable)
+    # payloads per key run: neither merge is stable); a call's device
+    # kernels are the split, partition and tile launches and nothing else
     a, b = (sorted_run(1 << 23).t().contiguous() for _ in range(2))
-    keys = torch.cat([a, b.flip(0)])
+    rows = torch.cat([a, b.flip(0)])
+    del a, b
     pay = torch.randint(0, 100, (1 << 24,), dtype=torch.int32, device=dev,
                         generator=gen)
-    split = sortops._bitonic_split([keys[:, 0], keys[:, 1]])
-    gk, (gp,) = sortops.bitonic_merge(keys, (pay,))
-    wk, (wp,) = sortops.bitonic_merge_plain(keys, (pay,))
+    less, _ = kernels._lex_cmp([rows[1:, 0], rows[1:, 1]],
+                               [rows[:-1, 0], rows[:-1, 1]])
+    split = int(less.nonzero()[0]) + 1
+    del less
 
     def by_run(k, p):
         order = lex_argsort([biased(k[:, 0]), biased(k[:, 1]), p])
         return p[order]
 
-    err = max(err_of(gk, wk), err_of(by_run(gk, gp), by_run(wk, wp)))
-    del gk, gp, wk, wp, a, b
-    record("merge_sorted_runs", f"sortops.bitonic_merge [2^24, 2] bitonic "
-           f"(split {split}) payloads=1, plain: the network",
-           lambda: sortops.bitonic_merge(keys, (pay,)),
-           lambda: sortops.bitonic_merge_plain(keys, (pay,)), err,
-           kernel_bytes("merge_sorted_runs", na=split, nb=(1 << 24) - split,
-                        n_out=1 << 24, w=2, npay=1),
-           packed_sort(keys[:split].t(), keys[split:].t()))
-    del keys, pay
+    bitonic_kernels = {"bitonic_split_kernel", "merge_partition_kernel",
+                       "merge_tiles_kernel"}
+    for kname, fn, plain, keys in (
+            ("bitonic_merge_rows", sortops.bitonic_merge,
+             kernels.bitonic_merge_rows_plain, rows),
+            ("bitonic_merge_cols", sortops.bitonic_merge_cols,
+             kernels.bitonic_merge_cols_plain, rows.t().contiguous())):
+        gk, (gp,) = fn(keys, (pay,))
+        wk, (wp,) = plain(keys, (pay,))
+        if kname == "bitonic_merge_cols":
+            gk, wk = gk.t(), wk.t()
+        err = max(err_of(gk, wk), err_of(by_run(gk, gp), by_run(wk, wp)))
+        del gk, gp, wk, wp
+        us = kernel_us_per_call(lambda: fn(keys, (pay,)))
+        if set(us) != bitonic_kernels:
+            raise AssertionError(f"{kname}: a call ran the device kernels "
+                                 f"{sorted(us)}, not {sorted(bitonic_kernels)}")
+        log(f"P2 {kname} device us a call by kernel: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(us.items())) + f" [{smi}]")
+        record(kname, f"sortops.{fn.__name__} [2^24, 2] bitonic run (split "
+               f"{split}) payloads=1, plain: the network",
+               lambda: fn(keys, (pay,)), lambda: plain(keys, (pay,)), err,
+               kernel_bytes(kname, n=1 << 24, w=2, npay=1),
+               packed_sort(rows[:split].t(), rows[split:].t()))
+        del keys
+    del rows, pay
 
     # values 0..1 and 0..100, and one edge-bit stream of the graph's
     # counter tables (an out-edge bit: 1 in 4 rows)
@@ -2727,7 +2765,8 @@ def main() -> int:
     entries = []
     for kname, (src, replaces) in kernels.KERNELS.items():
         # main-path launches (P4 + ... + P11 — the P11 ranks' sum — + P12,
-        # and per run); K2′'s come from P12's sortops.bitonic_merge
+        # and per run); K2′'s and the one-run kernels' come from P12's
+        # sortops calls
         by_run = {r: launches[r][kname] for r in (
             "P4", "P5", "P6", "P7", "P8", "P9", "P10", "P11", "P12")}
         n = sum(by_run.values())

@@ -78,6 +78,32 @@
 //    gathered, so K2′ needs no transpose;
 //  * any na and nb (the main path's runs are chunk+halo rows, not powers of
 //    two).
+//
+// One bitonic run (kmerind_bitonic_merge): the counterpart of
+// bitonic_merge_pallas (:832, row-major [n, w]) and
+// bitonic_merge_pallas_cols (:848, column-major [w, n]), both through
+// _bitonic_merge_pallas_cols (:859) and _merge_stage_loop (:936), as
+// reached from sortops.bitonic_merge / bitonic_merge_cols.  Contract
+// (ops/kernels.py::bitonic_merge_rows_plain / bitonic_merge_cols_plain,
+// the JAX half-cleaner network, are the plain versions): n rows, an
+// ascending prefix then a descending suffix, into exactly n sorted rows,
+// payloads carried.  The same merge path with B read backwards from the
+// input's own buffer, so nothing is flipped, sliced or copied and the host
+// never learns where the prefix ends:
+//  * split launch (after a memset of one scratch word): each thread
+//    compares row i with row i - 1 (grid-stride, leaving at its first
+//    descent), a block maximum of n - i, one atomicMax per block: the word
+//    then holds nb, the length of the suffix from the first row smaller
+//    than its predecessor (0 for a sorted run).  The partition launch
+//    reads nb there; A is rows [0, n - nb), B row j is row n - 1 - j;
+//  * the partition and tile launches are the two-run ones on those
+//    addresses (template flag kRev, Args::brev, so the two-run merges
+//    compile as before): a warp's reversed loads cover the same 128-byte
+//    lines as forward ones, so the cp.async staging stays coalesced.
+//    na + nb = n rows out: no sentinel fill;
+//  * bound: n rows read and n written (w=2, one payload, n = 2^24: 402.7
+//    MB, 0.120 ms); the split reads the key words once more up to the
+//    first descent.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,6 +120,8 @@ constexpr int kMaxStagedCols = 12;          // key words + payloads staged
 constexpr int kGatherBatch = 4;             // columns gathered at once
 constexpr int kFillVecs = 2048;             // 16-byte stores per fill CTA and column
 constexpr int kPartThreads = 128;
+constexpr int kSplitThreads = 256;
+constexpr int kSplitCtas = 132 * 8;         // 8 per SM, grid-stride
 
 // shared-memory words between staged key columns: a padded tile plus 32 / P,
 // so that the P words of 32 / P neighbouring rows (a warp's row-major load)
@@ -112,18 +140,32 @@ struct Cols {
 };
 
 struct Args {
-  const uint32_t* a;         // A's key words: [w, na] or [na, w]
-  const uint32_t* b;         // B's key words: [w, nb] or [nb, w]
+  const uint32_t* a;         // A's key words: [w, lda] or [na, w]
+  const uint32_t* b;         // B's key words: [w, ldb] or [.., w]
   uint32_t* out;             // [w, n_out] or [n_out, w]
   Cols cols;                 // column-major: the nstaged staged columns
   // device table of the payload columns (A's npay, B's npay, out's npay),
   // filled where some payload is not staged (npay > nstage)
   const uint32_t* const* pay;
-  int64_t na, nb, n_out;
+  // where nb lies in device memory (one bitonic run: the split launch's
+  // word), else null and nb is the length of B
+  const int64_t* nb_dev;
+  int64_t na, nb;
+  int64_t total;             // na + nb, known to the host
+  int64_t n_out;
+  int64_t lda, ldb;          // rows of A's / B's buffer (column stride)
+  int64_t brev;              // kRev: B row j is buffer row brev - j
   int w, npay;
   int nstage;                // payload columns a column-major tile stages
   int nstaged;               // staged columns: key words, then payloads
 };
+
+// B's row j in its buffer: row j, or (kRev: one bitonic run, B its
+// suffix) read backwards from row brev
+template <bool kRev>
+__device__ __forceinline__ int64_t brow(const Args& g, int64_t j) {
+  return kRev ? g.brev - j : j;
+}
 
 // payload column q of out (the fill of the sentinel tail writes it)
 __device__ __forceinline__ uint32_t* pay_out(const Args& g, int q) {
@@ -154,14 +196,14 @@ __device__ __forceinline__ int64_t at(int64_t r, int c, int64_t n, int w) {
 }
 
 // A[i] <= B[j] on key words [c0, w) in device memory (W > 0: w == W)
-template <int W, bool kRow>
+template <int W, bool kRow, bool kRev>
 __device__ __forceinline__ bool rows_le(const Args& g, int c0, int64_t i,
                                         int64_t j) {
   const int w = W > 0 ? W : g.w;
 #pragma unroll
   for (int c = c0; c < (W > 0 ? W : w); ++c) {
-    const uint32_t p = g.a[at<kRow>(i, c, g.na, w)];
-    const uint32_t q = g.b[at<kRow>(j, c, g.nb, w)];
+    const uint32_t p = g.a[at<kRow>(i, c, g.lda, w)];
+    const uint32_t q = g.b[at<kRow>(brow<kRev>(g, j), c, g.ldb, w)];
     if (p != q) return p < q;
   }
   return true;
@@ -191,7 +233,7 @@ template <bool kRow>
 __device__ __forceinline__ uint32_t* fill_segment(const Args& g, int s,
                                                   int64_t m, int64_t& len,
                                                   uint32_t& fill) {
-  const int64_t total = g.na + g.nb;
+  const int64_t total = g.total;
   const int kseg = kRow ? 1 : g.w;
   if (s < kseg) {
     fill = 0xFFFFFFFFu;
@@ -204,18 +246,20 @@ __device__ __forceinline__ uint32_t* fill_segment(const Args& g, int s,
 }
 
 // CTAs [0, part_ctas): parts[t] = the smallest i in [max(0, d - nb),
-// min(d, na)] with A[i] > B[d-1-i], d = min(t * kTile, na + nb); CTAs past
-// them: the sentinel fill of [na + nb, n_out), per segment (a key column,
-// the row-major key block, a payload column) an unaligned head, a 16-byte
-// body and a tail.  W = 0: runtime width.
-template <int W, bool kRow>
+// min(d, na)] with A[i] > B[d-1-i], d = min(t * kTile, na + nb) (kRev:
+// nb from device memory, g.nb_dev, and na = total - nb); CTAs past them
+// (none for kRev, whose output has na + nb rows): the sentinel fill of
+// [na + nb, n_out), per segment (a key column, the row-major key block, a
+// payload column) an unaligned head, a 16-byte body and a tail.  W = 0:
+// runtime width.
+template <int W, bool kRow, bool kRev>
 __global__ void __launch_bounds__(kPartThreads)
 merge_partition_kernel(Args g, int64_t tiles, int64_t part_ctas,
                        int64_t* __restrict__ parts) {
   const int tid = threadIdx.x;
-  if (static_cast<int64_t>(blockIdx.x) >= part_ctas) {
+  if (!kRev && static_cast<int64_t>(blockIdx.x) >= part_ctas) {
     const int64_t f = blockIdx.x - part_ctas;
-    const int64_t m = g.n_out - (g.na + g.nb);
+    const int64_t m = g.n_out - g.total;
     const int nseg = (kRow ? 1 : g.w) + g.npay;
     for (int s = 0; s < nseg; ++s) {
       int64_t len;
@@ -240,13 +284,14 @@ merge_partition_kernel(Args g, int64_t tiles, int64_t part_ctas,
   }
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kPartThreads + tid;
   if (t > tiles) return;
-  const int64_t na = g.na, nb = g.nb;
-  const int64_t d = t * kTile < na + nb ? t * kTile : na + nb;
+  const int64_t nb = kRev ? *g.nb_dev : g.nb;
+  const int64_t na = g.total - nb;
+  const int64_t d = t * kTile < g.total ? t * kTile : g.total;
   int64_t lo = d > nb ? d - nb : 0;
   int64_t hi = d < na ? d : na;
   while (lo < hi) {
     const int64_t mid = (lo + hi) >> 1;
-    if (rows_le<W, kRow>(g, 0, mid, d - 1 - mid)) {
+    if (rows_le<W, kRow, kRev>(g, 0, mid, d - 1 - mid)) {
       lo = mid + 1;
     } else {
       hi = mid;
@@ -261,8 +306,9 @@ merge_partition_kernel(Args g, int64_t tiles, int64_t part_ctas,
 // Column-major tiles also stage g.nstage payload columns.  kGather: some
 // column is not staged (row-major keys, key words past P, payloads past
 // g.nstage) and is gathered by source row; without it the kernel holds no
-// gather code, whose registers would cost occupancy.
-template <int P, bool kTail, bool kRow, bool kGather>
+// gather code, whose registers would cost occupancy.  kRev: B is read
+// backwards (brow).
+template <int P, bool kTail, bool kRow, bool kGather, bool kRev>
 __global__ void __launch_bounds__(kThreads)
 merge_tiles_kernel(Args g, const int64_t* __restrict__ parts) {
   static_assert(kGather || !(kTail || kRow), "those tiles gather");
@@ -272,7 +318,7 @@ merge_tiles_kernel(Args g, const int64_t* __restrict__ parts) {
   int* srcs = reinterpret_cast<int*>(smem + nstaged * kCol);
   const int tid = threadIdx.x;
   const int w = kTail ? g.w : P;
-  const int64_t total = g.na + g.nb;
+  const int64_t total = g.total;
   const int64_t t = blockIdx.x;
   const int64_t d0 = t * kTile;
   const int cnt = static_cast<int>((d0 + kTile < total ? d0 + kTile : total) - d0);
@@ -284,14 +330,17 @@ merge_tiles_kernel(Args g, const int64_t* __restrict__ parts) {
   // stage key words [0, P) (and, column-major, payloads [0, g.nstage)):
   // A rows at [0, ta), B rows at [ta, cnt), one padded column each
   if constexpr (!kRow) {
+    constexpr int bstep = kRev ? -1 : 1;
     for (int c = 0; c < nstaged; ++c) {
       const uint32_t* a = g.cols.a[c] + a0;
-      const uint32_t* b = g.cols.b[c] + b0;
+      const uint32_t* b = g.cols.b[c] + brow<kRev>(g, b0);
       uint32_t* s = smem + c * kCol;
 #pragma unroll
       for (int k = 0; k < kItems; ++k) {
         const int p = k * kThreads + tid;
-        if (p < cnt) cp_async4(s + pad(p), p < ta ? a + p : b + (p - ta));
+        if (p < cnt) {
+          cp_async4(s + pad(p), p < ta ? a + p : b + bstep * (p - ta));
+        }
       }
     }
   } else {
@@ -305,7 +354,7 @@ merge_tiles_kernel(Args g, const int64_t* __restrict__ parts) {
         const int c = e - p * P;
         cp_async4(smem + c * kCol + pad(p),
                   p < ta ? g.a + (a0 + p) * w + c
-                         : g.b + (b0 + p - ta) * w + c);
+                         : g.b + brow<kRev>(g, b0 + p - ta) * w + c);
       }
     }
   }
@@ -314,7 +363,7 @@ merge_tiles_kernel(Args g, const int64_t* __restrict__ parts) {
 
   // A row i of the tile <= B row j, on the words past the staged ones
   auto tail_le = [&](int i, int j) {
-    return rows_le<0, kRow>(g, P, a0 + i, b0 + j);
+    return rows_le<0, kRow, kRev>(g, P, a0 + i, b0 + j);
   };
 
   // this thread's split inside the tile, then its kItems outputs
@@ -426,7 +475,7 @@ merge_tiles_kernel(Args g, const int64_t* __restrict__ parts) {
         const int s = srcs[pad(p)];
         o[e] = c < P ? smem[c * kCol + pad(s)]
                      : s < ta ? g.a[(a0 + s) * w + c]
-                              : g.b[(b0 + s - ta) * w + c];
+                              : g.b[brow<kRev>(g, b0 + s - ta) * w + c];
       }
     }
   }
@@ -446,16 +495,17 @@ merge_tiles_kernel(Args g, const int64_t* __restrict__ parts) {
       for (int c = 0; c < nc; ++c) {
         const int i = c0 + c;
         const uint32_t* a =
-            i < nkeys ? g.a + (P + i) * g.na : g.pay[q0 + i - nkeys];
+            i < nkeys ? g.a + (P + i) * g.lda : g.pay[q0 + i - nkeys];
         const uint32_t* b =
-            i < nkeys ? g.b + (P + i) * g.nb : g.pay[g.npay + q0 + i - nkeys];
+            i < nkeys ? g.b + (P + i) * g.ldb : g.pay[g.npay + q0 + i - nkeys];
 #pragma unroll
         for (int k = 0; k < kItems; ++k) {
           const int p = k * kThreads + tid;
           if (p < cnt) {
             const int s = srcs[pad(p)];
             cp_async4(buf + c * kTile + p,
-                      s < ta ? a + a0 + s : b + b0 + (s - ta));
+                      s < ta ? a + a0 + s
+                             : b + brow<kRev>(g, b0 + s - ta));
           }
         }
       }
@@ -476,11 +526,52 @@ merge_tiles_kernel(Args g, const int64_t* __restrict__ parts) {
   }
 }
 
-int64_t merge_tiles_of(int64_t na, int64_t nb) {
-  return (na + nb + kTile - 1) / kTile;
+// *nb = the largest n - i over rows i in [1, n) smaller than row i - 1:
+// the length of the suffix from the first descent, 0 where there is none
+// (*nb is 0 before).  A thread leaves at its first descent (its later rows
+// give smaller n - i); a block's maximum goes out in one atomicMax.
+template <int W, bool kRow>
+__global__ void __launch_bounds__(kSplitThreads)
+bitonic_split_kernel(const uint32_t* __restrict__ keys, int64_t n, int w_rt,
+                     unsigned long long* __restrict__ nb) {
+  const int w = W > 0 ? W : w_rt;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kSplitThreads;
+  unsigned long long best = 0;
+  for (int64_t i = 1 + static_cast<int64_t>(blockIdx.x) * kSplitThreads +
+                   threadIdx.x;
+       i < n; i += stride) {
+    uint32_t x = keys[at<kRow>(i, 0, n, w)];
+    uint32_t y = keys[at<kRow>(i - 1, 0, n, w)];
+    for (int c = 1; c < w && x == y; ++c) {
+      x = keys[at<kRow>(i, c, n, w)];
+      y = keys[at<kRow>(i - 1, c, n, w)];
+    }
+    if (x < y) {
+      best = static_cast<unsigned long long>(n - i);
+      break;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned long long v = __shfl_xor_sync(0xFFFFFFFFu, best, o);
+    best = v > best ? v : best;
+  }
+  __shared__ unsigned long long warp_best[kSplitThreads / 32];
+  if ((threadIdx.x & 31) == 0) warp_best[threadIdx.x >> 5] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int k = 1; k < kSplitThreads / 32; ++k) {
+      best = warp_best[k] > best ? warp_best[k] : best;
+    }
+    if (best) atomicMax(nb, best);
+  }
 }
 
-template <int P, bool kTail, bool kRow, bool kGather>
+int64_t merge_tiles_of(int64_t total) {
+  return (total + kTile - 1) / kTile;
+}
+
+template <int P, bool kTail, bool kRow, bool kGather, bool kRev>
 int launch_tiles(const Args& g, int64_t tiles, int64_t* parts,
                  cudaStream_t s) {
   // the staged columns and, where columns are gathered, the source rows
@@ -491,53 +582,112 @@ int launch_tiles(const Args& g, int64_t tiles, int64_t* parts,
                    static_cast<int>(sizeof(uint32_t));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        merge_tiles_kernel<P, kTail, kRow, kGather>,
+        merge_tiles_kernel<P, kTail, kRow, kGather, kRev>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  merge_tiles_kernel<P, kTail, kRow, kGather>
+  merge_tiles_kernel<P, kTail, kRow, kGather, kRev>
       <<<static_cast<unsigned>(tiles), kThreads, smem, s>>>(g, parts);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int P, bool kTail, bool kRow>
+template <int P, bool kTail, bool kRow, bool kRev>
 int launch(const Args& g, int64_t* parts, cudaStream_t s) {
-  const int64_t tiles = merge_tiles_of(g.na, g.nb);
-  const int64_t m = g.n_out - (g.na + g.nb);
+  if constexpr (kRev) {
+    // one bitonic run: nb from the split launch (A and B are one buffer)
+    cudaError_t err = cudaMemsetAsync(const_cast<int64_t*>(g.nb_dev), 0,
+                                      sizeof(int64_t), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int64_t rows = g.total - 1;
+    const int64_t ctas = (rows + kSplitThreads - 1) / kSplitThreads;
+    if (ctas > 0) {
+      bitonic_split_kernel<kTail ? 0 : P, kRow>
+          <<<static_cast<unsigned>(ctas < kSplitCtas ? ctas : kSplitCtas),
+             kSplitThreads, 0, s>>>(
+              g.a, g.total, g.w,
+              reinterpret_cast<unsigned long long*>(
+                  const_cast<int64_t*>(g.nb_dev)));
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  const int64_t tiles = merge_tiles_of(g.total);
+  const int64_t m = g.n_out - g.total;
   const int64_t longest = kRow ? m * g.w : m;      // longest fill segment
   const int64_t part_ctas =
       tiles > 0 ? (tiles + 1 + kPartThreads - 1) / kPartThreads : 0;
   const int64_t fill_ctas = (longest + 4 * kFillVecs - 1) / (4 * kFillVecs);
-  merge_partition_kernel<kTail ? 0 : P, kRow>
+  merge_partition_kernel<kTail ? 0 : P, kRow, kRev>
       <<<static_cast<unsigned>(part_ctas + fill_ctas), kPartThreads, 0, s>>>(
           g, tiles, part_ctas, parts);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || tiles == 0) return static_cast<int>(err);
   if constexpr (kTail || kRow) {
-    return launch_tiles<P, kTail, kRow, true>(g, tiles, parts, s);
+    return launch_tiles<P, kTail, kRow, true, kRev>(g, tiles, parts, s);
   } else {
     return g.npay > g.nstage
-               ? launch_tiles<P, kTail, kRow, true>(g, tiles, parts, s)
-               : launch_tiles<P, kTail, kRow, false>(g, tiles, parts, s);
+               ? launch_tiles<P, kTail, kRow, true, kRev>(g, tiles, parts, s)
+               : launch_tiles<P, kTail, kRow, false, kRev>(g, tiles, parts,
+                                                           s);
   }
 }
 
-template <bool kRow>
+template <bool kRow, bool kRev>
 int launch_width(const Args& g, int64_t* parts, cudaStream_t s) {
   static_assert(kMaxWidth == 9 && kStaged <= kMaxWidth, "cases below");
   static_assert(kMaxStagedCols >= kMaxWidth, "every key word staged");
   switch (g.w) {
-    case 1: return launch<1, false, kRow>(g, parts, s);
-    case 2: return launch<2, false, kRow>(g, parts, s);
-    case 3: return launch<3, false, kRow>(g, parts, s);
-    case 4: return launch<4, false, kRow>(g, parts, s);
-    case 5: return launch<5, false, kRow>(g, parts, s);
-    case 6: return launch<6, false, kRow>(g, parts, s);
-    case 7: return launch<7, false, kRow>(g, parts, s);
-    case 8: return launch<8, false, kRow>(g, parts, s);
-    case 9: return launch<9, false, kRow>(g, parts, s);
-    default: return launch<kStaged, true, kRow>(g, parts, s);
+    case 1: return launch<1, false, kRow, kRev>(g, parts, s);
+    case 2: return launch<2, false, kRow, kRev>(g, parts, s);
+    case 3: return launch<3, false, kRow, kRev>(g, parts, s);
+    case 4: return launch<4, false, kRow, kRev>(g, parts, s);
+    case 5: return launch<5, false, kRow, kRev>(g, parts, s);
+    case 6: return launch<6, false, kRow, kRev>(g, parts, s);
+    case 7: return launch<7, false, kRow, kRev>(g, parts, s);
+    case 8: return launch<8, false, kRow, kRev>(g, parts, s);
+    case 9: return launch<9, false, kRow, kRev>(g, parts, s);
+    default: return launch<kStaged, true, kRow, kRev>(g, parts, s);
   }
+}
+
+// the staged columns (column-major) and the device payload table of g,
+// whose runs, lengths and strides are set, then the launches; pays: host
+// table of 3 * npay column pointers (A's, B's, out's), table: room for it
+// in the scratch
+int run(Args& g, int row_major, const void* const* pays, int64_t* parts,
+        int64_t* table, cudaStream_t s) {
+  // column-major: the staged key words (all of them up to kMaxWidth, else
+  // kStaged), then as many payloads as fit kMaxStagedCols
+  const int w = g.w, npay = g.npay;
+  const int p = w <= kMaxWidth ? w : kStaged;
+  g.nstage = row_major ? 0 : (npay < kMaxStagedCols - p ? npay
+                                                        : kMaxStagedCols - p);
+  g.nstaged = row_major ? 0 : p + g.nstage;
+  for (int c = 0; c < g.nstaged; ++c) {
+    const int q = c - p;                 // the payload, past the key words
+    g.cols.a[c] = c < p ? g.a + c * g.lda
+                        : static_cast<const uint32_t*>(pays[q]);
+    g.cols.b[c] = c < p ? g.b + c * g.ldb
+                        : static_cast<const uint32_t*>(pays[npay + q]);
+    g.cols.out[c] = c < p ? g.out + c * g.n_out
+                          : static_cast<uint32_t*>(
+                                const_cast<void*>(pays[2 * npay + q]));
+  }
+  if (npay > g.nstage) {
+    // pageable host-to-device: CUDA stages the copy, so `pays` may go
+    // once this returns; ordered before the launches on the stream
+    const cudaError_t err = cudaMemcpyAsync(
+        table, pays, 3 * static_cast<size_t>(npay) * sizeof(void*),
+        cudaMemcpyHostToDevice, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  g.pay = reinterpret_cast<const uint32_t* const*>(table);
+  if (g.nb_dev) {
+    return row_major ? launch_width<true, true>(g, parts, s)
+                     : launch_width<false, true>(g, parts, s);
+  }
+  return row_major ? launch_width<true, false>(g, parts, s)
+                   : launch_width<false, false>(g, parts, s);
 }
 
 }  // namespace
@@ -545,7 +695,7 @@ int launch_width(const Args& g, int64_t* parts, cudaStream_t s) {
 // partition scratch size in int64 entries: one per tile boundary (the
 // scratch a call takes is this plus 3 * npay, room for the payload table)
 extern "C" int64_t kmerind_merge_runs_parts(int64_t na, int64_t nb) {
-  return merge_tiles_of(na, nb) + 1;
+  return merge_tiles_of(na + nb) + 1;
 }
 
 // a_keys [w, na] / b_keys [w, nb] / out_keys [w, n_out] column-major (one
@@ -561,42 +711,55 @@ extern "C" int kmerind_merge_runs(const uint32_t* a_keys, int64_t na,
       n_out <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   Args g = {};
   g.a = a_keys;
   g.b = b_keys;
   g.out = out_keys;
   g.na = na;
   g.nb = nb;
+  g.total = na + nb;
   g.n_out = n_out;
+  g.lda = na;
+  g.ldb = nb;
   g.w = w;
   g.npay = npay;
-  // column-major: the staged key words (all of them up to kMaxWidth, else
-  // kStaged), then as many payloads as fit kMaxStagedCols
-  const int p = w <= kMaxWidth ? w : kStaged;
-  g.nstage = row_major ? 0 : (npay < kMaxStagedCols - p ? npay
-                                                        : kMaxStagedCols - p);
-  g.nstaged = row_major ? 0 : p + g.nstage;
-  for (int c = 0; c < g.nstaged; ++c) {
-    const int q = c - p;                 // the payload, past the key words
-    g.cols.a[c] = c < p ? a_keys + c * na
-                        : static_cast<const uint32_t*>(pays[q]);
-    g.cols.b[c] = c < p ? b_keys + c * nb
-                        : static_cast<const uint32_t*>(pays[npay + q]);
-    g.cols.out[c] = c < p ? out_keys + c * n_out
-                          : static_cast<uint32_t*>(
-                                const_cast<void*>(pays[2 * npay + q]));
+  return run(g, row_major, pays, scratch,
+             scratch + kmerind_merge_runs_parts(na, nb),
+             static_cast<cudaStream_t>(stream));
+}
+
+// scratch of kmerind_bitonic_merge in int64 entries: the tile boundaries,
+// the split word, room for the payload table
+extern "C" int64_t kmerind_bitonic_merge_scratch(int64_t n, int npay) {
+  return merge_tiles_of(n) + 2 + 3 * static_cast<int64_t>(npay);
+}
+
+// one bitonic run (ascending rows, then descending) of n >= 1 rows sorted
+// into out_keys: keys / out_keys [w, n] column-major, or with row_major [n,
+// w]; pays: host table of 3 * npay int32 column pointers (the inputs, the
+// inputs again — B is read from A's buffer —, the outputs); scratch:
+// kmerind_bitonic_merge_scratch(n, npay) int64.  Ties take the prefix
+// first.
+extern "C" int kmerind_bitonic_merge(const uint32_t* keys, int64_t n, int w,
+                                     int row_major, const void* const* pays,
+                                     int npay, uint32_t* out_keys,
+                                     int64_t* scratch, void* stream) {
+  if (w < 1 || npay < 0 || n < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  int64_t* table = scratch + kmerind_merge_runs_parts(na, nb);
-  if (npay > g.nstage) {
-    // pageable host-to-device: CUDA stages the copy, so `pays` may go
-    // once this returns; ordered before the launches on the stream
-    const cudaError_t err = cudaMemcpyAsync(
-        table, pays, 3 * static_cast<size_t>(npay) * sizeof(void*),
-        cudaMemcpyHostToDevice, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  g.pay = reinterpret_cast<const uint32_t* const*>(table);
-  return row_major ? launch_width<true>(g, scratch, s)
-                   : launch_width<false>(g, scratch, s);
+  const int64_t tiles = merge_tiles_of(n);
+  Args g = {};
+  g.a = keys;
+  g.b = keys;
+  g.out = out_keys;
+  g.nb_dev = scratch + tiles + 1;
+  g.total = n;
+  g.n_out = n;
+  g.lda = n;
+  g.ldb = n;
+  g.brev = n - 1;
+  g.w = w;
+  g.npay = npay;
+  return run(g, row_major, pays, scratch, scratch + tiles + 2,
+             static_cast<cudaStream_t>(stream));
 }

@@ -10,6 +10,10 @@ The kernels replace the Pallas kernels of
   `merge_runs_cols_plain`;
 * K2′ `merge_sorted_runs` — the same source with row-major keys, plain
   version `merge_sorted_runs_plain`;
+* the one-run bitonic merges `bitonic_merge_rows` / `bitonic_merge_cols`
+  — the same source, one bitonic run read in place, plain versions
+  `bitonic_merge_rows_plain` / `bitonic_merge_cols_plain` (the JAX
+  package's half-cleaner network);
 * K3 `prefix_sum_i32` (``csrc/prefix_sum.cu``) — plain version
   `prefix_sum_i32_plain`;
 * K4 `run_length_weights` (``csrc/run_length_weights.cu``) — plain version
@@ -53,6 +57,8 @@ __all__ = ["LAUNCHES", "K1_LAUNCHES", "K2_PAYLOAD_LAUNCHES", "KERNELS",
            "extract_canonical", "k1_kernel",
            "merge_runs_cols", "merge_runs_cols_plain",
            "merge_sorted_runs", "merge_sorted_runs_plain",
+           "bitonic_merge_rows", "bitonic_merge_rows_plain",
+           "bitonic_merge_cols", "bitonic_merge_cols_plain",
            "prefix_sum_i32", "prefix_sum_i32_plain",
            "run_length_weights", "run_length_weights_plain"]
 
@@ -75,6 +81,12 @@ KERNELS = {
     "merge_sorted_runs": (
         "kmerind_tpu_torch/ops/csrc/merge_runs.cu",
         "kmerind_tpu/ops/pallas_kernels.py:832"),
+    "bitonic_merge_rows": (
+        "kmerind_tpu_torch/ops/csrc/merge_runs.cu",
+        "kmerind_tpu/ops/pallas_kernels.py:832"),
+    "bitonic_merge_cols": (
+        "kmerind_tpu_torch/ops/csrc/merge_runs.cu",
+        "kmerind_tpu/ops/pallas_kernels.py:848"),
     "prefix_sum_i32": (
         "kmerind_tpu_torch/ops/csrc/prefix_sum.cu",
         "kmerind_tpu/ops/pallas_kernels.py:1090"),
@@ -139,6 +151,10 @@ def _bind(lib):
         _vp, _i64, _vp, _i64, _int, _int, _vp, _int, _vp, _i64, _vp, _vp]
     lib.kmerind_merge_runs_parts.argtypes = [_i64, _i64]
     lib.kmerind_merge_runs_parts.restype = _i64
+    lib.kmerind_bitonic_merge.argtypes = [
+        _vp, _i64, _int, _int, _vp, _int, _vp, _vp, _vp]
+    lib.kmerind_bitonic_merge_scratch.argtypes = [_i64, _int]
+    lib.kmerind_bitonic_merge_scratch.restype = _i64
     lib.kmerind_prefix_sum_scratch_words.argtypes = [_i64]
     lib.kmerind_prefix_sum_scratch_words.restype = _i64
     lib.kmerind_prefix_sum_i32.argtypes = [_vp, _vp, _i64, _vp, _vp]
@@ -147,7 +163,7 @@ def _bind(lib):
     lib.kmerind_run_length_weights.argtypes = [
         _vp, _int, _i64, _vp, _vp, _vp, _vp]
     for fn in (lib.kmerind_extract_canonical, lib.kmerind_merge_runs,
-               lib.kmerind_prefix_sum_i32,
+               lib.kmerind_bitonic_merge, lib.kmerind_prefix_sum_i32,
                lib.kmerind_run_length_weights):
         fn.restype = _int
     return lib
@@ -367,6 +383,109 @@ def merge_sorted_runs(a_keys, a_payloads, b_keys, b_payloads):
                                        b_payloads)
     return _merge("merge_sorted_runs", a_keys, tuple(a_payloads), b_keys,
                   tuple(b_payloads), row_major=True)
+
+
+# ------------------------------------------------- one bitonic run
+def _lex_cmp(a_cols, b_cols):
+    """(a < b, a > b) row-wise over aligned int32-held uint32 word columns,
+    word 0 most significant."""
+    less = torch.zeros(a_cols[0].shape, dtype=torch.bool,
+                       device=a_cols[0].device)
+    gt = torch.zeros_like(less)
+    for a, b in zip(reversed(a_cols), reversed(b_cols)):
+        a, b = biased(a), biased(b)
+        less = torch.where(a != b, a < b, less)
+        gt = torch.where(a != b, a > b, gt)
+    return less, gt
+
+
+def _half_cleaners(cols: list, w: int) -> list:
+    """The JAX package's bitonic network over aligned [n] columns (the
+    first w the key words, the rest payloads), n a power of two: log2(n)
+    half-cleaner stages; at distance d row i meets row i ^ d, the lower
+    row keeps the smaller key, ties keep their own rows."""
+    n = cols[0].shape[0]
+    idx = torch.arange(n, device=cols[0].device)
+    d = n >> 1
+    while d:
+        is_lo = (idx & d) == 0
+        partner = [torch.where(is_lo, torch.roll(c, -d), torch.roll(c, d))
+                   for c in cols]
+        less, gt = _lex_cmp(cols[:w], partner[:w])
+        take = torch.where(is_lo, gt, less)
+        cols = [torch.where(take, p, c) for c, p in zip(cols, partner)]
+        d >>= 1
+    return cols
+
+
+def bitonic_merge_rows_plain(keys: torch.Tensor, payloads=()):
+    """Plain `bitonic_merge_rows`: the half-cleaner network (any payload
+    dtype)."""
+    w = keys.shape[1]
+    cols = _half_cleaners([keys[:, j] for j in range(w)] + list(payloads), w)
+    return torch.stack(cols[:w], dim=1), tuple(cols[w:])
+
+
+def bitonic_merge_cols_plain(kcols: torch.Tensor, payloads=()):
+    """Plain `bitonic_merge_cols`: the half-cleaner network (any payload
+    dtype)."""
+    w = kcols.shape[0]
+    cols = _half_cleaners(list(kcols) + list(payloads), w)
+    return torch.stack(cols[:w]), tuple(cols[w:])
+
+
+def bitonic_merge_rows(keys: torch.Tensor, payloads=()):
+    """Sort one bitonic run of ROW-major keys int32[n, w] (ascending rows,
+    then descending; uint32 words compared as unsigned, any w >= 1; n a
+    power of two) carrying int32[n] payloads (any number).  On the card:
+    a split launch finds the first descent, then K2's merge takes the
+    prefix as A and reads the suffix backwards as B, in place — no host
+    read, no copies; ties take the prefix first.  Returns (keys int32[n,
+    w], payloads) of exactly n rows."""
+    if keys.device.type == "cpu":
+        return bitonic_merge_rows_plain(keys, tuple(payloads))
+    return _bitonic("bitonic_merge_rows", keys, tuple(payloads),
+                    row_major=True)
+
+
+def bitonic_merge_cols(kcols: torch.Tensor, payloads=()):
+    """`bitonic_merge_rows` over COLUMN-major keys int32[w, n]."""
+    if kcols.device.type == "cpu":
+        return bitonic_merge_cols_plain(kcols, tuple(payloads))
+    return _bitonic("bitonic_merge_cols", kcols, tuple(payloads),
+                    row_major=False)
+
+
+def _bitonic(name, keys, payloads, row_major):
+    """Check and launch the one-run merge (memset, split, partition and
+    tile launches; scratch from `torch.empty`); counts one launch under
+    `name`.  An empty run launches nothing."""
+    dev = keys.device
+    _check_cuda(f"{name} keys", keys, torch.int32, 2, dev)
+    n, w = keys.shape if row_major else keys.shape[::-1]
+    if w < 1:
+        raise ValueError(f"{name}: a run of {w} key words")
+    if n & (n - 1):
+        raise ValueError(f"{name} needs power-of-two length, got {n}")
+    for p in payloads:
+        _check_cuda(f"{name} payload", p, torch.int32, 1, dev)
+        if p.shape[0] != n:
+            raise ValueError(f"{name}: payload length != run length")
+    out_keys = torch.empty_like(keys)
+    out_pays = tuple(torch.empty_like(p) for p in payloads)
+    if n == 0:
+        return out_keys, out_pays
+    npay = len(payloads)
+    table = (ctypes.c_void_p * (3 * npay))(
+        *(p.data_ptr() for p in (*payloads, *payloads, *out_pays)))
+    lib = _cuda_lib()
+    scratch = torch.empty(lib.kmerind_bitonic_merge_scratch(n, npay),
+                          dtype=torch.int64, device=dev)
+    rc = lib.kmerind_bitonic_merge(
+        keys.data_ptr(), n, w, int(row_major), ctypes.cast(table, _vp),
+        npay, out_keys.data_ptr(), scratch.data_ptr(), _stream(dev))
+    _launched(name, rc)
+    return out_keys, out_pays
 
 
 # ---------------------------------------------------------------- K3

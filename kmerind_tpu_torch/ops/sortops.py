@@ -11,11 +11,12 @@ with boolean masks: same results, and torch's cummax is a slow
 single-block scan on CUDA.
 
 The two bitonic merges are the JAX package's half-cleaner network on a CPU
-tensor (`bitonic_merge_plain`, `bitonic_merge_cols_plain`) and, on a CUDA
-tensor, one merge of the ascending prefix with the flipped descending
-suffix: K2′ (row-major) and K2 (column-major).  The sort-merge joins
-(`lookup_join*`) give the same answers as the bucket-seeded searches the
-port's indexes call; no index routes through them.
+tensor (``kernels.bitonic_merge_rows_plain`` / ``_cols_plain``) and, on a
+CUDA tensor, the one-run kernels (``kernels.bitonic_merge_rows`` /
+``bitonic_merge_cols``): the prefix merged with the suffix read backwards,
+in place.  The sort-merge joins (`lookup_join*`) give the same answers as
+the bucket-seeded searches the port's indexes call; no index routes
+through them.
 """
 
 from __future__ import annotations
@@ -245,127 +246,69 @@ def merge_sorted_runs_cols(a_kcols: torch.Tensor, a_payloads,
                                    b_kcols, tuple(b_payloads))
 
 
-def _lex_cmp(a_cols, b_cols):
-    """(a < b, a > b) row-wise over aligned int32-held uint32 word columns,
-    word 0 most significant."""
-    less = torch.zeros(a_cols[0].shape, dtype=torch.bool,
-                       device=a_cols[0].device)
-    gt = torch.zeros_like(less)
-    for a, b in zip(reversed(a_cols), reversed(b_cols)):
-        a, b = biased(a), biased(b)
-        less = torch.where(a != b, a < b, less)
-        gt = torch.where(a != b, a > b, gt)
-    return less, gt
+#: payload element size -> the integer dtype a payload travels through the
+#: kernels as (widened to int32 from these bits, narrowed back after)
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
 
 
-def _half_cleaners(cols: list, w: int) -> list:
-    """The JAX package's bitonic network over aligned [n] columns (the
-    first w the key words, the rest payloads), n a power of two: log2(n)
-    half-cleaner stages; at distance d row i meets row i ^ d, the lower
-    row keeps the smaller key, ties keep their own rows."""
-    n = cols[0].shape[0]
-    idx = torch.arange(n, device=cols[0].device)
-    d = n >> 1
-    while d:
-        is_lo = (idx & d) == 0
-        partner = [torch.where(is_lo, torch.roll(c, -d), torch.roll(c, d))
-                   for c in cols]
-        less, gt = _lex_cmp(cols[:w], partner[:w])
-        take = torch.where(is_lo, gt, less)
-        cols = [torch.where(take, p, c) for c, p in zip(cols, partner)]
-        d >>= 1
-    return cols
-
-
-def bitonic_merge_plain(keys: torch.Tensor, payloads=()):
-    """Plain `bitonic_merge`: the half-cleaner network on any device."""
-    n, w = keys.shape
-    cols = _half_cleaners([keys[:, j] for j in range(w)] + list(payloads), w)
-    return torch.stack(cols[:w], dim=1), tuple(cols[w:])
-
-
-def bitonic_merge_cols_plain(kcols: torch.Tensor, payloads=()):
-    """Plain `bitonic_merge_cols`: the half-cleaner network on any
-    device."""
-    w = kcols.shape[0]
-    cols = _half_cleaners(list(kcols) + list(payloads), w)
-    return torch.stack(cols[:w]), tuple(cols[w:])
-
-
-def _bitonic_split(key_cols) -> int:
-    """The first row smaller than its predecessor (the start of the
-    descending suffix; n when there is none): one reduction on the device
-    and one host read."""
-    n = key_cols[0].shape[0]
-    less, _ = _lex_cmp([c[1:] for c in key_cols], [c[:-1] for c in key_cols])
-    idx = torch.arange(1, n, device=key_cols[0].device)
-    return int(torch.where(less, idx, n).min()) if n > 1 else n
-
-
-def _as_i32(payloads):
-    """Payload columns as int32 (a float32 column travels as its bits);
-    K2 carries 32-bit payloads only."""
+def _as_i32(payloads) -> list:
+    """Payload columns as the kernels' int32 columns: a 32-bit payload as
+    its bits, an 8- or 16-bit one (uint8, int8, bool, int16, float16,
+    bfloat16) widened from its bits; `_from_i32` narrows them back.  The
+    JAX package runs without x64, so a 64-bit payload raises."""
     out = []
     for p in payloads:
-        if p.dtype not in (torch.int32, torch.float32):
-            raise TypeError("bitonic_merge: int32 or float32 payloads only, "
-                            f"got {p.dtype}")
-        out.append(p.contiguous().view(torch.int32))
+        bits = _BITS.get(p.element_size())
+        if bits is None:
+            raise TypeError("bitonic_merge: payloads of 8, 16 or 32 bits "
+                            f"only, got {p.dtype}")
+        q = p.view(bits)
+        out.append(q.contiguous() if bits is torch.int32
+                   else q.to(torch.int32))
     return out
 
 
+def _from_i32(cols, payloads) -> tuple:
+    """The kernels' int32 columns back in each payload's own dtype."""
+    return tuple(
+        c.view(p.dtype) if p.element_size() == 4
+        else c.to(_BITS[p.element_size()]).view(p.dtype)
+        for c, p in zip(cols, payloads))
+
+
 def _merge_bitonic(keys: torch.Tensor, payloads, row_major: bool):
-    """A bitonic run sorted by one merge of its ascending prefix with its
-    reversed descending suffix: K2′ over row-major keys [n, w], K2 over
-    column-major keys [w, n] (their plain versions on a CPU tensor).
-    The output has exactly n rows (na + nb = n, a power of two)."""
-    cols = [keys[:, j] for j in range(keys.shape[1])] if row_major \
-        else list(keys)
-    n = cols[0].shape[0]
-    split = _bitonic_split(cols)
-    if split == n:
-        return keys.clone(), tuple(p.clone() for p in payloads)
-    pays = _as_i32(payloads)
-    a_pays = tuple(p[:split] for p in pays)
-    b_pays = tuple(p[split:].flip(0) for p in pays)
-    if row_major:
-        out, m = kernels.merge_sorted_runs(
-            keys[:split].contiguous(), a_pays,
-            keys[split:].flip(0).contiguous(), b_pays)
-    else:
-        out, m = kernels.merge_runs_cols(
-            keys[:, :split].contiguous(), a_pays,
-            keys[:, split:].flip(1).contiguous(), b_pays)
-    return out, tuple(x.view(p.dtype) for x, p in zip(m, payloads))
+    """One bitonic run of row-major keys [n, w]
+    (``kernels.bitonic_merge_rows``) or column-major [w, n]
+    (``kernels.bitonic_merge_cols``), payloads through `_as_i32` /
+    `_from_i32`; n a power of two."""
+    n = keys.shape[0 if row_major else 1]
+    if n & (n - 1):
+        raise ValueError("bitonic_merge needs power-of-two length")
+    merge = (kernels.bitonic_merge_rows if row_major
+             else kernels.bitonic_merge_cols)
+    out, cols = merge(keys.contiguous(), _as_i32(payloads))
+    return out, _from_i32(cols, payloads)
 
 
 def bitonic_merge(keys: torch.Tensor, payloads=()):
     """Sort a bitonic run of rows — an ascending prefix followed by a
     descending suffix — of keys [n, w] (n a power of two) with aligned [n]
-    payloads.  Not stable: equal keys leave in no set order.
+    payloads of 8, 16 or 32 bits.  Not stable: equal keys leave in no set
+    order.
 
-    On a CPU tensor: the JAX package's half-cleaner network
-    (`bitonic_merge_plain`).  On a CUDA tensor: the split found on the
-    device, then the K2′ kernel (``kernels.merge_sorted_runs``) merges the
-    prefix with the reversed suffix; payloads are int32 or float32 there.
+    ``kernels.bitonic_merge_rows``: on a CPU tensor the JAX package's
+    half-cleaner network; on a CUDA tensor the one-run kernel, which finds
+    the split on the device and merges the prefix with the suffix read
+    backwards.
 
     Returns (sorted_keys [n, w], payloads_tuple)."""
-    if keys.shape[0] & (keys.shape[0] - 1):
-        raise ValueError("bitonic_merge needs power-of-two length")
-    if keys.device.type == "cpu":
-        return bitonic_merge_plain(keys, payloads)
     return _merge_bitonic(keys, payloads, row_major=True)
 
 
 def bitonic_merge_cols(kcols: torch.Tensor, payloads=()):
     """`bitonic_merge` over column-major keys [w, n] (word 0 most
-    significant): on a CUDA tensor the K2 kernel
-    (``kernels.merge_runs_cols``) merges the prefix with the reversed
-    suffix.  Returns ([w, n], payloads_tuple)."""
-    if kcols.shape[1] & (kcols.shape[1] - 1):
-        raise ValueError("bitonic_merge needs power-of-two length")
-    if kcols.device.type == "cpu":
-        return bitonic_merge_cols_plain(kcols, payloads)
+    significant): on a CUDA tensor ``kernels.bitonic_merge_cols``.
+    Returns ([w, n], payloads_tuple)."""
     return _merge_bitonic(kcols, payloads, row_major=False)
 
 

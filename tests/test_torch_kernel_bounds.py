@@ -45,6 +45,11 @@ CHUNK = chip_smoke.CHUNK
                                npay=1), 603_980_256),
     ("merge_sorted_runs", dict(na=CHUNK, nb=CHUNK, n_out=1 << 25, w=8,
                                npay=1), 1_811_940_768),
+    # the one-run bitonic merges: a [2^24, 2] run + 1 payload, n rows in
+    # and n out (402,653,184 bytes, 0.1202 ms), either layout
+    ("bitonic_merge_rows", dict(n=1 << 24, w=2, npay=1), 402_653_184),
+    ("bitonic_merge_cols", dict(n=1 << 24, w=2, npay=1), 402_653_184),
+    ("bitonic_merge_cols", dict(n=2, w=9, npay=3), 2 * 2 * 48),
     # K1's wide kernel, k=127 DNA: 8 words a window
     ("extract_canonical", dict(n=CHUNK, nwords=8), 285_213_352),
     # K2 with an empty run: the sentinel rows are still written
@@ -73,6 +78,9 @@ def test_bound_ms_is_bytes_over_the_hbm_rate():
                                                                abs=5e-5)
     assert chip_smoke.bound_ms(2_483_027_968) == pytest.approx(0.7412,
                                                                abs=5e-5)
+    # the one-run bitonic merges' [2^24, 2] + 1 payload case
+    assert chip_smoke.bound_ms(402_653_184) == pytest.approx(0.1202,
+                                                             abs=5e-5)
 
 
 def test_kernel_bytes_covers_every_kernel_and_no_other():

@@ -7,6 +7,9 @@ sizes around both tiles and a thread's segment, n < k, all-palindrome
 input, unaligned views, repeated calls; for the K2 merge ties across every
 tile boundary (and past the staged key words), lopsided, disjoint and
 sentinel runs, totals around the tile size, row-major runs (K2′); for the
+one-run bitonic merges one and two rows, sorted and all-descending runs,
+sentinel plateaus, widths 1-33, 0-13 payloads of every width, no host
+read; for the
 K3 scan sizes around its tile, look-back over many tiles, repeated calls,
 unaligned views; for K4 a run over 10,000 tiles, tv at a tile boundary,
 unaligned views, repeated calls; the de Bruijn graphs' edge-byte payloads
@@ -930,50 +933,159 @@ def test_dryrun_multichip_on_the_card(dev):
     assert 0 < out["size"] <= out["windows"]
 
 
-def _bitonic_rows(rng, n, w, n_asc):
-    """int32[n, w] key rows: n_asc ascending, then descending, with ties."""
-    pool = sorted_key_cols(rng, w, max(n // 4, 1)).T
+def _bitonic_rows(rng, n, w, n_asc, hi_values=4, n_sentinel=0):
+    """int32[n, w] key rows: n_asc ascending, then descending, with ties;
+    the pool's top `n_sentinel` rows all ones (they peak the run)."""
+    pool = sorted_key_cols(rng, w, max(n // 4, 1) + n_sentinel, hi_values,
+                           n_sentinel).T
     asc = pool[np.sort(rng.integers(0, pool.shape[0], n_asc))]
     dsc = pool[np.sort(rng.integers(0, pool.shape[0], n - n_asc))][::-1]
     return words_t(np.concatenate([asc, dsc]))
 
 
-def _by_key_run(keys, pay):
-    """Payloads sorted within each run of equal key rows."""
+def _bits(p):
+    """A payload's bit patterns as int64 (bool, float16, bfloat16 too)."""
+    return p.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        p.element_size()]).to(torch.int64)
+
+
+def _by_key_run(keys, pays):
+    """[n, npay] payload bits, rows sorted within each run of equal keys."""
+    bits = torch.stack([_bits(p) for p in pays], 1) if pays else \
+        torch.zeros((keys.shape[0], 0), dtype=torch.int64)
     cols = [keys[:, j].to(torch.int64) for j in range(keys.shape[1])]
-    order = np.lexsort([pay.numpy()] + [c.numpy() for c in cols[::-1]])
-    return pay[torch.from_numpy(order)]
+    order = np.lexsort([c.numpy() for c in bits.t().flip(0)]
+                       + [c.numpy() for c in cols[::-1]])
+    return bits[torch.from_numpy(order)]
 
 
 @pytest.mark.parametrize("n,w,n_asc", [
     (2, 1, 1), (1024, 2, 1), (1024, 2, 1024), (4096, 3, 1000),
     (1 << 16, 2, 40_000), (1 << 18, 9, 1 << 17), (1 << 12, 33, 3000)])
-@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("dtype", [
+    torch.int32, torch.float32, torch.uint8, torch.int8, torch.bool,
+    torch.int16, torch.float16, torch.bfloat16])
 def test_bitonic_merges_on_card(dev, n, w, n_asc, dtype):
-    """sortops.bitonic_merge (K2′) and bitonic_merge_cols (K2) on the card
-    against the half-cleaner network on the CPU: keys bitwise, payloads
-    per key run (neither is stable); an already sorted run launches
-    nothing."""
+    """sortops.bitonic_merge and bitonic_merge_cols on the card (the
+    one-run kernels) against the half-cleaner network on the CPU: keys
+    bitwise, payloads per key run (neither is stable), the payload's dtype
+    kept (8- and 16-bit ones travel widened to int32); one launch per call,
+    an already sorted run too; the call runs under
+    torch.cuda.set_sync_debug_mode("error"), so it makes no host read."""
     from kmerind_tpu_torch.ops import sortops
     rng = np.random.default_rng(n + w + n_asc)
     keys = _bitonic_rows(rng, n, w, n_asc)
-    pay = torch.from_numpy(rng.integers(-50, 50, n).astype(np.int32))
-    pay = pay.to(dtype)
+    pay = torch.from_numpy(rng.integers(-50, 50, n)).to(dtype)
     want_k, (want_p,) = sortops.bitonic_merge(keys, (pay,))
-    unsorted = int(sortops._bitonic_split(list(keys.t())) < n)
     for fn, src, kname in (
-            (sortops.bitonic_merge, keys, "merge_sorted_runs"),
+            (sortops.bitonic_merge, keys, "bitonic_merge_rows"),
             (sortops.bitonic_merge_cols, keys.t().contiguous(),
-             "merge_runs_cols")):
-        before = kernels.LAUNCHES[kname]
-        got_k, (got_p,) = fn(src.to(dev), (pay.to(dev),))
+             "bitonic_merge_cols")):
+        src, p = src.to(dev), pay.to(dev)
+        torch.cuda.synchronize()
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got_k, (got_p,) = fn(src, (p,))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         got_k = got_k.cpu() if fn is sortops.bitonic_merge else got_k.t().cpu()
-        assert kernels.LAUNCHES[kname] == before + unsorted
+        assert {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                if v != before[k]} == {kname: 1}
         assert got_p.dtype == dtype
         assert torch.equal(got_k, want_k)
-        assert torch.equal(_by_key_run(got_k, got_p.cpu()),
-                           _by_key_run(want_k, want_p))
+        assert torch.equal(_by_key_run(got_k, [got_p.cpu()]),
+                           _by_key_run(want_k, [want_p]))
+
+
+@pytest.mark.parametrize("row_major", [True, False])
+@pytest.mark.parametrize("n,w,n_asc,npay,hi,n_sentinel", [
+    (1, 1, 1, 0, 4, 0), (1, 3, 1, 2, 4, 0), (2, 2, 1, 1, 4, 0),
+    (2, 1, 2, 0, 4, 0), (1024, 2, 1024, 0, 4, 0), (1024, 2, 0, 3, 4, 0),
+    (2048, 1, 1, 2, 2, 0), (4096, 3, 4095, 3, 4, 0),
+    (1 << 14, 9, 5000, 1, 4, 100), (1 << 14, 2, 8191, 13, 8, 0),
+    (1 << 12, 17, 2048, 4, 2, 10), (1 << 13, 10, 3000, 0, 4, 0),
+    (1 << 16, 33, 40_000, 2, 4, 0), (1 << 20, 2, 1 << 19, 1, 1 << 20, 1000),
+    (1 << 20, 1, 12_345, 0, 16, 0), (1 << 17, 4, 1 << 17, 5, 4, 0)])
+def test_bitonic_kernels_on_card(dev, row_major, n, w, n_asc, npay, hi,
+                                 n_sentinel):
+    """The one-run wrappers themselves at edge shapes: one or two rows,
+    already sorted or all descending, ties across every tile boundary
+    (hi: distinct values of word 0), a sentinel plateau at the peak, key
+    widths 1-10 in registers and 17 / 33 past them, 0-13 payloads (13
+    column-major: past the 12 staged columns, gathered), runs of 2^20
+    rows: keys bitwise and payloads per key run against the plain network
+    on the CPU; the input is untouched; one launch per call."""
+    rng = np.random.default_rng(n * 7 + w + npay)
+    keys = _bitonic_rows(rng, n, w, n_asc, hi, n_sentinel)
+    pays = tuple(torch.from_numpy(rng.integers(-2**31, 2**31, n).astype(
+        np.int32)) for _ in range(npay))
+    fn, plain = ((kernels.bitonic_merge_rows, kernels.bitonic_merge_rows_plain)
+                 if row_major else (kernels.bitonic_merge_cols,
+                                    kernels.bitonic_merge_cols_plain))
+    src = keys if row_major else keys.t().contiguous()
+    want_k, want_p = plain(src, pays)
+    name = "bitonic_merge_rows" if row_major else "bitonic_merge_cols"
+    d_src, d_pays = src.to(dev), tuple(p.to(dev) for p in pays)
+    before = kernels.LAUNCHES[name]
+    got_k, got_p = fn(d_src, d_pays)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert got_k.shape == src.shape and got_k.is_contiguous()
+    assert torch.equal(d_src.cpu(), src)
+    assert all(torch.equal(d.cpu(), p) for d, p in zip(d_pays, pays))
+    as_rows = (lambda k: k) if row_major else (lambda k: k.t())
+    assert torch.equal(got_k.cpu(), want_k)
+    assert torch.equal(
+        _by_key_run(as_rows(got_k.cpu()), [p.cpu() for p in got_p]),
+        _by_key_run(as_rows(want_k), list(want_p)))
+
+
+def test_bitonic_kernels_refuse_what_they_do_not_take(dev):
+    """CUDA tensors the one-run wrappers do not take raise: a length that
+    is not a power of two, int64 keys, payloads of another length or
+    dtype, a non-contiguous key tensor."""
+    keys = torch.zeros((8, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="power-of-two"):
+        kernels.bitonic_merge_rows(keys[:6].contiguous())
+    with pytest.raises(TypeError):
+        kernels.bitonic_merge_rows(keys.to(torch.int64))
+    with pytest.raises(ValueError, match="payload length"):
+        kernels.bitonic_merge_cols(keys.t().contiguous(), (
+            torch.zeros(4, dtype=torch.int32, device=dev),))
+    with pytest.raises(TypeError):
+        kernels.bitonic_merge_rows(keys, (
+            torch.zeros(8, dtype=torch.int16, device=dev),))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.bitonic_merge_cols(keys.t())
+
+
+def test_bitonic_merge_enqueues_ahead_of_the_card(dev):
+    """No host read and no synchronising copy: calls enqueued behind a
+    sleeping kernel of ~1 s return while it still runs."""
+    import time
+
+    from kmerind_tpu_torch.ops import sortops
+    rng = np.random.default_rng(3)
+    keys = _bitonic_rows(rng, 1 << 16, 2, 30_000).to(dev)
+    pays = (torch.arange(1 << 16, dtype=torch.int32, device=dev),
+            torch.ones(1 << 16, dtype=torch.float16, device=dev))
+    for _ in range(2):                 # warm: the library, the allocator
+        sortops.bitonic_merge(keys, pays)
+        sortops.bitonic_merge_cols(keys.t().contiguous(), pays)
+    kcols = keys.t().contiguous()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)
+    t0 = time.perf_counter()
+    sortops.bitonic_merge(keys, pays)
+    sortops.bitonic_merge_cols(kcols, pays)
+    host = time.perf_counter() - t0
+    done = torch.cuda.Event()
+    done.record()
+    busy = not done.query()
+    torch.cuda.synchronize()
+    assert host < 0.2 and busy, (host, busy)
 
 
 @pytest.mark.parametrize("mode", ["e2e", "ingest", "count_query", "erase",

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Time the K1, K2, K2′ and K4 kernels of two checkouts of the port on one
-GPU, in turns (A, B, B, A, ...).
+"""Time the K1, K2, K2′ and K4 kernels and the one-run bitonic merges of
+two checkouts of the port on one GPU, in turns (A, B, B, A, ...).
 
     python3 tools/ab_trees.py A_DIR B_DIR [--pairs 1]
 
 Each turn is one process with that checkout first on sys.path: it builds
 the checkout's kernels, makes chip_smoke.py P2's main-path inputs (K1:
 8,388,628 random DNA codes at k=21 and at k=127, the wide kernel; K2: two
-sorted runs of 8,388,628 rows, w=2, and the multimap flush's 2^26 + 2^24
-rows with 3 payloads at w=2 and w=3; K2′: the row-major runs, w=2, 1
-payload; K4: the sorted canonical 21-mers of one chunk of reads, w=2) and
+sorted runs of 8,388,628 rows, w=2, with 0 and 1 payloads, the multimap
+flush's 2^26 + 2^24 rows with 3 payloads at w=2 and w=3, and 2^22 + 2^22
+rows of 33 words (a flag and 32) with 4 payloads; K2′: the row-major runs, w=2, 1
+payload; K4: the sorted canonical 21-mers of one chunk of reads, w=2;
+the one-run merges: P2's [2^24, 2] bitonic run with 1 payload through the
+public `sortops.bitonic_merge` / `bitonic_merge_cols`) and
 times the checkout's own wrappers with this
 tree's chip_smoke.median_ms (CUDA events over many launches) and
 chip_smoke.kernel_us_per_call (the profiler's device time per call), so
@@ -76,8 +79,8 @@ def run_turn(tree: str) -> dict:
         f"run_length_weights n={cs.CHUNK} sorted canonical 21-mers":
             lambda: kernels.run_length_weights(kcols, tv)}
 
-    def sorted_run(n, flagged=False):
-        words = torch.randint(-(2**31), 2**31 - 1, (n, 2), dtype=torch.int32,
+    def sorted_run(n, flagged=False, w=2):
+        words = torch.randint(-(2**31), 2**31 - 1, (n, w), dtype=torch.int32,
                               device=dev, generator=gen)
         valid = torch.rand(n, device=dev, generator=gen) > 0.01
         cols, _, s_valid = sortops.sort_rows(words, (), valid,
@@ -93,18 +96,30 @@ def run_turn(tree: str) -> dict:
                      for _ in range(npay))
 
     runs = {}
-    for label, na, nb, npay, flagged in (
-            (f"{cs.CHUNK}+{cs.CHUNK} w=2", cs.CHUNK, cs.CHUNK, 0, False),
-            ("2^26+2^24 w=2 payloads=3", 1 << 26, 1 << 24, 3, False),
-            ("2^26+2^24 w=3 flagged payloads=3", 1 << 26, 1 << 24, 3, True)):
-        runs[label] = (sorted_run(na, flagged), pays(na, npay),
-                       sorted_run(nb, flagged), pays(nb, npay))
+    for label, na, nb, npay, flagged, w in (
+            (f"{cs.CHUNK}+{cs.CHUNK} w=2", cs.CHUNK, cs.CHUNK, 0, False, 2),
+            (f"{cs.CHUNK}+{cs.CHUNK} w=2 payloads=1", cs.CHUNK, cs.CHUNK, 1,
+             False, 2),
+            ("2^26+2^24 w=2 payloads=3", 1 << 26, 1 << 24, 3, False, 2),
+            ("2^26+2^24 w=3 flagged payloads=3", 1 << 26, 1 << 24, 3, True,
+             2),
+            ("2^22+2^22 w=33 flagged payloads=4", 1 << 22, 1 << 22, 4, True,
+             32)):
+        runs[label] = (sorted_run(na, flagged, w), pays(na, npay),
+                       sorted_run(nb, flagged, w), pays(nb, npay))
         cases[f"merge_runs_cols {label}"] = (
             lambda r=runs[label]: kernels.merge_runs_cols(*r))
     rows = (sorted_run(cs.CHUNK).t().contiguous(), pays(cs.CHUNK, 1),
             sorted_run(cs.CHUNK).t().contiguous(), pays(cs.CHUNK, 1))
     cases[f"merge_sorted_runs {cs.CHUNK}+{cs.CHUNK} w=2 payloads=1"] = (
         lambda: kernels.merge_sorted_runs(*rows))
+    half = sorted_run(1 << 23).t().contiguous()
+    keys = torch.cat([half, sorted_run(1 << 23).t().flip(0)])
+    bcols, pay = keys.t().contiguous(), pays(1 << 24, 1)
+    cases["sortops.bitonic_merge [2^24, 2] payloads=1"] = (
+        lambda: sortops.bitonic_merge(keys, pay))
+    cases["sortops.bitonic_merge_cols [2^24, 2] payloads=1"] = (
+        lambda: sortops.bitonic_merge_cols(bcols, pay))
     return {case: {"ms": cs.median_ms(fn), "device_ms": sum(
         cs.kernel_us_per_call(fn).values()) / 1e3}
         for case, fn in cases.items()}

@@ -132,8 +132,8 @@ VARIANTS = {
                          "return kPadTile;")],
         # the staged columns' loads through registers, a column at a time
         "register_stage": [
-            ("if (p < cnt) cp_async4(s + pad(p), p < ta ? a + p : b + (p - ta));",
-             "if (p < cnt) s[pad(p)] = p < ta ? a[p] : b[p - ta];")],
+            ("cp_async4(s + pad(p), p < ta ? a + p : b + bstep * (p - ta));",
+             "s[pad(p)] = p < ta ? a[p] : b[bstep * (p - ta)];")],
         "cache_hints": [
             ("if (p < cnt) o[p] = s[pad(p)];",
              "if (p < cnt) __stcs(o + p, s[pad(p)]);"),
