@@ -267,36 +267,39 @@ class _IndexBase:
     def _pooled_ids(self, batch: ReadBatch) -> np.ndarray:
         """uint64[n] position ids of the batch (`ReadBatch.ids`) computed in
         place into a pooled buffer: the JAX package measured the fresh
-        temporaries of `ReadBatch.ids` at ~30x the in-place cost."""
-        n = batch.num_bases
-        bufs = self._ids_pool.get(n)
-        if bufs is None:
-            bufs = self._ids_pool[n] = (np.empty(n, np.uint64),
-                                        np.empty(n, np.uint64))
-        out, tmp = bufs
-        if batch.num_records == 0:
-            out[:] = 0
+        temporaries of `ReadBatch.ids` at ~30x the in-place cost.  The
+        phase "marshal.ids", inside "marshal" on the feeding thread."""
+        with self.timer.phase("marshal.ids"):
+            n = batch.num_bases
+            bufs = self._ids_pool.get(n)
+            if bufs is None:
+                bufs = self._ids_pool[n] = (np.empty(n, np.uint64),
+                                            np.empty(n, np.uint64))
+            out, tmp = bufs
+            if batch.num_records == 0:
+                out[:] = 0
+                return out
+            pos40 = np.uint64((1 << 40) - 1)
+            if self.id_kind == "short":
+                # fid << 56 | (record_start & POS40) << 16 | offset16
+                np.take(batch.record_start, batch.seg_id, out=out)
+                out &= pos40
+                out <<= np.uint64(16)
+                np.copyto(tmp, batch.offset_in_record, casting="unsafe")
+                tmp &= np.uint64(0xFFFF)
+                out |= tmp
+            else:
+                # long: fid << 56 | seq_index << 40 | (global_pos & POS40)
+                np.copyto(out, batch.global_pos)
+                out &= pos40
+                np.take(batch.seq_index.astype(np.uint64), batch.seg_id,
+                        out=tmp)
+                tmp <<= np.uint64(40)
+                out |= tmp
+            np.take(batch.file_id.astype(np.uint64), batch.seg_id, out=tmp)
+            tmp <<= np.uint64(56)
+            out |= tmp
             return out
-        pos40 = np.uint64((1 << 40) - 1)
-        if self.id_kind == "short":
-            # fid << 56 | (record_start & POS40) << 16 | offset16
-            np.take(batch.record_start, batch.seg_id, out=out)
-            out &= pos40
-            out <<= np.uint64(16)
-            np.copyto(tmp, batch.offset_in_record, casting="unsafe")
-            tmp &= np.uint64(0xFFFF)
-            out |= tmp
-        else:
-            # long: fid << 56 | seq_index << 40 | (global_pos & POS40)
-            np.copyto(out, batch.global_pos)
-            out &= pos40
-            np.take(batch.seq_index.astype(np.uint64), batch.seg_id, out=tmp)
-            tmp <<= np.uint64(40)
-            out |= tmp
-        np.take(batch.file_id.astype(np.uint64), batch.seg_id, out=tmp)
-        tmp <<= np.uint64(56)
-        out |= tmp
-        return out
 
     def _marshal_bufs(self, pad_to: int, layout: tuple) -> dict:
         """Pooled host buffers [p, pad_to] for one chunk's per-base columns,
@@ -345,9 +348,10 @@ class _IndexBase:
         columns: the pooled buffer is rewritten two chunks later, so the
         copy must have read it by the time this returns — and must be a
         copy on the CPU too, where the multimaps keep the id columns."""
-        return DeviceBases(**{nm: torch.from_numpy(a).to(self.device,
-                                                         copy=True)
-                              for nm, a in cols.items()})
+        with self.timer.phase("h2d"):
+            return DeviceBases(**{nm: torch.from_numpy(a).to(self.device,
+                                                             copy=True)
+                                  for nm, a in cols.items()})
 
     def _stream_chunks_iter(self, it, marshal, consume, make_dummy):
         """Double-buffered streaming over a lazy chunk iterator: the worker
@@ -364,7 +368,8 @@ class _IndexBase:
         and a rank that has none consumes the all-invalid batch that
         `make_dummy()` builds on first need (no owned windows: it only
         takes part in the exchanges).  With one rank the flag is the rank's
-        own and no dummy is built."""
+        own and no dummy is built.  The main thread's wait for the worker is
+        the phase "feed_wait"."""
 
         def produce():
             b = next(it, None)
@@ -374,7 +379,8 @@ class _IndexBase:
         with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
             fut = ex.submit(produce)
             while True:
-                cols = fut.result()
+                with self.timer.phase("feed_wait"):
+                    cols = fut.result()
                 if not self.mesh.all_max(cols is not None):
                     return
                 if cols is None:
@@ -391,9 +397,10 @@ class _IndexBase:
 
     def _query_words(self, kmers) -> torch.Tensor:
         """Query or insert rows as device key words, transformed like the
-        index's own k-mers."""
-        return self._maybe_canonicalize_queries(
-            from_numpy_u32(self._to_words(kmers), self.device))
+        index's own k-mers (the phase "rows")."""
+        with self.timer.phase("rows"):
+            return self._maybe_canonicalize_queries(
+                from_numpy_u32(self._to_words(kmers), self.device))
 
     # -- container surface (dsc::map_base, distributed_map_base.hpp:149-302)
     def empty(self) -> bool:
@@ -921,18 +928,23 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
         out = []
         for r in self.runs:
             hit = next((a for rr, a in self._aux_cache if rr is r), None)
-            out.append((r, hit if hit is not None else dx.run_aux_step(r)))
+            if hit is None:
+                with self.timer.phase("aux"):
+                    hit = dx.run_aux_step(r)
+            out.append((r, hit))
         self._aux_cache = out
         return [a for _, a in out]
 
     def _count_words(self, words: torch.Tensor) -> np.ndarray:
         aux = self._ensure_aux()
         with self.timer.phase("count"):
-            (counts,), m = self._route_rows(
-                lambda q, v, cap: dx.runs_count_query_step(
-                    q, v, aux, self.mesh, cap, self.hash_name,
-                    self.saturate), words)
-            return self._replies(counts, m).cpu().numpy()
+            with self.timer.phase("count.lookup"):
+                (counts,), m = self._route_rows(
+                    lambda q, v, cap: dx.runs_count_query_step(
+                        q, v, aux, self.mesh, cap, self.hash_name,
+                        self.saturate), words)
+            with self.timer.phase("count.reply"):
+                return self._replies(counts, m).cpu().numpy()
 
     def _erase_words(self, words: torch.Tensor) -> int:
         """Zero every row of the query keys in every run; the runs stop
@@ -1384,7 +1396,8 @@ class _MultimapSurfaceMixin:
         store IDENTITY: every mutation replaces the store object, so a
         stale entry cannot be hit."""
         if self._aux_cache is None or self._aux_cache[0] is not self.store:
-            self._aux_cache = (self.store, dx.multi_aux_step(self.store))
+            with self.timer.phase("aux"):
+                self._aux_cache = (self.store, dx.multi_aux_step(self.store))
         return self._aux_cache[1]
 
     def count(self, kmers) -> np.ndarray:
@@ -1396,11 +1409,14 @@ class _MultimapSurfaceMixin:
         self._flush()
         aux = self._ensure_aux()
         with self.timer.phase("count"):
-            (counts,), m = self._route_rows(
-                lambda w, v, cap: dx.multi_count_routed(
-                    self.store, aux, w, v, self._owners(w), self.mesh, cap),
-                words)
-            return self._replies(counts, m).to(torch.int32).cpu().numpy()
+            with self.timer.phase("count.lookup"):
+                (counts,), m = self._route_rows(
+                    lambda w, v, cap: dx.multi_count_routed(
+                        self.store, aux, w, v, self._owners(w), self.mesh,
+                        cap), words)
+            with self.timer.phase("count.reply"):
+                return self._replies(counts, m).to(
+                    torch.int32).cpu().numpy()
 
     get_multiplicity = count
 
@@ -1616,25 +1632,27 @@ class PositionIndex(_MultimapSurfaceMixin, _IndexBase):
 
     def _flush(self):
         """Merge every pending tuple into the store, growing each shard's
-        capacity to fit (next power of two)."""
+        capacity to fit (next power of two): the phase "flush", its K2
+        merge the phase "merge" inside it."""
         if not self._pending:
             return
-        words, hi, lo, q, valid = dx.concat_pending(self._pending,
-                                                    self._has_q)
-        self._pending, self._pending_rows = [], 0
-        need = self.mesh.all_max(int((self.store.size
-                                      + valid.sum(dim=1)).max()))
-        if need > self.capacity:
-            self._grow(_next_pow2(need))
-        with self.timer.phase("merge"):
-            while True:
-                store, ovf = dx.multi_merge_step(
-                    self.store, words, hi, lo, q, valid,
-                    self.spec.sentinel_safe, self.mesh)
-                if ovf == 0:
-                    self.store = store
-                    return
-                self._grow(_next_pow2(self.capacity + ovf))
+        with self.timer.phase("flush"):
+            words, hi, lo, q, valid = dx.concat_pending(self._pending,
+                                                        self._has_q)
+            self._pending, self._pending_rows = [], 0
+            need = self.mesh.all_max(int((self.store.size
+                                          + valid.sum(dim=1)).max()))
+            if need > self.capacity:
+                self._grow(_next_pow2(need))
+            with self.timer.phase("merge"):
+                while True:
+                    store, ovf = dx.multi_merge_step(
+                        self.store, words, hi, lo, q, valid,
+                        self.spec.sentinel_safe, self.mesh)
+                    if ovf == 0:
+                        self.store = store
+                        return
+                    self._grow(_next_pow2(self.capacity + ovf))
 
     def _grow(self, new_cap: int):
         self.store = st.multi_grow(self.store, new_cap)

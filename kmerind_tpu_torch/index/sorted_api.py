@@ -112,9 +112,10 @@ class SortedCountIndex(_CountSurfaceMixin, _SortedBase):
         """Shard-local extract + pre-reduce; rows stay on their shard until
         the flush (sorted_map append-then-sort,
         distributed_sorted_map.hpp:341)."""
+        bases = self._to_device(cols)
         with self.timer.phase("insert"):
             self._pending.append(sx.local_ingest_step(
-                self._to_device(cols), self.spec, self.canonical))
+                bases, self.spec, self.canonical))
         return self
 
     def insert(self, kmers):
@@ -258,10 +259,11 @@ class SortedPositionIndex(_MultimapSurfaceMixin, _SortedBase):
     def _insert_cols(self, cols: dict):
         """Shard-local extraction; the tuples stay on their shard until the
         flush."""
+        bases = self._to_device(cols)
         with self.timer.phase("insert"):
             tup = sx.multi_local_ingest_step(
-                self._to_device(cols), self.spec, self.canonical,
-                self.with_quality, self.codec)
+                bases, self.spec, self.canonical, self.with_quality,
+                self.codec)
         self._pending.append(tup)
         self._pending_rows += tup[0].shape[1]
         return self

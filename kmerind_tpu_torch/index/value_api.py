@@ -359,9 +359,10 @@ class SortedKmerValueIndex(_KVCommon, _SortedBase):
     def _insert_cols(self, cols: dict):
         """Shard-local extraction; the rows stay on their shard until the
         flush."""
+        bases = self._to_device(cols)
         with self.timer.phase("insert"):
             words, hi, lo, _, valid = sx.multi_local_ingest_step(
-                self._to_device(cols), self.spec, self.canonical)
+                bases, self.spec, self.canonical)
         self._pending.append((words, hi, lo, hi, lo, valid))
         return self
 

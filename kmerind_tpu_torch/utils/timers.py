@@ -9,6 +9,10 @@ per process or over the ranks of a process group (`cross_host_stats`);
 the CUDA caching allocator's counters.  A phase measures host wall-clock
 time; work a phase only enqueues on the device is not in it unless the
 phase ends in a synchronising call.
+
+`PhaseTimer` is also the port's tracing system: while a `torch.profiler`
+profile runs, every phase is a profiler range named ``kmerind/<phase>``
+on the profiler's clock, beside the CUDA kernels and copies it launches.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import statistics
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 import torch.distributed as tdist
 
 __all__ = ["PhaseTimer", "MemUsage", "device_memory_stats"]
@@ -29,8 +34,23 @@ def _summary(vals: list[float]) -> dict[str, float]:
             "stdev": statistics.pstdev(vals) if len(vals) > 1 else 0.0}
 
 
+#: prefix of the profiler ranges of the phases: keeps them apart from the
+#: ranges a caller opens around its calls into the port
+RANGE_PREFIX = "kmerind/"
+
+
 class PhaseTimer:
-    """Accumulates named phase durations (seconds)."""
+    """Accumulates named phase durations (seconds, `time.perf_counter`).
+
+    A child phase is named ``<parent>.<child>`` (``marshal.ids``,
+    ``count.lookup``) and runs only inside its parent, so a parent's self
+    time is its total less its children's totals; a multimap's ``merge``
+    runs only inside its ``flush`` the same way.  While a `torch.profiler`
+    profile is active each phase also opens
+    ``torch.profiler.record_function("kmerind/<name>")``, so its range, its
+    nesting and its thread are in the trace; with none it opens none
+    (a `record_function` costs ~14 us of host CPU even then, the check
+    ~0.1 us)."""
 
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
@@ -41,12 +61,15 @@ class PhaseTimer:
         if not self.enabled:
             yield
             return
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.durations.setdefault(name, []).append(
-                time.perf_counter() - t0)
+        with (torch.profiler.record_function(RANGE_PREFIX + name)
+              if _autograd_profiler._is_profiler_enabled
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.durations.setdefault(name, []).append(
+                    time.perf_counter() - t0)
 
     def add(self, name: str, seconds: float):
         self.durations.setdefault(name, []).append(seconds)

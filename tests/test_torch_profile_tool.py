@@ -42,6 +42,29 @@ def test_phase_device_items_clips_to_the_range():
     assert profile_p4.union_length(spans) == 23.0
 
 
+def test_inner_report_reads_the_runs_own_phase_ranges(capsys):
+    """The index's "kmerind/<phase>" ranges inside the run's "<run>:<name>"
+    ranges, and no other run's."""
+    ann = "user_annotation"
+    trace = {"traceEvents": [
+        {"cat": ann, "name": "p9:build", "ts": 0, "dur": 100},
+        {"cat": ann, "name": "kmerind/insert", "ts": 10, "dur": 20},
+        {"cat": ann, "name": "kmerind/insert", "ts": 40, "dur": 10},
+        {"cat": ann, "name": "kmerind/h2d", "ts": 5, "dur": 5},
+        {"cat": "kernel", "name": "k", "ts": 12, "dur": 4},
+        {"cat": ann, "name": "p10:build", "ts": 200, "dur": 100},
+        {"cat": ann, "name": "kmerind/merge", "ts": 210, "dur": 20},
+        {"cat": ann, "name": "p9/insert", "ts": 20, "dur": 5},
+    ]}
+    got = profile_p4.inner_report("p9", trace, "cpu")
+    assert set(got) == {"insert", "h2d"}
+    assert got["insert"]["ranges"] == 2
+    assert got["insert"]["range_s"] == pytest.approx(30e-6)
+    assert got["insert"]["device_busy_s"] == pytest.approx(4e-6)
+    assert set(profile_p4.inner_report("p10", trace, "cpu")) == {"merge"}
+    assert "P9 index phases [cpu]" in capsys.readouterr().out
+
+
 def test_port_kernel_ms_sums_each_kernels_launches():
     by_name = {
         "void (anonymous namespace)::merge_partition_kernel<2>(Cols, long)":

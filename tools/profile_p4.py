@@ -24,15 +24,16 @@ erase of the last 500k queries, size(), filter(c >= 2), count_if(c >= 36)
 and an npz save.  P9, the de Bruijn graph (k = 21, max_runs=8): build,
 node_counts() of the 1M queries twice (the first builds the runs' counter
 tables), size() (the consolidating merges), compact(); beside these
-phases each of the graph's own timer phases (read, marshal, insert, merge,
-table, query, compact) opens a profiler range, and a second table sums
-the device busy time over each one's ranges.  P10, the
+phases each of the graph's own timer phases (among them insert, merge,
+table, query, compact; under the profiler every PhaseTimer phase is a
+"kmerind/<phase>" range) gets a second table, which sums the device busy
+time over each one's ranges inside the run's ranges.  P10, the
 BimoleculeCountIndex (one shard): build (its chunks flush into the store
 every 2^24 pending rows: K3 per adopted run, K2 with 4 payloads per
 merge), flush (the first size(), which merges the last pending runs),
 count() of the 1M queries twice, items() (the stored orientations),
-compact(); its own timer phases (read, marshal, insert, merge, compact,
-count) get the second table too.  The profiler records only
+compact(); its own timer phases (insert, merge, compact, count, ...)
+get the second table too.  The profiler records only
 the ranges of the main thread: read and marshal run on the feeding thread
 while the build streams (their walls are in the PhaseTimer report).  The
 first pass runs
@@ -72,6 +73,7 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import (COVERAGE, GENOME_LEN, K, K_WIDE,  # noqa: E402
                         READ_LEN, make_quals, make_reads, pack_rows,
                         write_fastq)
+from kmerind_tpu_torch.utils.timers import RANGE_PREFIX  # noqa: E402
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: run -> its phases, in order
@@ -86,7 +88,7 @@ PHASES = {"p4": ("build", "count1", "count2", "items", "compact"),
 #: run -> its k
 RUN_K = {"p4": K, "p5": K, "p6": K, "p7": K_WIDE, "p8": K, "p9": K,
          "p10": K}
-#: runs whose index's own timer phases are profiler ranges (`inner_report`)
+#: runs whose index's own timer phases get a table (`inner_report`)
 INNER = ("p9", "p10")
 #: the port's kernels -> the CUDA kernel names (ops/csrc) of their launches
 PORT_KERNELS = {
@@ -148,24 +150,6 @@ def phase_steps(run: str, idx, path, queries) -> dict:
             "flush": idx.size,
             "count1": lambda: idx.count(queries),
             "count2": lambda: idx.count(queries)}
-
-
-def profiled_timer(run: str):
-    """A PhaseTimer whose every phase is also a profiler range named
-    "<run>/<phase>" (the index's own phases, `inner_report`)."""
-    import contextlib
-
-    from torch.profiler import record_function
-
-    from kmerind_tpu_torch.utils.timers import PhaseTimer
-
-    class _Timer(PhaseTimer):
-        @contextlib.contextmanager
-        def phase(self, name: str):
-            with record_function(f"{run}/{name}"), super().phase(name):
-                yield
-
-    return _Timer()
 
 
 def union_length(intervals) -> float:
@@ -246,13 +230,19 @@ def report(run: str, trace: dict, wall: dict, smi: str) -> dict:
 
 def inner_report(run: str, trace: dict, smi: str) -> dict:
     """Print and return the device busy time of the index's own phases
-    ("<run>/<phase>" ranges), summed over each phase's ranges."""
-    tag = f"{run}/"
+    (the "kmerind/<phase>" ranges its PhaseTimer opens under the profiler)
+    inside the run's "<run>:<name>" ranges, summed over each phase's
+    ranges."""
+    ranges = [(ev["ts"], ev["ts"] + ev["dur"]) for ev in trace["traceEvents"]
+              if ev.get("cat") == "user_annotation"
+              and str(ev.get("name", "")).startswith(f"{run}:")]
     spans = collections.defaultdict(list)
     for ev in trace["traceEvents"]:
         name = str(ev.get("name", ""))
-        if ev.get("cat") == "user_annotation" and name.startswith(tag):
-            spans[name[len(tag):]].append(
+        if ev.get("cat") == "user_annotation" \
+                and name.startswith(RANGE_PREFIX) \
+                and any(lo <= ev["ts"] < hi for lo, hi in ranges):
+            spans[name[len(RANGE_PREFIX):]].append(
                 (float(ev["ts"]), float(ev["ts"] + ev["dur"])))
     out = {}
     print(f"{run.upper()} index phases [{smi}]")
@@ -320,10 +310,8 @@ def main(argv=None) -> int:
                   "p7": lambda: CountIndex(KmerSpec(K_WIDE, DNA),
                                            device=dev, max_runs=8),
                   "p8": lambda: CountIndex(spec, device=dev),
-                  "p9": lambda: DeBruijnGraph(spec, device=dev, max_runs=8,
-                                              timer=profiled_timer("p9")),
-                  "p10": lambda: BimoleculeCountIndex(
-                      spec, device=dev, timer=profiled_timer("p10"))}
+                  "p9": lambda: DeBruijnGraph(spec, device=dev, max_runs=8),
+                  "p10": lambda: BimoleculeCountIndex(spec, device=dev)}
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if on_gpu else [])
     out = {"card": smi, "runs": {}}
