@@ -7,7 +7,7 @@ Phases (each prints its seconds; every timing line carries the card's name
 and power limit as nvidia-smi reports them):
 
 * P0  device: nvidia-smi name/power limit and torch's device name.
-* P1  build: nvcc compiles the four CUDA sources of
+* P1  build: nvcc compiles the five CUDA sources of
       kmerind_tpu_torch/ops/csrc (one process each, all at once) into
       kmerind_tpu_torch/_build.
 * P2  every kernel against its plain PyTorch version on the card, at the
@@ -45,6 +45,11 @@ and power limit as nvidia-smi reports them):
       half-cleaner network on the card (keys bitwise, payloads per key
       run); the profiler must see no device kernel in a call but their
       split, partition and tile launches (no flipped or sliced copies).
+      The count lookup (`run_count_lookup`, which replaces no TPU kernel)
+      runs at the count cell's shape (`lookup_runs`: the 8 runs of 2^26 /
+      2^27 rows its count build leaves, 581,632 queries of 2 words)
+      against the per-run searches; its bound counts a 32-byte sector a
+      probe.
 * P3  exact reference: ~12M bases of synthetic reads indexed through
       CountIndex.insert_batch in 2^20-base chunks with max_runs=2 (many K2
       merges), then compact(); to_dict() must equal an independent numpy
@@ -70,7 +75,7 @@ and power limit as nvidia-smi reports them):
       held exactly against a numpy count of all windows, items() (counts
       must sum to the window count), compact().  The kernel launch
       counters are zeroed just before and read just after: K1, K2 and K3
-      must all have run.
+      must all have run, and the count lookup once a count() call.
 * P5  the same FASTQ through SortedCountIndex.build on one shard: the 1M
       queries return P4's numpy reference counts, size() equals P4's
       distinct count, the store's counts sum to the window count,
@@ -243,7 +248,14 @@ def kernel_bytes(kname: str, **shape) -> int:
     w, npay): one run of n rows of w key words and npay int32 payloads in,
     n rows out.  prefix_sum_i32(n): int32 in and out.
     run_length_weights(n, w): int32 [w, n] keys and the int32 valid count
-    in, int32 [n] weights out."""
+    in, int32 [n] weights out.  run_count_lookup(n, w, rows, tbits): n
+    query rows of w int32 words and their bool valid in, int32 [n] sums
+    out, and per (query, run) one 32-byte sector a probe —
+    bit_length(live >> tbits) probes, the rounds a bucket of the run's
+    mean size needs, `rows` giving each run's live (non-sentinel) rows,
+    which its 2^tbits buckets divide — and one for the row at the lower
+    bound: the search reads random rows, so a sector is the least a probe
+    moves."""
     if kname == "extract_canonical":
         return shape["n"] * (1 + 4 * shape["nwords"] + 1)
     if kname in ("merge_runs_cols", "merge_sorted_runs"):
@@ -255,7 +267,65 @@ def kernel_bytes(kname: str, **shape) -> int:
         return 8 * shape["n"]
     if kname == "run_length_weights":
         return 4 * shape["w"] * shape["n"] + 4 + 4 * shape["n"]
+    if kname == "run_count_lookup":
+        sectors = sum((live >> shape["tbits"]).bit_length() + 1
+                      for live in shape["rows"])
+        return shape["n"] * (4 * shape["w"] + 1 + 4 + 32 * sectors)
     raise KeyError(kname)
+
+
+#: (rows, live rows) of the 8 runs a count build of the benchmark's count
+#: cell (kbench rsph45x-k31-count: k = 31, max_runs 8) leaves
+LOOKUP_RUNS = ((1 << 27, 21_572_072), (1 << 27, 21_572_072),
+               (1 << 26, 16_179_125), (1 << 26, 16_179_054),
+               (1 << 26, 16_179_125), (1 << 26, 16_179_054),
+               (1 << 26, 16_179_054), (1 << 27, 21_572_072))
+LOOKUP_QUERIES = 581_632    # the cell's batch: every window of 8,192 reads
+LOOKUP_GENOME = 4_603_060   # the cell's genome: its distinct k-mers
+
+
+def lookup_runs(dev, gen, runs=LOOKUP_RUNS, n_queries: int = LOOKUP_QUERIES,
+                genome: int = LOOKUP_GENOME):
+    """Query aux of count runs shaped like a count build's (`runs`: rows and
+    live rows each; unit weights, a sentinel tail), 4 in 5 live rows drawn
+    from one pool of `genome` keys (the reads' windows repeat the genome's
+    k-mers), the rest random (error k-mers); and `n_queries` query rows,
+    17 in 20 from the pool.  A key is a 62-bit k=31 DNA k-mer in two
+    words, the smaller of two random ones (canonical keys lean low).
+    Returns (exts, bstarts, queries int32[n, 2], valid bool[n])."""
+    import torch
+    from kmerind_tpu_torch.index import store
+    from kmerind_tpu_torch.ops import sortops
+
+    def keys(n):
+        k = torch.randint(0, 1 << 62, (2, n), device=dev,
+                          generator=gen).min(dim=0).values
+        hi = k >> 30
+        return torch.stack([torch.where(hi >= 1 << 31, hi - (1 << 32), hi),
+                            k & ((1 << 30) - 1)], dim=1).to(torch.int32)
+
+    def mixed(n, from_pool):
+        draw = pool[torch.randint(0, genome, (n,), device=dev,
+                                  generator=gen)]
+        fresh = keys(n)
+        pick = torch.rand(n, device=dev, generator=gen) < from_pool
+        return torch.where(pick[:, None], draw, fresh)
+
+    pool = keys(genome)
+    exts, bstarts = [], []
+    for rows, live in runs:
+        kcols = sortops.sort_rows(mixed(live, 0.8), sentinel_ok=True,
+                                  as_cols=True)[0]
+        kcols = torch.cat([kcols, torch.full((2, rows - live), -1,
+                                             dtype=torch.int32, device=dev)],
+                          dim=1)
+        ext, bstart = store.run_query_aux(store.run_from_sorted_unit(
+            kcols, torch.tensor(live, device=dev)))
+        exts.append(ext)
+        bstarts.append(bstart)
+    queries = mixed(n_queries, 0.85).contiguous()
+    return (exts, bstarts, queries,
+            torch.ones(n_queries, dtype=torch.bool, device=dev))
 
 
 def bound_ms(nbytes: int) -> float:
@@ -2507,6 +2577,25 @@ def main() -> int:
     run_lengths(f"n={CHUNK} tv={tv} row tv == row tv-1", kcols,
                 torch.tensor(tv, dtype=torch.int32, device=dev))
     del rcodes, words, kcols, s_valid, table, pick
+
+    # the count lookup at the count cell's shape (`lookup_runs`: the 8 runs
+    # its count build leaves, one batch of 581,632 queries, w = 2); plain:
+    # the per-run searches
+    exts, bstarts, lq, lvalid = lookup_runs(dev, gen)
+    got = kernels.run_count_lookup(exts, bstarts, lq, lvalid)
+    err = err_of(got, kernels.run_count_lookup_plain(exts, bstarts, lq,
+                                                      lvalid))
+    log(f"P2 run_count_lookup: {int((got > 0).sum())} of {lq.shape[0]} "
+        f"queries found, {int(got.sum())} counted [{smi}]")
+    record("run_count_lookup",
+           f"{len(exts)} runs (rows, live rows: {LOOKUP_RUNS}), "
+           f"{lq.shape[0]} queries w=2, plain: the per-run searches",
+           lambda: kernels.run_count_lookup(exts, bstarts, lq, lvalid),
+           lambda: kernels.run_count_lookup_plain(exts, bstarts, lq, lvalid),
+           err, kernel_bytes("run_count_lookup", n=lq.shape[0], w=2,
+                             rows=[live for _, live in LOOKUP_RUNS],
+                             tbits=16))
+    del exts, bstarts, lq, lvalid, got
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"P2 seconds {time.perf_counter() - t0:.2f} [{smi}]")
@@ -2659,6 +2748,10 @@ def main() -> int:
                       "prefix_sum_i32"):
             if not p4[kname]:
                 raise AssertionError(f"P4: {kname} never ran: {p4}")
+        if p4["run_count_lookup"] != len(q_s):
+            raise AssertionError(f"P4: {p4['run_count_lookup']} count "
+                                 f"lookup launches for {len(q_s)} count() "
+                                 "calls on one shard")
         distinct = rows.shape[0]
         del idx, rows, cnts
         torch.cuda.empty_cache()

@@ -190,19 +190,17 @@ def runs_count_query_step(queries: torch.Tensor, qvalid: torch.Tensor, aux,
                           hash_name: str = "murmur",
                           saturate: int | None = None):
     """Count query over a list of runs through their cached aux metadata
-    (per run, per shard): route once, look up in each run, sum (clamped at
+    (per run, per shard): route once, then per shard one
+    `kernels.run_count_lookup` (every run's lookup, summed, clamped at
     `saturate`), reply.  queries [p, m, w], qvalid [p, m].  Returns (counts
     int32[p, m], overflow)."""
     owner = owners_for(queries, nparts, hash_name)
     (rq,), rvalid, route = dist.distribute((queries,), owner, qvalid, nparts,
                                            capacity)
-    local = []
-    for s in range(rq.shape[0]):
-        total = sum(st.run_lookup_aux(ext, bstart, rq[s])
-                    for ext, bstart in (run[s] for run in aux))
-        if saturate is not None:
-            total = total.clamp(max=saturate)
-        local.append(torch.where(rvalid[s], total, 0))
+    local = [kernels.run_count_lookup([run[s][0] for run in aux],
+                                      [run[s][1] for run in aux], rq[s],
+                                      rvalid[s], saturate)
+             for s in range(rq.shape[0])]
     (back,) = dist.undistribute((st.stack(local),), route, nparts, capacity)
     return back, route.overflow
 

@@ -17,7 +17,13 @@ The kernels replace the Pallas kernels of
 * K3 `prefix_sum_i32` (``csrc/prefix_sum.cu``) — plain version
   `prefix_sum_i32_plain`;
 * K4 `run_length_weights` (``csrc/run_length_weights.cu``) — plain version
-  `run_length_weights_plain`.
+  `run_length_weights_plain`;
+
+and one that replaces no Pallas kernel:
+
+* `run_count_lookup` (``csrc/run_lookup.cu``) — a count batch's lookup
+  over all runs of a count index's shard, plain version
+  `run_count_lookup_plain` (the per-run searches of ``index/store.py``).
 
 Each wrapper takes the plain version for tensors on the CPU and, for CUDA
 tensors, launches its kernel or raises: nothing falls back.  It checks
@@ -60,17 +66,18 @@ __all__ = ["LAUNCHES", "K1_LAUNCHES", "K2_PAYLOAD_LAUNCHES", "KERNELS",
            "bitonic_merge_rows", "bitonic_merge_rows_plain",
            "bitonic_merge_cols", "bitonic_merge_cols_plain",
            "prefix_sum_i32", "prefix_sum_i32_plain",
-           "run_length_weights", "run_length_weights_plain"]
+           "run_length_weights", "run_length_weights_plain",
+           "run_count_lookup", "run_count_lookup_plain"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "ops" / "csrc"
 BUILD_DIR = _PKG / "_build"
 _SOURCES = ("extract_canonical.cu", "merge_runs.cu", "prefix_sum.cu",
-            "run_length_weights.cu")
+            "run_length_weights.cu", "run_lookup.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: name -> (source in the repo, TPU kernel it replaces)
+#: name -> (source in the repo, TPU kernel it replaces or None)
 KERNELS = {
     "extract_canonical": (
         "kmerind_tpu_torch/ops/csrc/extract_canonical.cu",
@@ -93,6 +100,8 @@ KERNELS = {
     "run_length_weights": (
         "kmerind_tpu_torch/ops/csrc/run_length_weights.cu",
         "kmerind_tpu/ops/pallas_kernels.py:351"),
+    "run_count_lookup": (
+        "kmerind_tpu_torch/ops/csrc/run_lookup.cu", None),
 }
 
 #: launches per kernel wrapper (one per wrapper call that launched)
@@ -162,9 +171,15 @@ def _bind(lib):
     lib.kmerind_run_length_tiles.restype = _i64
     lib.kmerind_run_length_weights.argtypes = [
         _vp, _int, _i64, _vp, _vp, _vp, _vp]
+    lib.kmerind_run_count_lookup_max_runs.argtypes = []
+    lib.kmerind_run_count_lookup.argtypes = [
+        _vp, _i64, _int, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
+        _i64, _vp, _vp]
     for fn in (lib.kmerind_extract_canonical, lib.kmerind_merge_runs,
                lib.kmerind_bitonic_merge, lib.kmerind_prefix_sum_i32,
-               lib.kmerind_run_length_weights):
+               lib.kmerind_run_length_weights,
+               lib.kmerind_run_count_lookup_max_runs,
+               lib.kmerind_run_count_lookup):
         fn.restype = _int
     return lib
 
@@ -558,4 +573,111 @@ def run_length_weights(kcols: torch.Tensor, total_valid) -> torch.Tensor:
             kcols.data_ptr(), w, n, total_valid.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), _stream(dev))
         _launched("run_length_weights", rc)
+    return out
+
+
+# ------------------------------------------------------- count lookup
+def run_count_lookup_plain(exts, bstarts, queries: torch.Tensor,
+                           valid: torch.Tensor,
+                           saturate: int | None = None) -> torch.Tensor:
+    """Plain `run_count_lookup`: ``index/store.py``'s `run_lookup_aux` (a
+    bucket-seeded search unrolled on the host, then a gather) of each run,
+    summed, clamped at `saturate`, 0 where not valid."""
+    from ..index import store      # store imports sortops, which imports us
+    total = sum((store.run_lookup_aux(ext, bstart, queries)
+                 for ext, bstart in zip(exts, bstarts)),
+                torch.zeros(queries.shape[0], dtype=torch.int32,
+                            device=queries.device))
+    if saturate is not None:
+        total = total.clamp(max=saturate)
+    return torch.where(valid, total, 0)
+
+
+def _lookup_tables(exts, bstarts, queries: torch.Tensor,
+                   valid: torch.Tensor) -> tuple:
+    """Check `run_count_lookup`'s arguments (all on the queries' device,
+    dtypes, shapes; on the card also contiguity) and return (exts, bstarts,
+    caps, tbits) as lists."""
+    dev = queries.device
+    exts, bstarts = list(exts), list(bstarts)
+    if len(exts) != len(bstarts):
+        raise ValueError(f"run_count_lookup: {len(exts)} key tables and "
+                         f"{len(bstarts)} bucket tables")
+    for name, t, dtype, ndim in (
+            ("queries", queries, torch.int32, 2),
+            ("valid", valid, torch.bool, 1),
+            *(("ext", e, torch.int32, 2) for e in exts),
+            *(("bstart", b, torch.int32, 1) for b in bstarts)):
+        if t.device != dev:
+            raise ValueError(f"run_count_lookup {name}: on {t.device}, the "
+                             f"queries on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"run_count_lookup {name}: expected {dtype}, "
+                            f"got {t.dtype}")
+        if t.dim() != ndim:
+            raise ValueError(f"run_count_lookup {name}: expected {ndim} "
+                             f"dims, got {t.dim()}")
+        if dev.type == "cuda" and not t.is_contiguous():
+            raise ValueError(f"run_count_lookup {name}: tensor must be "
+                             "contiguous")
+    m, w = queries.shape
+    if w < 1 or valid.shape[0] != m:
+        raise ValueError(f"run_count_lookup: queries {tuple(queries.shape)}"
+                         f" with valid {tuple(valid.shape)}")
+    caps, tbits = [], []
+    for ext, bstart in zip(exts, bstarts):
+        if ext.shape[0] != w + 1 or ext.shape[1] >= 1 << 31:
+            raise ValueError(f"run_count_lookup: ext {tuple(ext.shape)} for "
+                             f"{w}-word keys")
+        nb = bstart.shape[0]
+        tb = (nb - 1).bit_length() - 1
+        if tb < 0 or nb != (1 << tb) + 1:
+            raise ValueError(f"run_count_lookup: bucket table of {nb} "
+                             "entries is not 2^tbits + 1")
+        caps.append(ext.shape[1])
+        tbits.append(tb)
+    return exts, bstarts, caps, tbits
+
+
+def run_count_lookup(exts, bstarts, queries: torch.Tensor,
+                     valid: torch.Tensor,
+                     saturate: int | None = None) -> torch.Tensor:
+    """int32[m]: per query row, the sum over a shard's runs of the row's
+    run total (0 where the key is absent), wrapping as int32, clamped at
+    `saturate` when given, 0 where `valid` is False.
+
+    exts, bstarts: each run's `store.run_query_aux` — ext int32[w + 1, cap]
+    (sorted key columns, then the run totals), bstart int32[2^tbits + 1];
+    queries int32[m, w] row-major, valid bool[m].  On the card one launch
+    per (up to) 16 runs, the size of the kernel's run table: the runs'
+    searches in one thread per query, no host read."""
+    exts, bstarts, caps, tbits = _lookup_tables(exts, bstarts, queries,
+                                                valid)
+    dev = queries.device
+    if dev.type == "cpu":
+        return run_count_lookup_plain(exts, bstarts, queries, valid,
+                                      saturate)
+    if dev.type != "cuda":
+        raise ValueError(f"run_count_lookup: expected a CUDA or CPU tensor, "
+                         f"got {dev}")
+    m, w = queries.shape
+    out = torch.empty(m, dtype=torch.int32, device=dev)
+    if m == 0:
+        return out
+    lib = _cuda_lib()
+    per = lib.kmerind_run_count_lookup_max_runs()
+    nruns = len(caps)
+    for first in range(0, max(nruns, 1), per):
+        sl = slice(first, first + per)
+        n = len(caps[sl])
+        tables = ((_vp * n)(*(e.data_ptr() for e in exts[sl])),
+                  (_vp * n)(*(b.data_ptr() for b in bstarts[sl])),
+                  (_i64 * n)(*caps[sl]), (_int * n)(*tbits[sl]))
+        rc = lib.kmerind_run_count_lookup(
+            queries.data_ptr(), m, w, valid.data_ptr(),
+            *(ctypes.cast(t, _vp) for t in tables), n, int(first > 0),
+            int(first + per >= nruns), int(saturate is not None),
+            0 if saturate is None else saturate, out.data_ptr(),
+            _stream(dev))
+        _launched("run_count_lookup", rc)
     return out

@@ -59,6 +59,16 @@ CHUNK = chip_smoke.CHUNK
     ("prefix_sum_i32", dict(n=1), 8),
     # K4, w=2: 67.1 MB of keys + the valid count in, 33.6 MB of weights out
     ("run_length_weights", dict(n=CHUNK, w=2), CHUNK * 12 + 4),
+    # the count lookup: per query its w words, valid and answer, and per
+    # run a 32-byte sector a probe (21,572,072 live rows at tbits 16:
+    # buckets of ~329 rows, 9 probes) and one for the row at the lower bound
+    ("run_count_lookup", dict(n=1000, w=2, rows=(21_572_072,), tbits=16),
+     1000 * (8 + 1 + 4 + 32 * 10)),
+    ("run_count_lookup", dict(n=3, w=9, rows=(1, 1 << 16, (1 << 16) + 1),
+                              tbits=16), 3 * (36 + 1 + 4 + 32 * (1 + 2 + 2))),
+    ("run_count_lookup", dict(n=2, w=1, rows=(5,), tbits=0),
+     2 * (4 + 1 + 4 + 32 * 4)),
+    ("run_count_lookup", dict(n=7, w=2, rows=(), tbits=16), 7 * 13),
 ])
 def test_kernel_bytes(kname, shape, want):
     assert chip_smoke.kernel_bytes(kname, **shape) == want
@@ -85,7 +95,8 @@ def test_bound_ms_is_bytes_over_the_hbm_rate():
 
 def test_kernel_bytes_covers_every_kernel_and_no_other():
     from kmerind_tpu_torch.ops import kernels
-    shape = dict(n=4, nwords=1, na=1, nb=1, n_out=2, w=1, npay=0)
+    shape = dict(n=4, nwords=1, na=1, nb=1, n_out=2, w=1, npay=0, rows=(1,),
+                 tbits=16)
     for kname in kernels.KERNELS:
         assert chip_smoke.kernel_bytes(kname, **shape) > 0
     with pytest.raises(KeyError):

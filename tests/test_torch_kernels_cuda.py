@@ -13,9 +13,11 @@ read; for the
 K3 scan sizes around its tile, look-back over many tiles, repeated calls,
 unaligned views; for K4 a run over 10,000 tiles, tv at a tile boundary,
 unaligned views, repeated calls; the de Bruijn graphs' edge-byte payloads
-and 0 / 1 counter streams), and the port's indexes on the card against the
-same index on the CPU: CountIndex (one shard, 4 hashed shards, k = 81 and
-127), SortedCountIndex, the multimaps (k up to 128), both de Bruijn
+and 0 / 1 counter streams; for the count lookup key widths 1-17, 0-17
+runs, sums that wrap, no host read), and the port's indexes on the card
+against the same index on the CPU: CountIndex (one shard, 4 hashed
+shards, k = 81 and 127; several runs through the count lookup, one
+launch a shard), SortedCountIndex, the multimaps (k up to 128), both de Bruijn
 graphs (k = 21 and 127, 1 and 4 shards), BimoleculeCountIndex (K2 with 4
 payloads: weight, full 32-bit id halves, strand) and both value maps under
 each reduction (k = 21 and 127, 1 and 4 shards).
@@ -34,7 +36,7 @@ import torch
 
 import kmerind_tpu_torch as kp
 from kmerind_tpu_torch.io import read_file
-from kmerind_tpu_torch.ops import kernels, packing
+from kmerind_tpu_torch.ops import kernels, packing, sortops
 
 from torch_parity import sorted_key_cols, words_t, write_reads
 
@@ -1123,3 +1125,133 @@ def test_headline_modes_on_card(dev, mode):
         assert all(torch.equal(a, b) for a, b in zip(got["cuda"], got["cpu"]))
     else:
         assert got["cuda"] == got["cpu"]
+
+
+def _lookup_run(rng, w, cap, n_sentinel, nvals, tbits):
+    """One run's query aux as `store.run_query_aux` lays it out: ext
+    int32[w + 1, cap] — sorted key columns (word 0 from `nvals` values over
+    the whole 32-bit range, the other words 0-2: ties on word 0 and runs of
+    equal keys), a sentinel tail of `n_sentinel` rows, then a total row of
+    any int32, so that sums wrap — and its 2^tbits-bucket table."""
+    live = cap - n_sentinel
+    vals = rng.integers(0, 2**32, nvals, dtype=np.uint32)
+    cols = [vals[rng.integers(0, nvals, live)]]
+    cols += [rng.integers(0, 3, live, dtype=np.uint32) for _ in range(w - 1)]
+    order = np.lexsort(cols[::-1])
+    keys = np.full((w, cap), 0xFFFFFFFF, np.uint32)
+    keys[:, :live] = np.stack([c[order] for c in cols]).reshape(w, live)
+    total = rng.integers(-2**31, 2**31, cap).astype(np.int32)
+    ext = torch.cat([words_t(keys), torch.from_numpy(total)[None]])
+    return keys[:, :live], ext, sortops._prefix_starts(ext[0], tbits)
+
+
+#: the bucket-table widths the runs of a case cycle through
+LOOKUP_TBITS = (16, 0, 5, 20)
+
+
+@pytest.mark.parametrize("w,nruns", [
+    (1, 1), (1, 8), (2, 0), (2, 1), (2, 8), (2, 17), (3, 8), (8, 8),
+    (8, 17), (9, 3), (17, 8), (17, 17)])
+@pytest.mark.parametrize("saturate", [None, 5])
+def test_run_count_lookup_kernel(dev, w, nruns, saturate):
+    """The count lookup against its plain version on the CPU, bitwise: key
+    widths 1-3 and 8 (a k=127 DNA count index) in registers and 9 / 17 past
+    them; 0, 1, 8 and 17 runs (17: past the 16-run table, two launches);
+    runs of one row, an all-sentinel run, bucket tables of 2^0 to 2^20
+    entries; present, absent and sentinel query rows, invalid rows; sums
+    that wrap; no host read (sync debug mode "error")."""
+    rng = np.random.default_rng(w * 100 + nruns)
+    caps = [int(c) for c in rng.integers(1, 6000, nruns)]
+    if nruns >= 8:
+        caps[1], caps[2] = 1, 4096
+    live, exts, bstarts = [], [], []
+    for r, cap in enumerate(caps):
+        n_sentinel = cap if r == 2 else int(rng.integers(0, cap // 10 + 1))
+        keys, ext, bstart = _lookup_run(rng, w, cap, n_sentinel, 40 + 37 * r,
+                                        LOOKUP_TBITS[r % 4])
+        live.append(keys)
+        exts.append(ext)
+        bstarts.append(bstart)
+    q = [k[:, rng.integers(0, k.shape[1], 400)].T for k in live
+         if k.shape[1]]
+    q.append(np.concatenate([rng.integers(0, 2**32, (700, 1),
+                                          dtype=np.uint32),
+                             rng.integers(0, 3, (700, w - 1),
+                                          dtype=np.uint32)], axis=1))
+    q.append(np.full((5, w), 0xFFFFFFFF, np.uint32))
+    q = words_t(np.concatenate(q))
+    valid = torch.from_numpy(rng.random(q.shape[0]) < 0.85)
+    want = kernels.run_count_lookup_plain(exts, bstarts, q, valid, saturate)
+    d = [[t.to(dev) for t in ts] for ts in (exts, bstarts)]
+    dq, dvalid = q.to(dev), valid.to(dev)
+    torch.cuda.synchronize()
+    before = kernels.LAUNCHES["run_count_lookup"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = kernels.run_count_lookup(*d, dq, dvalid, saturate)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kernels.LAUNCHES["run_count_lookup"] == \
+        before + max(1, -(-nruns // 16))
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    if nruns:
+        assert (want != 0).sum() > 100
+    empty = kernels.run_count_lookup(*d, dq[:0], dvalid[:0], saturate)
+    assert empty.shape == (0,)
+    assert kernels.LAUNCHES["run_count_lookup"] == \
+        before + max(1, -(-nruns // 16))
+
+
+def test_run_count_lookup_refuses_what_it_does_not_take(dev):
+    """CUDA tensors the count lookup does not take raise: non-contiguous
+    queries, a table on the CPU, int64 queries."""
+    rng = np.random.default_rng(1)
+    _, ext, bstart = _lookup_run(rng, 2, 100, 3, 10, 16)
+    ext, bstart = ext.to(dev), bstart.to(dev)
+    q = torch.zeros((8, 2), dtype=torch.int32, device=dev)
+    valid = torch.ones(8, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.run_count_lookup([ext], [bstart], q.t().contiguous().t(),
+                                 valid)
+    with pytest.raises(ValueError):
+        kernels.run_count_lookup([ext], [bstart.cpu()], q, valid)
+    with pytest.raises(TypeError):
+        kernels.run_count_lookup([ext], [bstart], q.to(torch.int64), valid)
+
+
+@pytest.mark.parametrize("p", [1, 4])
+def test_count_index_counts_through_the_lookup_kernel(dev, tmp_path,
+                                                      monkeypatch, p):
+    """CountIndex.count on the card over an index of several runs equals
+    the CPU index's; one lookup launch per shard per count(), and the plain
+    lookup never runs on the card."""
+    from kmerind_tpu_torch.index import distributed as dx
+    path = tmp_path / "reads.fastq"
+    reads = write_reads(path, 600, 150, 5000, seed=5, n_rate=0.002)
+    spec = kp.KmerSpec(31, kp.DNA)
+    idx = {}
+    for d in ("cpu", dev):
+        idx[d] = kp.CountIndex(spec, device=d, nparts=p, max_runs=8)
+        idx[d].insert_batch(read_file(path, kp.DNA), chunk_bases=4000)
+    assert len(idx[dev].runs) > 2
+    q = [r[i:i + 31] for r in reads[:100] for i in (0, 50, 119)]
+    q += ["ACGT" * 7 + "ACG"] * 3
+    want = idx["cpu"].count(q)
+    steps = []
+    step = dx.runs_count_query_step
+
+    def counted(*args, **kwargs):
+        steps.append(1)
+        return step(*args, **kwargs)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain lookup ran on the card")
+    monkeypatch.setattr(dx, "runs_count_query_step", counted)
+    monkeypatch.setattr(kernels, "run_count_lookup_plain", no_plain)
+    before = kernels.LAUNCHES["run_count_lookup"]
+    got = idx[dev].count(q)
+    assert len(steps) == 1
+    assert kernels.LAUNCHES["run_count_lookup"] == before + p
+    np.testing.assert_array_equal(got, want)
+    assert (want > 0).sum() > 250
+    np.testing.assert_array_equal(idx[dev].exists(q), want > 0)

@@ -165,3 +165,101 @@ def test_count_store_lookup_and_erase_match_jax():
     np.testing.assert_array_equal(words_np(tn.keys), np.asarray(jn.keys))
     np.testing.assert_array_equal(tn.counts.numpy(), np.asarray(jn.counts))
     assert int(tn.size) == int(jn.size)
+
+
+def _lookup_runs(nruns):
+    """(JAX stores, port aux tables, their key columns) of `nruns` runs of
+    the `_stores` fixture shapes (long runs of equal keys, dead rows,
+    sentinel tails), then query rows: keys of every run, absent keys, the
+    sentinel key."""
+    js, exts, bstarts, keys = [], [], [], []
+    for r in range(nruns):
+        k, j, t = _stores(10 + r, cap=6000 - 700 * r, n_sentinel=50 * r + 1)
+        ext, bstart = tst.run_query_aux(t)
+        js.append(j)
+        exts.append(ext)
+        bstarts.append(bstart)
+        keys.append(k)
+    rng = np.random.default_rng(nruns)
+    q = np.concatenate([k[:, rng.integers(0, k.shape[1], 300)].T
+                        for k in keys]
+                       + [rng.integers(0, 3000, (200, 2)).astype(np.uint32),
+                          np.full((3, 2), 0xFFFFFFFF, np.uint32)])
+    return js, exts, bstarts, q
+
+
+@pytest.mark.parametrize("nruns", [1, 3])
+@pytest.mark.parametrize("saturate", [None, 4])
+def test_run_count_lookup_plain_is_the_per_run_sum(nruns, saturate):
+    """The plain count lookup over several runs equals the old per-run sum
+    of `run_lookup_aux` (clamped, masked) and the JAX runs' lookups summed;
+    on CPU tensors the wrapper is the plain version."""
+    js, exts, bstarts, q = _lookup_runs(nruns)
+    rng = np.random.default_rng(7)
+    valid = torch.from_numpy(rng.random(q.shape[0]) < 0.9)
+    qt = words_t(q)
+    got = kernels.run_count_lookup_plain(exts, bstarts, qt, valid, saturate)
+    old = sum(tst.run_lookup_aux(e, b, qt) for e, b in zip(exts, bstarts))
+    if saturate is not None:
+        old = old.clamp(max=saturate)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  torch.where(valid, old, 0).numpy())
+    want = sum(np.asarray(jst.run_lookup(j, q)) for j in js)
+    if saturate is not None:
+        want = np.minimum(want, saturate)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.where(valid.numpy(), want, 0))
+    assert (got > 0).sum() > 100 and (got == 0).sum() > 100
+    launches = dict(kernels.LAUNCHES)
+    np.testing.assert_array_equal(
+        kernels.run_count_lookup(exts, bstarts, qt, valid, saturate).numpy(),
+        got.numpy())
+    assert kernels.LAUNCHES == launches
+
+
+def test_run_count_lookup_on_cpu_takes_no_kernel(monkeypatch):
+    """CPU tensors never reach the kernel library; no runs and no rows give
+    zeros."""
+    def no_lib():
+        raise AssertionError("the kernel library was loaded for CPU tensors")
+    monkeypatch.setattr(kernels, "_cuda_lib", no_lib)
+    _, exts, bstarts, q = _lookup_runs(2)
+    qt = words_t(q)
+    valid = torch.ones(q.shape[0], dtype=torch.bool)
+    assert kernels.run_count_lookup(exts, bstarts, qt, valid).shape == \
+        (q.shape[0],)
+    assert torch.equal(kernels.run_count_lookup([], [], qt, valid),
+                       torch.zeros(q.shape[0], dtype=torch.int32))
+    empty = kernels.run_count_lookup(exts, bstarts, qt[:0], valid[:0], 3)
+    assert empty.shape == (0,) and empty.dtype == torch.int32
+
+
+def test_run_count_lookup_rejects_bad_input():
+    _, exts, bstarts, q = _lookup_runs(1)
+    qt = words_t(q)
+    valid = torch.ones(q.shape[0], dtype=torch.bool)
+    lookup = kernels.run_count_lookup
+    with pytest.raises(TypeError):                  # int64 queries
+        lookup(exts, bstarts, qt.to(torch.int64), valid)
+    with pytest.raises(TypeError):                  # uint8 valid
+        lookup(exts, bstarts, qt, valid.to(torch.uint8))
+    with pytest.raises(TypeError):                  # int64 bucket table
+        lookup(exts, [bstarts[0].to(torch.int64)], qt, valid)
+    with pytest.raises(ValueError):                 # a query of 3 words
+        lookup(exts, bstarts, torch.zeros((4, 3), dtype=torch.int32),
+               valid[:4])
+    with pytest.raises(ValueError):                 # valid of another length
+        lookup(exts, bstarts, qt, valid[:-1])
+    with pytest.raises(ValueError):                 # flat queries
+        lookup(exts, bstarts, qt[:, 0], valid)
+    with pytest.raises(ValueError):                 # 2^16 bucket entries
+        lookup(exts, [bstarts[0][:-1]], qt, valid)
+    with pytest.raises(ValueError):                 # a table short of a run
+        lookup(exts, [], qt, valid)
+    with pytest.raises(ValueError):                 # a table on another device
+        lookup(exts, [bstarts[0].to("meta")], qt, valid)
+    with pytest.raises(ValueError):                 # neither CPU nor CUDA
+        lookup([e.to("meta") for e in exts],
+               [b.to("meta") for b in bstarts], qt.to("meta"),
+               valid.to("meta"))

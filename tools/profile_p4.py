@@ -96,6 +96,7 @@ PORT_KERNELS = {
     "merge_runs_cols": ("merge_partition_kernel", "merge_tiles_kernel"),
     "prefix_sum_i32": ("prefix_scan_kernel",),
     "run_length_weights": ("rl_tiles", "rl_carry"),
+    "run_count_lookup": ("run_count_lookup_kernel",),
 }
 
 
