@@ -13,16 +13,24 @@ file found by its name:
 * the configuration is the JSON file its entry names: the index class
   and its arguments, the reads' sizes, and the judge that checks it
   (``kbench/judge/<judge>.py``);
-* the mix is ``kbench/traffic/<traffic>.json``: the name of its loop
-  and that loop's parameters;
+* the mix is ``kbench/traffic/<traffic>.json``: the name of its loop,
+  that loop's parameters and, where the mix asks what the
+  configuration's judge does not check, a ``judge`` of its own, which
+  wins;
 * the loop is ``kbench/loops/<loop>.py``: ``query_sets(mix)`` (the
   query sets the mix packs from held-out reads), ``drive(run)`` (set-up,
-  warm-up and the measured window, inside `Run.measured`) and
-  ``CHECK_CONTENTS`` (whether the judge also checks the index's whole
-  contents);
+  warm-up and the measured window, inside `Run.measured`, each call into
+  the program inside a range `Run.span` names), ``CHECK_CONTENTS``
+  (whether the judge also checks the index's whole contents: the loop
+  builds in its window), ``METHOD`` (the public index method its
+  measured calls ask) and ``TINY`` (its mix parameters at a CPU test's
+  size);
 * each metric is ``kbench/metrics/<name>.py``, whose ``read(obs)``
   returns the metric's value from the run's `Observations`, or None
   where it finds nothing to read.
+
+The traced window is bounded by the ranges the loop opened
+(`Run.span`), whatever their names.
 """
 
 from __future__ import annotations
@@ -123,8 +131,9 @@ class Bench:
 
     def cell(self, workload: str, overrides: dict | None = None) -> "Cell":
         """The cell `workload` resolved: its entry, configuration, mix,
-        loop, judge and query sets.  `overrides` {"reads": {...},
-        "traffic": {...}} shrink it for the CPU tests."""
+        loop, judge (the mix's, else the configuration's) and query
+        sets.  `overrides` {"reads": {...}, "traffic": {...}} shrink it
+        for the CPU tests."""
         entry = self.workload(workload)
         cfg = self.config(entry["config"])
         mix = self.traffic(entry["traffic"])
@@ -132,7 +141,8 @@ class Bench:
         cfg["reads"] = {**cfg["reads"], **overrides.get("reads", {})}
         mix = {**mix, **overrides.get("traffic", {})}
         loop = self.loop(mix["loop"])
-        return Cell(workload, entry, cfg, mix, loop, self.judge(cfg["judge"]),
+        judge = self.judge(mix.get("judge", cfg["judge"]))
+        return Cell(workload, entry, cfg, mix, loop, judge,
                     loop.query_sets(mix))
 
     def metrics_for(self, cell: str, kind: str) -> list[dict]:
@@ -232,7 +242,13 @@ class Window:
 
 @dataclasses.dataclass
 class Observations:
-    """What the metric readers read."""
+    """What the metric readers read.  Over the measured window: `phases`,
+    the seconds of each `PhaseTimer` phase (program_span); `counts`, the
+    program's own counters (program_counter): {"phases": {phase: times
+    entered}, "launches": {kernel wrapper: launches}
+    (``ops.kernels.LAUNCHES``), "k2_payload_launches": {payload columns:
+    K2 launches} (``ops.kernels.K2_PAYLOAD_LAUNCHES``)}; with tracing,
+    `trace` and the K1 / K2 call shapes `kernel_calls` (device_trace)."""
 
     window: Window
     setup_s: float
@@ -240,6 +256,7 @@ class Observations:
     bases: int = 0
     trace: TraceView | None = None
     phases: dict = dataclasses.field(default_factory=dict)
+    counts: dict = dataclasses.field(default_factory=dict)
     kernel_calls: dict = dataclasses.field(default_factory=dict)
 
 
@@ -280,8 +297,9 @@ class KernelCalls:
 
 
 class Run:
-    """One run's state: the index factory, inputs, query rows, device and
-    the measured window's bracket (peak memory, profiler, kernel calls)."""
+    """One run's state: the index factory, inputs, query rows, device, the
+    names of the ranges the loop opened, and the measured window's bracket
+    (peak memory, profiler, kernel calls, the program's counters)."""
 
     def __init__(self, cell: Cell, seed, seconds, trace, device):
         import kmerind_tpu_torch as kt
@@ -298,6 +316,8 @@ class Run:
         self.rows: dict = {}
         self.idx = None
         self.check_contents = bool(cell.loop.CHECK_CONTENTS)
+        #: every range name `span` opened, in first-opened order
+        self.range_names: list = []
 
     def make_index(self):
         cfg = self.cfg
@@ -308,7 +328,10 @@ class Run:
 
     def span(self, name: str):
         """A profiler range around one call into the program, when
-        tracing; nothing otherwise."""
+        tracing; nothing otherwise.  The traced window is bounded by the
+        ranges of the names opened here."""
+        if name not in self.range_names:
+            self.range_names.append(name)
         if not self.trace:
             return contextlib.nullcontext()
         return torch.profiler.record_function(name)
@@ -322,16 +345,23 @@ class Run:
             return 0
         return int(torch.cuda.max_memory_allocated(self.device))
 
+    def launch_counts(self) -> dict:
+        """The port's launch counters as they stand."""
+        return {"launches": dict(self.kernels.LAUNCHES),
+                "k2_payload_launches": dict(self.kernels.K2_PAYLOAD_LAUNCHES)}
+
     @contextlib.contextmanager
     def measured(self):
-        """The measured window: peak memory counted from its start; with
-        tracing, the profiler and the kernel-call records run in it."""
+        """The measured window: peak memory counted from its start, and the
+        program's phases and counters over it; with tracing, the profiler
+        and the kernel-call records run in it."""
         self.sync()
         gc.collect()
         self.setup_peak = self.peak_bytes()
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
         self.timer.clear()
+        launches = self.launch_counts()
         self.setup_s = process_age_s()
         with contextlib.ExitStack() as stack:
             if self.trace:
@@ -346,8 +376,11 @@ class Run:
             self.sync()
         self.window_peak = self.peak_bytes()
         self.phases = {n: self.timer.total(n) for n in self.timer.durations}
-
-
+        self.counts = {"phases": {n: self.timer.count(n)
+                                  for n in self.timer.durations}}
+        for key, now in self.launch_counts().items():
+            self.counts[key] = {n: c - launches[key].get(n, 0)
+                                for n, c in now.items()}
 
 
 def _card_line() -> str:
@@ -391,11 +424,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
                 for (t0, t1, _), c in zip(win.calls[:64], win.cpu_s)))
         obs = Observations(win, run.setup_s, run.window_peak,
                            bases=run.inputs.bases * len(win.calls),
-                           phases=run.phases)
+                           phases=run.phases, counts=run.counts)
         if trace:
             path = pathlib.Path(tmpdir) / "trace.json"
             run.prof.export_chrome_trace(str(path))
-            obs.trace = TraceView(json.loads(path.read_text()))
+            obs.trace = TraceView(json.loads(path.read_text()),
+                                  run.range_names)
             obs.kernel_calls = run.calls.calls
         kind = "per_layer" if trace else "end_to_end"
         metrics = {}

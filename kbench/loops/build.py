@@ -11,6 +11,10 @@ whole contents.
 import time
 
 CHECK_CONTENTS = True
+#: the public index method of a call's first answer
+METHOD = "count"
+#: the mix's parameters at a CPU test's size: as they are
+TINY: dict = {}
 
 
 def query_sets(mix: dict) -> dict:
@@ -28,7 +32,7 @@ def drive(run):
         with run.span("build"):
             idx.build(str(run.inputs.path))
         with run.span("first_query"):
-            ans = idx.count(rows)
+            ans = getattr(idx, METHOD)(rows)
         run.idx = idx
         return ans
 

@@ -14,6 +14,10 @@ import time
 import numpy as np
 
 CHECK_CONTENTS = False
+#: the public index method each batch asks
+METHOD = "count"
+#: the mix's parameters at a CPU test's size
+TINY = {"batch_reads": 64, "pool_batches": 4}
 KEEP_ONE_IN = 16
 KEEP_MAX = 256
 
@@ -30,8 +34,9 @@ def drive(run):
     idx = run.make_index()
     idx.build(str(run.inputs.path))
     run.idx = idx
+    ask = getattr(idx, METHOD)
     for name in pool:
-        idx.count(run.rows[name])
+        ask(run.rows[name])
     rng = np.random.default_rng(int(run.seed) % (1 << 63) + 7)
     keep = rng.random(1 << 22) < 1.0 / KEEP_ONE_IN
     last = {}
@@ -42,7 +47,7 @@ def drive(run):
             q = run.rows[name]
             c0, t0 = time.process_time(), time.perf_counter()
             with run.span("count_batch"):
-                ans = idx.count(q)
+                ans = ask(q)
             t1 = time.perf_counter()
             win.calls.append((t0, t1, q.shape[0]))
             win.cpu_s.append(time.process_time() - c0)

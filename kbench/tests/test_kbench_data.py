@@ -104,7 +104,7 @@ def synthetic_trace():
          "ts": 50, "dur": 20, "args": {"bytes": 2_000_000}},
         {"cat": "kernel", "name": "other", "ts": 110, "dur": 30},
     ]
-    return TraceView({"traceEvents": ev})
+    return TraceView({"traceEvents": ev}, ("build", "first_query"))
 
 
 def test_trace_view_arithmetic():
@@ -121,6 +121,55 @@ def test_trace_view_arithmetic():
     assert set(gaps) == {"build/aten::copy_", "build"}
     assert gaps["build/aten::copy_"] == pytest.approx(20e-6)
     assert gaps["build"] == pytest.approx(50e-6)
+
+
+def test_idle_gaps_are_named_by_the_innermost_program_range():
+    """A made-up build: the main thread waits in the program's feed_wait
+    (no host op), then copies in h2d, then flushes; the feeding thread's
+    range and a range the run did not open name nothing and bound
+    nothing."""
+    ev = [
+        {"cat": "user_annotation", "name": "build", "ts": 0, "dur": 100,
+         "tid": 1},
+        {"cat": "user_annotation", "name": "kmerind/feed_wait", "ts": 0,
+         "dur": 40, "tid": 1},
+        {"cat": "user_annotation", "name": "kmerind/h2d", "ts": 40,
+         "dur": 20, "tid": 1},
+        {"cat": "cpu_op", "name": "aten::copy_", "ts": 42, "dur": 10,
+         "tid": 1},
+        {"cat": "user_annotation", "name": "kmerind/flush", "ts": 60,
+         "dur": 30, "tid": 1},
+        {"cat": "user_annotation", "name": "kmerind/merge", "ts": 65,
+         "dur": 25, "tid": 1},
+        {"cat": "user_annotation", "name": "kmerind/marshal", "ts": 0,
+         "dur": 100, "tid": 2},
+        {"cat": "user_annotation", "name": "warm_up", "ts": -50,
+         "dur": 200, "tid": 1},
+        {"cat": "gpu_memcpy", "name": "Memcpy HtoD (Pageable -> Device)",
+         "ts": 52, "dur": 8, "args": {"bytes": 800}},
+        {"cat": "kernel", "name": "merge_tiles_kernel", "ts": 60,
+         "dur": 10},
+    ]
+    t = TraceView({"traceEvents": ev}, ("build",))
+    assert (t.lo, t.hi) == (0, 100)
+    gaps = dict(t.breakdown()["idle_gaps"])
+    assert gaps == pytest.approx({
+        "build/kmerind/feed_wait": 52e-6,       # idle 0-52, middle 26
+        "build/kmerind/merge": 30e-6})          # 70-100, middle 85
+    assert max(gaps, key=gaps.get) == "build/kmerind/feed_wait"
+
+
+def test_the_window_is_bounded_by_the_ranges_the_run_opened():
+    ev = [{"cat": "user_annotation", "name": "sorted_batch", "ts": 10,
+           "dur": 20, "tid": 1},
+          {"cat": "user_annotation", "name": "sorted_batch", "ts": 40,
+           "dur": 20, "tid": 1},
+          {"cat": "kernel", "name": "k", "ts": 0, "dur": 100}]
+    for ranges, window in ((("sorted_batch",), (10, 60)), ((), (0, 0)),
+                           (("count_batch",), (0, 0))):
+        t = TraceView({"traceEvents": ev}, ranges)
+        assert (t.lo, t.hi) == window
+        assert t.busy_us() == window[1] - window[0]
 
 
 def test_kernel_calls_record_card_shapes_and_restore():

@@ -90,7 +90,10 @@ def test_cell_files_are_found_by_name(cell):
     loop = bench.loop(mix["loop"])
     assert callable(loop.drive) and isinstance(loop.CHECK_CONTENTS, bool)
     assert loop.query_sets(mix)
-    judge = bench.judge(cfg["judge"])
+    import kmerind_tpu_torch as kt
+    assert callable(getattr(getattr(kt, cfg["index"]), loop.METHOD))
+    assert isinstance(loop.TINY, dict) and set(loop.TINY) <= set(mix)
+    judge = bench.judge(mix.get("judge", cfg["judge"]))
     assert all(callable(getattr(judge, f))
                for f in ("collect", "compare", "control"))
     assert bench.cell(cell).sets == loop.query_sets(mix)

@@ -47,7 +47,7 @@ def test_entries_list_the_cells_the_spans_run_in():
 @pytest.mark.parametrize("cell", sorted({c for _, c in SPANS.values()}))
 def test_traced_run_reports_every_span_metric(cell, tiny):
     res = harness.run_cell(cell, 3_000_000_019, 0.5, True, device="cpu",
-                           overrides=tiny[cell], log=lambda msg: None)
+                           overrides=tiny(cell), log=lambda msg: None)
     assert res["correct"] is True
     want = {n for n, (_, c) in SPANS.items() if c == cell}
     assert want <= set(res["metrics"])

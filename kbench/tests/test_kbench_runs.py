@@ -4,24 +4,22 @@ new files, and the modules a run loads."""
 
 import json
 import os
-import shutil
 import subprocess
 import sys
 
-import numpy as np
 import pytest
 
 from kbench import control, harness
 
-from .conftest import ROOT, TINY
+from .conftest import FAULT_IDS, ROOT, TINY_READS, bench_copy, faults
 
 CELLS = [w["name"] for w in harness.Bench().spec["workloads"]]
-BUILDS = [c for c in CELLS if c.endswith(".build")]
 
 
-def run(cell, tiny, trace=False, **kw):
+def run(cell, tiny, trace=False, bench=None):
     return harness.run_cell(cell, 3_000_000_017, 0.5, trace, device="cpu",
-                            overrides=tiny[cell], log=lambda msg: None, **kw)
+                            bench=bench, overrides=tiny(cell, bench),
+                            log=lambda msg: None)
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -53,70 +51,14 @@ def test_traced_run(cell, tiny):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_is_caught(cell, tiny):
-    checks = control.control_checks(cell, 5, "cpu", overrides=tiny[cell])
+    checks = control.control_checks(cell, 5, "cpu", overrides=tiny(cell))
     assert any(v > lim for _, v, lim in checks), checks
 
 
-def _faults(cell):
-    """(name, patch(monkeypatch)) of each fault the cell can have; one
-    card, so no exchange between chips to leave out."""
-    from kmerind_tpu_torch.index import api
-
-    cls = api.PositionIndex if "pq" in cell else api.CountIndex
-
-    def unchanged(mp):
-        if cell.endswith(".build"):
-            mp.setattr(cls, "_insert_cols", lambda self, cols: self)
-        else:
-            last = {}
-            real = cls._count_words
-
-            def stale(self, words):
-                out = last.get("a")
-                last["a"] = real(self, words)
-                return last["a"] if out is None else out[:words.shape[0]]
-            mp.setattr(cls, "_count_words", stale)
-
-    def half(mp):
-        if cell.endswith(".build"):
-            real = api._IndexBase._to_device
-
-            def drop(self, cols):
-                cols = dict(cols)
-                v = cols["valid"].copy()
-                v[:, v.shape[1] // 2:] = False
-                cols["valid"] = v
-                return real(self, cols)
-            mp.setattr(api._IndexBase, "_to_device", drop)
-        else:
-            real = cls._count_words
-
-            def first_half(self, words):
-                out = np.zeros(words.shape[0], np.int32)
-                n = words.shape[0] // 2
-                out[:n] = real(self, words[:n])
-                return out
-            mp.setattr(cls, "_count_words", first_half)
-
-    def altered(mp):
-        real = cls._count_words
-
-        def plus_one(self, words):
-            out = real(self, words).copy()
-            out[len(out) // 2] += 1
-            return out
-        mp.setattr(cls, "_count_words", plus_one)
-
-    return [("state_unchanged", unchanged), ("half_left_out", half),
-            ("answer_altered", altered)]
-
-
 @pytest.mark.parametrize("cell", CELLS)
-@pytest.mark.parametrize("fault", range(3),
-                         ids=["state_unchanged", "half_left_out",
-                              "answer_altered"])
+@pytest.mark.parametrize("fault", range(3), ids=FAULT_IDS)
 def test_planted_fault_is_caught(cell, fault, tiny, monkeypatch):
-    _, patch = _faults(cell)[fault]
+    _, patch = faults(cell)[fault]
     patch(monkeypatch)
     assert run(cell, tiny)["correct"] is False
 
@@ -143,6 +85,8 @@ OWN_LOOP = """
 import time
 
 CHECK_CONTENTS = False
+METHOD = "count"
+TINY = {}
 
 
 def query_sets(mix):
@@ -171,14 +115,6 @@ NEW_MIXES = {
     "own_loop": ({"loop": "tiny_rounds", "reads": 16, "rounds": 3},
                  OWN_LOOP),
 }
-
-
-def bench_copy(root):
-    """A copy of the benchmark's data and its per-name files under
-    `root`; returns its BENCHMARK.json as a dict, to be written back."""
-    for sub in ("configs", "traffic", "loops", "metrics", "judge"):
-        shutil.copytree(ROOT / "kbench" / sub, root / "kbench" / sub)
-    return json.loads((ROOT / "BENCHMARK.json").read_text())
 
 
 def add_cell(spec, name, traffic):
@@ -217,14 +153,14 @@ def test_new_mix_and_metric_need_only_new_files(case, tmp_path):
     bench = harness.Bench(tmp_path)
     res = harness.run_cell("rsph45x-k31-count.tiny", 9, 0.3, True,
                            device="cpu", bench=bench,
-                           overrides={"reads": TINY["reads"]},
+                           overrides={"reads": TINY_READS},
                            log=lambda msg: None)
     assert res["correct"] is True
     assert res["metrics"]["calls_seen"]["value"] == float(
         mix.get("rounds", mix.get("pool_batches")))
     end = harness.run_cell("rsph45x-k31-count.tiny", 9, 0.3, False,
                            device="cpu", bench=bench,
-                           overrides={"reads": TINY["reads"]},
+                           overrides={"reads": TINY_READS},
                            log=lambda msg: None)
     assert end["correct"] is True
     assert {"query_kmers_per_s", "query_batch_p95_ms", "setup_s",
@@ -274,16 +210,15 @@ def test_count_build_cell_returns_with_entries_only(count_build_bench, tiny,
 def test_count_build_control_is_caught(count_build_bench, tiny):
     checks = control.control_checks(COUNT_BUILD, 5, "cpu",
                                     bench=count_build_bench,
-                                    overrides=tiny[COUNT_BUILD])
+                                    overrides=tiny(COUNT_BUILD,
+                                                   count_build_bench))
     assert any(v > lim for _, v, lim in checks), checks
 
 
-@pytest.mark.parametrize("fault", range(3),
-                         ids=["state_unchanged", "half_left_out",
-                              "answer_altered"])
+@pytest.mark.parametrize("fault", range(3), ids=FAULT_IDS)
 def test_count_build_planted_fault_is_caught(count_build_bench, fault, tiny,
                                              monkeypatch):
-    _, patch = _faults(COUNT_BUILD)[fault]
+    _, patch = faults(COUNT_BUILD, count_build_bench)[fault]
     patch(monkeypatch)
     res = run(COUNT_BUILD, tiny, bench=count_build_bench)
     assert res["correct"] is False
@@ -315,7 +250,7 @@ def _run_and_emit(bench_root, cell, reads, env=None):
 
 
 def test_a_run_loads_no_jax_and_no_jax_package():
-    out = _run_and_emit(ROOT, "rsph45x-k31-pq.build", TINY["reads"])
+    out = _run_and_emit(ROOT, "rsph45x-k31-pq.build", TINY_READS)
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["correct"] is True
@@ -339,7 +274,7 @@ def test_a_metric_that_loads_jax_leaves_no_result(tmp_path):
                                "workloads": ["rsph45x-k31-pq.build"]})
     (bench / "BENCHMARK.json").write_text(json.dumps(spec))
     env = {**os.environ, "PYTHONPATH": str(stub)}
-    out = _run_and_emit(bench, "rsph45x-k31-pq.build", TINY["reads"],
+    out = _run_and_emit(bench, "rsph45x-k31-pq.build", TINY_READS,
                         env=env)
     assert out.returncode == 3, out.stderr[-2000:]
     assert out.stdout.strip() == ""
@@ -360,5 +295,5 @@ def test_without_a_card_run_exits_nonzero_and_prints_nothing(tmp_path):
 def test_tiny_run_on_the_card(cuda_device, tiny):
     for cell in CELLS:
         res = harness.run_cell(cell, 11, 0.5, False, device=cuda_device,
-                               overrides=tiny[cell], log=lambda msg: None)
+                               overrides=tiny(cell), log=lambda msg: None)
         assert res["correct"] is True and res["device"]["platform"] == "gpu"

@@ -14,8 +14,9 @@ import collections
 import re
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-#: the ranges the harness opens around each call into the program
-RANGES = ("build", "first_query", "count_batch")
+#: prefix of the program's own ranges (its `PhaseTimer` phases under the
+#: profiler), which name idle gaps but never bound the window
+PROGRAM_PREFIX = "kmerind/"
 #: longest name kept in a breakdown entry
 NAME_CHARS = 120
 
@@ -43,15 +44,18 @@ def _merged(intervals) -> list:
 
 class TraceView:
     """The events of one traced window: the harness's ranges (user
-    annotations named in RANGES) bound it; device items inside it."""
+    annotations named in `ranges`, the names the run's loop opened) bound
+    it; device items inside it; the main thread's host operations and
+    program ranges, which name its idle gaps."""
 
-    def __init__(self, trace: dict):
+    def __init__(self, trace: dict, ranges):
         events = [ev for ev in trace.get("traceEvents", [])
                   if isinstance(ev, dict) and "dur" in ev and "ts" in ev]
-        self.ranges = [(ev["name"], float(ev["ts"]),
+        names = set(ranges)
+        annotations = [(ev["name"], float(ev["ts"]),
                         float(ev["ts"]) + float(ev["dur"]), ev.get("tid"))
-                       for ev in events if ev.get("cat") == "user_annotation"
-                       and ev.get("name") in RANGES]
+                       for ev in events if ev.get("cat") == "user_annotation"]
+        self.ranges = [r for r in annotations if r[0] in names]
         if self.ranges:
             self.lo = min(r[1] for r in self.ranges)
             self.hi = max(r[2] for r in self.ranges)
@@ -59,6 +63,9 @@ class TraceView:
         else:
             self.lo = self.hi = 0.0
             self.main_tid = None
+        self.program_ranges = [r for r in annotations
+                               if r[0].startswith(PROGRAM_PREFIX)
+                               and r[3] == self.main_tid]
         self.device = []
         for ev in events:
             if ev.get("cat") not in DEVICE_CATS:
@@ -128,8 +135,10 @@ class TraceView:
     def breakdown(self, top: int = 10) -> dict:
         """The device items that took most time, and the device's idle
         time summed by what the main thread was doing meanwhile: the
-        harness's range and the innermost host operation it was in at
-        each gap's middle ("range/op"), in seconds."""
+        harness's range, the innermost program range and the innermost
+        host operation it was in at each gap's middle
+        ("range/kmerind/phase/op", each part only where there is one), in
+        seconds."""
         ops = [[name[:NAME_CHARS], us / 1e6]
                for name, us in self.device_items().most_common(top)]
         gaps, reach = [], self.lo
@@ -141,10 +150,13 @@ class TraceView:
         mids = [m for m, _ in gaps]
         where = self._innermost([(s, e, n) for n, s, e, _ in self.ranges],
                                 mids)
+        phase = self._innermost(
+            [(s, e, n) for n, s, e, _ in self.program_ranges], mids)
         what = self._innermost(self.host_ops, mids)
         by_name = collections.Counter()
-        for (_, sec), rng, op in zip(gaps, where, what):
-            name = (rng or "between_calls") + (f"/{op}" if op else "")
+        for (_, sec), rng, ph, op in zip(gaps, where, phase, what):
+            name = "/".join([rng or "between_calls"]
+                            + [x for x in (ph, op) if x])
             by_name[name[:NAME_CHARS]] += sec
         return {"device_ops": ops,
                 "idle_gaps": [[n, s] for n, s in by_name.most_common(top)]}
