@@ -318,23 +318,32 @@ class DeBruijnGraph(_IndexBase):
         out = []
         for r in self.runs:
             hit = next((a for rr, a in self._aux_cache if rr is r), None)
-            out.append((r, hit if hit is not None else dx.run_vec_aux_step(r)))
+            if hit is None:
+                with self.timer.phase("aux"):
+                    hit = dx.run_vec_aux_step(r)
+            out.append((r, hit))
         self._aux_cache = out
         return [a for _, a in out]
 
     def _node_payload(self, kmers):
         """(counters int32[m, 9], quality sums float64[m] or None) of the
-        query nodes, transformed like the graph's own."""
+        query nodes, transformed like the graph's own.  Phases: "rows",
+        then "query" with its children "query.lookup" (routing, and one
+        "query.lookup.run" per run and shard searched) and "query.reply"
+        (the replies in query order, copied to the host)."""
+        words = self._query_words(kmers)
         self._ensure_tables()
         aux = self._ensure_aux()
         with self.timer.phase("query"):
-            (vals, qs), m = self._route_rows(
-                lambda q, v, cap: dx.runs_vec_query_step(
-                    q, v, self.runs, aux, self.mesh, cap, self.hash_name,
-                    self.saturate), self._query_words(kmers))
-            vals = self._replies(vals, m).cpu().numpy()
-            if qs is not None:
-                qs = self._replies(qs, m).cpu().numpy()
+            with self.timer.phase("query.lookup"):
+                (vals, qs), m = self._route_rows(
+                    lambda q, v, cap: dx.runs_vec_query_step(
+                        q, v, self.runs, aux, self.timer, self.mesh, cap,
+                        self.hash_name, self.saturate), words)
+            with self.timer.phase("query.reply"):
+                vals = self._replies(vals, m).cpu().numpy()
+                if qs is not None:
+                    qs = self._replies(qs, m).cpu().numpy()
         return vals, qs
 
     def node_counts(self, kmers):

@@ -564,22 +564,27 @@ def run_vec_aux_step(store) -> list:
 
 
 def runs_vec_query_step(queries: torch.Tensor, qvalid: torch.Tensor, runs,
-                        aux, nparts: int = 1, capacity: int | None = None,
+                        aux, timer, nparts: int = 1,
+                        capacity: int | None = None,
                         hash_name: str = "murmur",
                         saturate: int | None = None):
     """Node query over a list of edge runs (the node_counts surface,
     de_bruijn_node_trait.hpp:186-280): route once, look up in each run,
     sum, clamp at `saturate`, reply.  queries [p, m, w], qvalid [p, m];
-    aux: each run's per-shard aux.  Returns (counters int32[p, m, 9],
-    quality sums float64[p, m] — None unless the runs are quality stores
-    —, overflow)."""
+    aux: each run's per-shard aux; timer: the graph's `PhaseTimer`, whose
+    phase "query.lookup.run" each run's lookup on each shard enters.
+    Returns (counters int32[p, m, 9], quality sums float64[p, m] — None
+    unless the runs are quality stores —, overflow)."""
     owner = owners_for(queries, nparts, hash_name)
     (rq,), rvalid, route = dist.distribute((queries,), owner, qvalid, nparts,
                                            capacity)
     counts, qsums = [], []
     for s in range(rq.shape[0]):
-        parts = [st.run_vec_lookup(run.shard(s), rq[s], run_aux[s])
-                 for run, run_aux in zip(runs, aux)]
+        parts = []
+        for run, run_aux in zip(runs, aux):
+            with timer.phase("query.lookup.run"):
+                parts.append(st.run_vec_lookup(run.shard(s), rq[s],
+                                               run_aux[s]))
         total = sum(c for c, _ in parts)
         if saturate is not None:
             total = total.clamp(max=saturate)
