@@ -49,7 +49,11 @@ and power limit as nvidia-smi reports them):
       runs at the count cell's shape (`lookup_runs`: the 8 runs of 2^26 /
       2^27 rows its count build leaves, 581,632 queries of 2 words)
       against the per-run searches; its bound counts a 32-byte sector a
-      probe.
+      probe.  The graph's node lookup (`run_vec_lookup`, the same source
+      and search) runs at the graph cell's shape (`graph_runs`: the 8
+      unit runs its build leaves, the same batch) against the per-run
+      searches and table gathers; its bound adds a hit's length sector
+      and two sectors a counter stream.
 * P3  exact reference: ~12M bases of synthetic reads indexed through
       CountIndex.insert_batch in 2^20-base chunks with max_runs=2 (many K2
       merges), then compact(); to_dict() must equal an independent numpy
@@ -141,7 +145,8 @@ and power limit as nvidia-smi reports them):
       at least once per merge of the first build, K3 at least 8 per
       counter table, K2 with 2 payloads (edge byte, weight) after the
       compaction and the further ingest, and the quality graph's unit merges
-      with 2 (edge byte, quality bits).
+      with 2 (edge byte, quality bits); the node lookup once a
+      node_counts() / node_quality() call (one shard, 8 runs).
 
 * P10 Bimolecule and the value maps over P4's FASTQ (after P9, while P4's
       numpy reference is held; `phase_p10`), held exactly against a numpy
@@ -255,7 +260,13 @@ def kernel_bytes(kname: str, **shape) -> int:
     mean size needs, `rows` giving each run's live (non-sentinel) rows,
     which its 2^tbits buckets divide — and one for the row at the lower
     bound: the search reads random rows, so a sector is the least a probe
-    moves."""
+    moves.  run_vec_lookup(n, w, rows, tbits, hits, quality=False): the
+    same search and the row at the lower bound, int32 [n, 9] counters out
+    (and float64 [n] quality sums with `quality`), and for each of the
+    `hits` (query, run) pairs whose run holds the key one sector of its
+    run length and two of each counter table stream (the key run's two
+    ends, apart unless the key run starts at row 0), two more of the
+    quality sums."""
     if kname == "extract_canonical":
         return shape["n"] * (1 + 4 * shape["nwords"] + 1)
     if kname in ("merge_runs_cols", "merge_sorted_runs"):
@@ -271,6 +282,14 @@ def kernel_bytes(kname: str, **shape) -> int:
         sectors = sum((live >> shape["tbits"]).bit_length() + 1
                       for live in shape["rows"])
         return shape["n"] * (4 * shape["w"] + 1 + 4 + 32 * sectors)
+    if kname == "run_vec_lookup":
+        quality = shape.get("quality", False)
+        sectors = sum((live >> shape["tbits"]).bit_length() + 1
+                      for live in shape["rows"])
+        per_hit = 1 + 2 * 9 + 2 * quality
+        return (shape["n"] * (4 * shape["w"] + 1 + 36 + 8 * quality
+                              + 32 * sectors)
+                + 32 * per_hit * shape["hits"])
     raise KeyError(kname)
 
 
@@ -282,20 +301,18 @@ LOOKUP_RUNS = ((1 << 27, 21_572_072), (1 << 27, 21_572_072),
                (1 << 26, 16_179_054), (1 << 27, 21_572_072))
 LOOKUP_QUERIES = 581_632    # the cell's batch: every window of 8,192 reads
 LOOKUP_GENOME = 4_603_060   # the cell's genome: its distinct k-mers
+#: (rows, live rows) of the 8 unit runs a graph build of the benchmark's
+#: graph cell (kbench rsph45x-k31-debruijn: k = 31, max_runs 8) leaves:
+#: one row a window, chunked and merged as the count build's, so the same
+GRAPH_RUNS = LOOKUP_RUNS
 
 
-def lookup_runs(dev, gen, runs=LOOKUP_RUNS, n_queries: int = LOOKUP_QUERIES,
-                genome: int = LOOKUP_GENOME):
-    """Query aux of count runs shaped like a count build's (`runs`: rows and
-    live rows each; unit weights, a sentinel tail), 4 in 5 live rows drawn
-    from one pool of `genome` keys (the reads' windows repeat the genome's
-    k-mers), the rest random (error k-mers); and `n_queries` query rows,
-    17 in 20 from the pool.  A key is a 62-bit k=31 DNA k-mer in two
-    words, the smaller of two random ones (canonical keys lean low).
-    Returns (exts, bstarts, queries int32[n, 2], valid bool[n])."""
+def _key_drawer(dev, gen, genome: int):
+    """mixed(n, from_pool): n keys, a share `from_pool` of them drawn from
+    one pool of `genome` keys (drawn first), the rest random.  A key is a
+    62-bit k=31 DNA k-mer in two words (int32 [n, 2]), the smaller of two
+    random ones (canonical keys lean low)."""
     import torch
-    from kmerind_tpu_torch.index import store
-    from kmerind_tpu_torch.ops import sortops
 
     def keys(n):
         k = torch.randint(0, 1 << 62, (2, n), device=dev,
@@ -312,13 +329,35 @@ def lookup_runs(dev, gen, runs=LOOKUP_RUNS, n_queries: int = LOOKUP_QUERIES,
         return torch.where(pick[:, None], draw, fresh)
 
     pool = keys(genome)
+    return mixed
+
+
+def _sorted_run_cols(dev, mixed, rows: int, live: int):
+    """Key columns int32 [2, rows]: `live` keys from `mixed` (4 in 5 from
+    the pool), sorted, then a sentinel tail."""
+    import torch
+    from kmerind_tpu_torch.ops import sortops
+    kcols = sortops.sort_rows(mixed(live, 0.8), sentinel_ok=True,
+                              as_cols=True)[0]
+    return torch.cat([kcols, torch.full((2, rows - live), -1,
+                                        dtype=torch.int32, device=dev)],
+                     dim=1)
+
+
+def lookup_runs(dev, gen, runs=LOOKUP_RUNS, n_queries: int = LOOKUP_QUERIES,
+                genome: int = LOOKUP_GENOME):
+    """Query aux of count runs shaped like a count build's (`runs`: rows and
+    live rows each; unit weights, a sentinel tail), 4 in 5 live rows drawn
+    from one pool of `genome` keys (the reads' windows repeat the genome's
+    k-mers), the rest random (error k-mers); and `n_queries` query rows,
+    17 in 20 from the pool (`_key_drawer`).  Returns (exts, bstarts,
+    queries int32[n, 2], valid bool[n])."""
+    import torch
+    from kmerind_tpu_torch.index import store
+    mixed = _key_drawer(dev, gen, genome)
     exts, bstarts = [], []
     for rows, live in runs:
-        kcols = sortops.sort_rows(mixed(live, 0.8), sentinel_ok=True,
-                                  as_cols=True)[0]
-        kcols = torch.cat([kcols, torch.full((2, rows - live), -1,
-                                             dtype=torch.int32, device=dev)],
-                          dim=1)
+        kcols = _sorted_run_cols(dev, mixed, rows, live)
         ext, bstart = store.run_query_aux(store.run_from_sorted_unit(
             kcols, torch.tensor(live, device=dev)))
         exts.append(ext)
@@ -326,6 +365,45 @@ def lookup_runs(dev, gen, runs=LOOKUP_RUNS, n_queries: int = LOOKUP_QUERIES,
     queries = mixed(n_queries, 0.85).contiguous()
     return (exts, bstarts, queries,
             torch.ones(n_queries, dtype=torch.bool, device=dev))
+
+
+def graph_runs(dev, gen, runs=GRAPH_RUNS, n_queries: int = LOOKUP_QUERIES,
+               genome: int = LOOKUP_GENOME):
+    """Node-lookup tables of unit graph runs shaped like a graph build's
+    (`runs`: rows and live rows each; one row a window, so a key repeats
+    over its run; edge bytes 0-255, a sentinel tail), keys drawn as
+    `lookup_runs` draws them, and `n_queries` query rows.  Returns (tables
+    — per run (ext, bstart, bsum, None) as `runs_vec_query_step` passes
+    them —, queries int32[n, 2], valid bool[n])."""
+    import torch
+    from kmerind_tpu_torch.index import store
+    mixed = _key_drawer(dev, gen, genome)
+    tables = []
+    for rows, live in runs:
+        kcols = _sorted_run_cols(dev, mixed, rows, live)
+        ebytes = torch.randint(0, 256, (rows,), dtype=torch.int32,
+                               device=dev, generator=gen)
+        weights = (torch.arange(rows, device=dev) < live).to(torch.int32)
+        run = store.run_vec_from_sorted_unit(kcols, ebytes * weights,
+                                             weights)
+        tables.append((*store.run_vec_query_aux(run), run.bsum, None))
+        del kcols, ebytes, weights, run
+    queries = mixed(n_queries, 0.85).contiguous()
+    return (tables, queries,
+            torch.ones(n_queries, dtype=torch.bool, device=dev))
+
+
+def vec_hits(tables, queries) -> int:
+    """The (query, run) pairs of a node lookup whose run holds the query's
+    key (`kernel_bytes`' `hits`)."""
+    from kmerind_tpu_torch.ops import sortops
+    n = 0
+    for ext, bstart, *_ in tables:
+        w, cap = ext.shape[0] - 1, ext.shape[1]
+        lo = sortops.lower_bound_cols_prebuilt(ext, w, bstart, queries)
+        row = ext[:w, lo.clamp(0, cap - 1)].t()
+        n += int(((lo < cap) & (row == queries).all(1)).sum())
+    return n
 
 
 def bound_ms(nbytes: int) -> float:
@@ -1415,7 +1493,10 @@ def phase_p9(dev, path, tmp, codes, quals, qcodes, queries, smi,
         (build["prefix_sum_i32"] >= 8 * tables > 0,
          f"K3 launches {build['prefix_sum_i32']} < 8 x {tables} tables"),
         (k2p_again.get(2, 0) > 0,
-         f"K2 never merged with (edge byte, weight) payloads: {k2p_again}")]
+         f"K2 never merged with (edge byte, weight) payloads: {k2p_again}"),
+        (build["run_vec_lookup"] == len(got),
+         f"node lookup launches {build['run_vec_lookup']} != {len(got)} "
+         "node_counts() calls on one shard")]
     del g
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -1467,7 +1548,9 @@ def phase_p9(dev, path, tmp, codes, quals, qcodes, queries, smi,
     launch_checks += [
         (ql["extract_canonical"] == qchunks, "quality graph: K1 launches"),
         (qk2.get(2, 0) > 0, "quality graph: K2 never ran on its unit "
-         "merges (edge byte, quality bits)")]
+         "merges (edge byte, quality bits)"),
+        (ql["run_vec_lookup"] == 2, f"quality graph: node lookup launches "
+         f"{ql['run_vec_lookup']} != 2 (node_counts, node_quality)")]
     for cond, what in launch_checks:
         check(cond, what)
     launches = {kn: build[kn] + again[kn] + ql[kn] for kn in build}
@@ -2596,6 +2679,28 @@ def main() -> int:
                              rows=[live for _, live in LOOKUP_RUNS],
                              tbits=16))
     del exts, bstarts, lq, lvalid, got
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the graph's node lookup at the graph cell's shape (`graph_runs`: the
+    # 8 unit runs its build leaves, the same batch); plain: the per-run
+    # searches and [9, 2m] table gathers
+    tables, lq, lvalid = graph_runs(dev, gen)
+    got, _ = kernels.run_vec_lookup(tables, lq, lvalid)
+    err = err_of(got, kernels.run_vec_lookup_plain(tables, lq, lvalid)[0])
+    hits = vec_hits(tables, lq)
+    log(f"P2 run_vec_lookup: {int((got[:, 8] > 0).sum())} of {lq.shape[0]}"
+        f" queries found, {hits} (query, run) hits [{smi}]")
+    record("run_vec_lookup",
+           f"{len(tables)} runs (rows, live rows: {GRAPH_RUNS}), "
+           f"{lq.shape[0]} queries w=2, plain: the per-run searches and "
+           "table gathers",
+           lambda: kernels.run_vec_lookup(tables, lq, lvalid),
+           lambda: kernels.run_vec_lookup_plain(tables, lq, lvalid), err,
+           kernel_bytes("run_vec_lookup", n=lq.shape[0], w=2,
+                        rows=[live for _, live in GRAPH_RUNS], tbits=16,
+                        hits=hits))
+    del tables, lq, lvalid, got
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"P2 seconds {time.perf_counter() - t0:.2f} [{smi}]")

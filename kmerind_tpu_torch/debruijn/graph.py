@@ -328,9 +328,10 @@ class DeBruijnGraph(_IndexBase):
     def _node_payload(self, kmers):
         """(counters int32[m, 9], quality sums float64[m] or None) of the
         query nodes, transformed like the graph's own.  Phases: "rows",
-        then "query" with its children "query.lookup" (routing, and one
-        "query.lookup.run" per run and shard searched) and "query.reply"
-        (the replies in query order, copied to the host)."""
+        then "query" with its children "query.lookup" (routing, one
+        "query.lookup.run" per run and shard as its tables join the shard's
+        one lookup launch) and "query.reply" (the replies in query order,
+        copied to the host: the wait for the lookup)."""
         words = self._query_words(kmers)
         self._ensure_tables()
         aux = self._ensure_aux()

@@ -569,29 +569,28 @@ def runs_vec_query_step(queries: torch.Tensor, qvalid: torch.Tensor, runs,
                         hash_name: str = "murmur",
                         saturate: int | None = None):
     """Node query over a list of edge runs (the node_counts surface,
-    de_bruijn_node_trait.hpp:186-280): route once, look up in each run,
-    sum, clamp at `saturate`, reply.  queries [p, m, w], qvalid [p, m];
-    aux: each run's per-shard aux; timer: the graph's `PhaseTimer`, whose
-    phase "query.lookup.run" each run's lookup on each shard enters.
-    Returns (counters int32[p, m, 9], quality sums float64[p, m] — None
-    unless the runs are quality stores —, overflow)."""
+    de_bruijn_node_trait.hpp:186-280): route once, then per shard one
+    `kernels.run_vec_lookup` (every run's lookup, summed, clamped at
+    `saturate`), reply.  queries [p, m, w], qvalid [p, m]; aux: each run's
+    per-shard aux; timer: the graph's `PhaseTimer`, whose phase
+    "query.lookup.run" each run enters on each shard as its tables join
+    the lookup.  Returns (counters int32[p, m, 9], quality sums float64[p,
+    m] — None unless the runs are quality stores —, overflow)."""
     owner = owners_for(queries, nparts, hash_name)
     (rq,), rvalid, route = dist.distribute((queries,), owner, qvalid, nparts,
                                            capacity)
     counts, qsums = [], []
     for s in range(rq.shape[0]):
-        parts = []
+        tables = []
         for run, run_aux in zip(runs, aux):
             with timer.phase("query.lookup.run"):
-                parts.append(st.run_vec_lookup(run.shard(s), rq[s],
-                                               run_aux[s]))
-        total = sum(c for c, _ in parts)
-        if saturate is not None:
-            total = total.clamp(max=saturate)
-        counts.append(torch.where(rvalid[s][:, None], total, 0))
-        if parts[0][1] is not None:
-            qsums.append(torch.where(rvalid[s], sum(q for _, q in parts),
-                                     0.0))
+                tables.append((*run_aux[s], run.bsum[s],
+                               run.qcsum[s] if isinstance(run, st.RunVecQStore)
+                               else None))
+        c, q = kernels.run_vec_lookup(tables, rq[s], rvalid[s], saturate)
+        counts.append(c)
+        if q is not None:
+            qsums.append(q)
     back = dist.undistribute((st.stack(counts),) + (
         (st.stack(qsums),) if qsums else ()), route, nparts, capacity)
     return back[0], back[1] if qsums else None, route.overflow

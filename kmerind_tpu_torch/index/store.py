@@ -65,6 +65,7 @@ __all__ = ["CountStore", "empty_count_store", "stack_count_stores",
            "run_vecq_from_sorted", "run_vecq_from_sorted_unit",
            "run_vecq_merge", "run_vecq_merge_unit", "run_vec_with_table",
            "run_vec_distinct", "run_vec_query_aux", "run_vec_lookup",
+           "run_vec_lookup_aux",
            "run_vec_export", "run_vec_compact", "run_vec_grow",
            "KVStore", "empty_kv_store", "kv_grow", "kv_reduce", "kv_insert",
            "kv_cut", "kv_lookup", "kv_keep", "kv_erase", "kv_filter",
@@ -1113,14 +1114,17 @@ def run_vec_query_aux(store: RunVecStore, tbits: int = 16):
     return _runlen_aux(store.keys, tbits)
 
 
-def run_vec_lookup(store: RunVecStore, queries: torch.Tensor, aux=None):
+def run_vec_lookup_aux(ext: torch.Tensor, bstart: torch.Tensor,
+                       bsum: torch.Tensor, qcsum: torch.Tensor | None,
+                       queries: torch.Tensor):
     """(counts int32[m, 9], qsum float64[m] or None) per query key row
-    [m, w], zeros where absent: one bucket-seeded lower_bound, the run
-    length from the aux row, and one [9, 2m] gather of the table at both
-    run bounds.  qsum: the quality sums' difference likewise (a quality
-    store), else None.  aux: the run's `run_vec_query_aux`, if cached."""
-    ext, bstart = run_vec_query_aux(store) if aux is None else aux
-    w, cap = store.keys.shape
+    [m, w], zeros where absent, against a run's cached aux metadata (ext,
+    bstart: its `run_vec_query_aux`) and tables (bsum int32[9, cap]; qcsum
+    float64[cap] of a quality store, else None): one bucket-seeded
+    lower_bound, the run length from the aux row, and one [9, 2m] gather
+    of the table at both run bounds; qsum the quality sums' difference
+    likewise."""
+    w, cap = ext.shape[0] - 1, ext.shape[1]
     m = queries.shape[0]
     lo = sortops.lower_bound_cols_prebuilt(ext, w, bstart, queries)
     g = ext[:, lo.clamp(0, cap - 1)]
@@ -1135,11 +1139,19 @@ def run_vec_lookup(store: RunVecStore, queries: torch.Tensor, aux=None):
         v = torch.where(bounds > 0, table[..., at], 0)
         return v[..., m:] - v[..., :m]
 
-    counts = torch.where(hit[:, None], diff(store.bsum).t(), 0)
-    qsum = None
-    if isinstance(store, RunVecQStore):
-        qsum = torch.where(hit, diff(store.qcsum), 0.0)
+    counts = torch.where(hit[:, None], diff(bsum).t(), 0)
+    qsum = None if qcsum is None else torch.where(hit, diff(qcsum), 0.0)
     return counts, qsum
+
+
+def run_vec_lookup(store: RunVecStore, queries: torch.Tensor, aux=None):
+    """`run_vec_lookup_aux` of one run: qsum for a quality store (a
+    `RunVecQStore`), else None.  aux: the run's `run_vec_query_aux`, if
+    cached."""
+    ext, bstart = run_vec_query_aux(store) if aux is None else aux
+    return run_vec_lookup_aux(
+        ext, bstart, store.bsum,
+        store.qcsum if isinstance(store, RunVecQStore) else None, queries)
 
 
 def run_vec_export(store: RunVecStore, saturate: int | None = None):

@@ -19,11 +19,14 @@ The kernels replace the Pallas kernels of
 * K4 `run_length_weights` (``csrc/run_length_weights.cu``) — plain version
   `run_length_weights_plain`;
 
-and one that replaces no Pallas kernel:
+and two that replace no Pallas kernel:
 
 * `run_count_lookup` (``csrc/run_lookup.cu``) — a count batch's lookup
   over all runs of a count index's shard, plain version
-  `run_count_lookup_plain` (the per-run searches of ``index/store.py``).
+  `run_count_lookup_plain` (the per-run searches of ``index/store.py``);
+* `run_vec_lookup` (the same source, the same search) — a de Bruijn
+  graph's node lookup over all runs of a shard: 9 counter differences and
+  a quality graph's float64 sum, plain version `run_vec_lookup_plain`.
 
 Each wrapper takes the plain version for tensors on the CPU and, for CUDA
 tensors, launches its kernel or raises: nothing falls back.  It checks
@@ -67,7 +70,8 @@ __all__ = ["LAUNCHES", "K1_LAUNCHES", "K2_PAYLOAD_LAUNCHES", "KERNELS",
            "bitonic_merge_cols", "bitonic_merge_cols_plain",
            "prefix_sum_i32", "prefix_sum_i32_plain",
            "run_length_weights", "run_length_weights_plain",
-           "run_count_lookup", "run_count_lookup_plain"]
+           "run_count_lookup", "run_count_lookup_plain",
+           "run_vec_lookup", "run_vec_lookup_plain"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "ops" / "csrc"
@@ -101,6 +105,8 @@ KERNELS = {
         "kmerind_tpu_torch/ops/csrc/run_length_weights.cu",
         "kmerind_tpu/ops/pallas_kernels.py:351"),
     "run_count_lookup": (
+        "kmerind_tpu_torch/ops/csrc/run_lookup.cu", None),
+    "run_vec_lookup": (
         "kmerind_tpu_torch/ops/csrc/run_lookup.cu", None),
 }
 
@@ -175,11 +181,14 @@ def _bind(lib):
     lib.kmerind_run_count_lookup.argtypes = [
         _vp, _i64, _int, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
         _i64, _vp, _vp]
+    lib.kmerind_run_vec_lookup.argtypes = [
+        _vp, _i64, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
+        _int, _int, _i64, _vp, _vp, _vp]
     for fn in (lib.kmerind_extract_canonical, lib.kmerind_merge_runs,
                lib.kmerind_bitonic_merge, lib.kmerind_prefix_sum_i32,
                lib.kmerind_run_length_weights,
                lib.kmerind_run_count_lookup_max_runs,
-               lib.kmerind_run_count_lookup):
+               lib.kmerind_run_count_lookup, lib.kmerind_run_vec_lookup):
         fn.restype = _int
     return lib
 
@@ -593,47 +602,47 @@ def run_count_lookup_plain(exts, bstarts, queries: torch.Tensor,
     return torch.where(valid, total, 0)
 
 
-def _lookup_tables(exts, bstarts, queries: torch.Tensor,
-                   valid: torch.Tensor) -> tuple:
-    """Check `run_count_lookup`'s arguments (all on the queries' device,
-    dtypes, shapes; on the card also contiguity) and return (exts, bstarts,
-    caps, tbits) as lists."""
+def _lookup_tables(exts, bstarts, queries: torch.Tensor, valid: torch.Tensor,
+                   kname: str = "run_count_lookup", more=()) -> tuple:
+    """Check a lookup kernel's arguments (all on the queries' device,
+    dtypes, shapes; on the card also contiguity) — `more`: (name, tensor,
+    dtype, dims) of further tables — and return (exts, bstarts, caps,
+    tbits) as lists."""
     dev = queries.device
     exts, bstarts = list(exts), list(bstarts)
     if len(exts) != len(bstarts):
-        raise ValueError(f"run_count_lookup: {len(exts)} key tables and "
+        raise ValueError(f"{kname}: {len(exts)} key tables and "
                          f"{len(bstarts)} bucket tables")
     for name, t, dtype, ndim in (
             ("queries", queries, torch.int32, 2),
             ("valid", valid, torch.bool, 1),
             *(("ext", e, torch.int32, 2) for e in exts),
-            *(("bstart", b, torch.int32, 1) for b in bstarts)):
+            *(("bstart", b, torch.int32, 1) for b in bstarts), *more):
         if t.device != dev:
-            raise ValueError(f"run_count_lookup {name}: on {t.device}, the "
-                             f"queries on {dev}")
+            raise ValueError(f"{kname} {name}: on {t.device}, the queries "
+                             f"on {dev}")
         if t.dtype != dtype:
-            raise TypeError(f"run_count_lookup {name}: expected {dtype}, "
-                            f"got {t.dtype}")
+            raise TypeError(f"{kname} {name}: expected {dtype}, got "
+                            f"{t.dtype}")
         if t.dim() != ndim:
-            raise ValueError(f"run_count_lookup {name}: expected {ndim} "
-                             f"dims, got {t.dim()}")
+            raise ValueError(f"{kname} {name}: expected {ndim} dims, got "
+                             f"{t.dim()}")
         if dev.type == "cuda" and not t.is_contiguous():
-            raise ValueError(f"run_count_lookup {name}: tensor must be "
-                             "contiguous")
+            raise ValueError(f"{kname} {name}: tensor must be contiguous")
     m, w = queries.shape
     if w < 1 or valid.shape[0] != m:
-        raise ValueError(f"run_count_lookup: queries {tuple(queries.shape)}"
-                         f" with valid {tuple(valid.shape)}")
+        raise ValueError(f"{kname}: queries {tuple(queries.shape)} with "
+                         f"valid {tuple(valid.shape)}")
     caps, tbits = [], []
     for ext, bstart in zip(exts, bstarts):
         if ext.shape[0] != w + 1 or ext.shape[1] >= 1 << 31:
-            raise ValueError(f"run_count_lookup: ext {tuple(ext.shape)} for "
+            raise ValueError(f"{kname}: ext {tuple(ext.shape)} for "
                              f"{w}-word keys")
         nb = bstart.shape[0]
         tb = (nb - 1).bit_length() - 1
         if tb < 0 or nb != (1 << tb) + 1:
-            raise ValueError(f"run_count_lookup: bucket table of {nb} "
-                             "entries is not 2^tbits + 1")
+            raise ValueError(f"{kname}: bucket table of {nb} entries is not "
+                             "2^tbits + 1")
         caps.append(ext.shape[1])
         tbits.append(tb)
     return exts, bstarts, caps, tbits
@@ -681,3 +690,95 @@ def run_count_lookup(exts, bstarts, queries: torch.Tensor,
             _stream(dev))
         _launched("run_count_lookup", rc)
     return out
+
+
+# ------------------------------------------------------- graph node lookup
+def run_vec_lookup_plain(tables, queries: torch.Tensor, valid: torch.Tensor,
+                         saturate: int | None = None):
+    """Plain `run_vec_lookup`: ``index/store.py``'s `run_vec_lookup_aux` (a
+    bucket-seeded search unrolled on the host, then a [9, 2m] gather of the
+    counter table) of each run, summed in run order, clamped at `saturate`,
+    0 where not valid."""
+    from ..index import store      # store imports sortops, which imports us
+    m, dev = queries.shape[0], queries.device
+    counts = torch.zeros((m, 9), dtype=torch.int32, device=dev)
+    qsum = (torch.zeros(m, dtype=torch.float64, device=dev)
+            if tables and tables[0][3] is not None else None)
+    for ext, bstart, bsum, qcsum in tables:
+        c, q = store.run_vec_lookup_aux(ext, bstart, bsum, qcsum, queries)
+        counts = counts + c
+        if qsum is not None:
+            qsum = qsum + q
+    if saturate is not None:
+        counts = counts.clamp(max=saturate)
+    counts = torch.where(valid[:, None], counts, 0)
+    return counts, None if qsum is None else torch.where(valid, qsum, 0.0)
+
+
+def run_vec_lookup(tables, queries: torch.Tensor, valid: torch.Tensor,
+                   saturate: int | None = None):
+    """(counts int32[m, 9], qsum float64[m] or None): per query row, the
+    sum over a shard's graph runs of the key's 9 counters (0 where absent),
+    wrapping as int32, clamped at `saturate` when given; qsum the float64
+    sum of its quality sums, added in run order from 0.0, when the runs
+    carry them; both 0 where `valid` is False.
+
+    tables: per run (ext, bstart, bsum, qcsum) — its
+    `store.run_vec_query_aux` (ext int32[w + 1, cap]: sorted key columns,
+    then each row's key run length; bstart int32[2^tbits + 1]), its counter
+    table bsum int32[9, cap] and a quality run's qcsum float64[cap] (None
+    on every run of a plain graph); queries int32[m, w] row-major, valid
+    bool[m].  On the card one launch per (up to) 16 runs, as
+    `run_count_lookup`: the same search, then every hit run's two prefix
+    reads a counter, no host read."""
+    tables = [tuple(t) for t in tables]
+    if any(len(t) != 4 for t in tables):
+        raise ValueError("run_vec_lookup: a run's tables are (ext, bstart, "
+                         "bsum, qcsum)")
+    quality = bool(tables) and tables[0][3] is not None
+    if any((t[3] is not None) != quality for t in tables):
+        raise ValueError("run_vec_lookup: quality sums on some runs only")
+    exts, bstarts, bsums, qcsums = (list(c) for c in zip(*tables)) \
+        if tables else ([], [], [], [])
+    more = [("bsum", b, torch.int32, 2) for b in bsums]
+    if quality:
+        more += [("qcsum", q, torch.float64, 1) for q in qcsums]
+    exts, bstarts, caps, tbits = _lookup_tables(
+        exts, bstarts, queries, valid, "run_vec_lookup", more)
+    for r, cap in enumerate(caps):
+        if tuple(bsums[r].shape) != (9, cap):
+            raise ValueError(f"run_vec_lookup: run {r}'s counter table "
+                             f"{tuple(bsums[r].shape)} for {cap} rows")
+        if quality and tuple(qcsums[r].shape) != (cap,):
+            raise ValueError(f"run_vec_lookup: run {r}'s quality sums "
+                             f"{tuple(qcsums[r].shape)} for {cap} rows")
+    dev = queries.device
+    if dev.type == "cpu":
+        return run_vec_lookup_plain(tables, queries, valid, saturate)
+    if dev.type != "cuda":
+        raise ValueError(f"run_vec_lookup: expected a CUDA or CPU tensor, "
+                         f"got {dev}")
+    m, w = queries.shape
+    out = torch.empty((m, 9), dtype=torch.int32, device=dev)
+    qout = torch.empty(m, dtype=torch.float64, device=dev) if quality \
+        else None
+    if m == 0:
+        return out, qout
+    lib = _cuda_lib()
+    per = lib.kmerind_run_count_lookup_max_runs()
+    nruns = len(caps)
+    for first in range(0, max(nruns, 1), per):
+        sl = slice(first, first + per)
+        n = len(caps[sl])
+        tables = [(_vp * n)(*(t.data_ptr() for t in ts[sl])) for ts in
+                  (exts, bstarts, bsums, qcsums if quality else [])]
+        tables += [(_i64 * n)(*caps[sl]), (_int * n)(*tbits[sl])]
+        rc = lib.kmerind_run_vec_lookup(
+            queries.data_ptr(), m, w, valid.data_ptr(),
+            *(ctypes.cast(t, _vp) for t in tables), n, int(quality),
+            int(first > 0), int(first + per >= nruns),
+            int(saturate is not None), 0 if saturate is None else saturate,
+            out.data_ptr(), 0 if qout is None else qout.data_ptr(),
+            _stream(dev))
+        _launched("run_vec_lookup", rc)
+    return out, qout

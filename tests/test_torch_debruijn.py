@@ -9,6 +9,9 @@
   chunk boundaries, at p = 1 and 4, canonical and not, several chunk
   sizes, raw and pre-encoded batches; and against the oracle of
   ``tests/test_debruijn.py``;
+* the node lookup over several runs (``ops/kernels.run_vec_lookup`` on
+  CPU tensors: its plain version) against the JAX runs' lookups summed,
+  on store runs and on a built graph's runs, and its argument checks;
 * npz files across the packages, ``convert.debruijn_graph_from_state``,
   ``IndexConfig(index="debruijn")``, ``save_index`` / ``load_index``, the
   chunk and FASTA-block readers' left halo.
@@ -48,6 +51,7 @@ from kmerind_tpu_torch.index import store as tst
 from kmerind_tpu_torch.index.convert import debruijn_graph_from_state
 from kmerind_tpu_torch.io import files as tfiles
 from kmerind_tpu_torch.io import read_file as port_read_file
+from kmerind_tpu_torch.ops import kernels
 from kmerind_tpu_torch.utils.checkpoint import load_index, save_index
 
 from test_debruijn import oracle_debruijn
@@ -375,6 +379,139 @@ def test_vecq_float32_prefix_known_divergence():
     _, tsum = _port_lookup(_port_run(cols, True), q)
     assert np.max(np.abs(jsum - want) / want) > 1e-3      # the fault
     np.testing.assert_allclose(tsum, want, rtol=1e-6)
+
+
+# ---------------------------------------------------- the node lookup
+def _tables(run, aux=None):
+    """A port run's node-lookup tables (ext, bstart, bsum, qcsum)."""
+    ext, bstart = tst.run_vec_query_aux(run) if aux is None else aux
+    return ext, bstart, run.bsum, getattr(run, "qcsum", None)
+
+
+def _jax_runs_summed(jruns, q, quality, valid, saturate):
+    """The JAX runs' node lookups of uint32 rows q summed (int32 wrap),
+    clamped at `saturate`, 0 where not valid; the quality sums (float32
+    prefix differences) summed in float64."""
+    parts = [_jax_lookup(j, q, quality) for j in jruns]
+    counts = sum(c.astype(np.int64) for c, _ in parts).astype(np.int32)
+    if saturate is not None:
+        counts = np.minimum(counts, saturate)
+    counts = np.where(valid[:, None], counts, 0)
+    qsum = None
+    if quality:
+        qsum = np.where(valid, sum(s.astype(np.float64) for _, s in parts),
+                        0.0)
+    return counts, qsum
+
+
+def _check_node_lookup(truns, jruns, q, quality, saturate, aux=None):
+    """kernels.run_vec_lookup of the port runs on CPU tensors (no kernel
+    library touched, no launch counted) == the JAX runs' lookups summed,
+    and == the port's per-run lookups summed, bitwise."""
+    rng = np.random.default_rng(len(q))
+    valid = rng.random(len(q)) < 0.9
+    qt, vt = words_t(q), torch.from_numpy(valid)
+    tables = [_tables(r, None if aux is None else aux[i])
+              for i, r in enumerate(truns)]
+    launches = dict(kernels.LAUNCHES)
+    got_c, got_q = kernels.run_vec_lookup(tables, qt, vt, saturate)
+    assert kernels.LAUNCHES == launches
+    assert got_c.dtype == torch.int32 and got_c.shape == (len(q), 9)
+    want = _jax_runs_summed(jruns, q, quality, valid, saturate)
+    total = sum(float(r.qsums.sum()) for r in truns) if quality else 0.0
+    _same_answers((got_c.numpy(), None if got_q is None else got_q.numpy()),
+                  want, total)
+    old = [tst.run_vec_lookup(r, qt) for r in truns]
+    old_c = sum(c for c, _ in old)
+    if saturate is not None:
+        old_c = old_c.clamp(max=saturate)
+    assert torch.equal(got_c, torch.where(vt[:, None], old_c, 0))
+    if quality:
+        old_q = torch.where(vt, sum(s for _, s in old), 0.0)
+        assert got_q.dtype == torch.float64
+        assert torch.equal(got_q.view(torch.int64), old_q.view(torch.int64))
+    else:
+        assert got_q is None
+    assert (want[0] != 0).any(1).sum() > 100 and (want[0] == 0).all(1).any()
+
+
+@pytest.mark.parametrize("quality", [False, True])
+@pytest.mark.parametrize("saturate", [None, 6])
+def test_node_lookup_is_the_jax_runs_summed(quality, saturate, monkeypatch):
+    """Over three store runs (unit and weighted, different capacities and
+    sentinel tails) the node lookup equals the JAX runs' lookups summed;
+    a CPU call never loads the kernel library."""
+    def no_lib():
+        raise AssertionError("the kernel library was loaded for CPU tensors")
+    monkeypatch.setattr(kernels, "_cuda_lib", no_lib)
+    cols = [_edge_run(20 + r, cap=3000 - 600 * r, n_sentinel=100 * r + 1,
+                      unit=r == 1) for r in range(3)]
+    truns = [_port_run(c, quality, unit=r == 1) for r, c in enumerate(cols)]
+    jruns = [_jax_run(c, quality, unit=r == 1) for r, c in enumerate(cols)]
+    _check_node_lookup(truns, jruns, _queries(*(c[0] for c in cols)),
+                       quality, saturate)
+
+
+@pytest.mark.parametrize("quality", [False, True])
+def test_node_lookup_of_a_graphs_runs_matches_jax(reads, tmp_path, quality):
+    """The runs of a built graph (several LSM runs, their cached aux) give
+    the JAX runs' summed lookups, the JAX runs adopted from the same
+    columns; and the graph's node_counts equal the same sums."""
+    path, _ = reads
+    if quality:
+        path = tmp_path / "q.fastq"
+        _write_fastq(path, seed=83)
+    g = _port_graph(path, 1, True, quality=quality, chunk=300, max_runs=8)
+    g._ensure_tables()
+    assert len(g.runs) > 2
+    aux = [a[0] for a in g._ensure_aux()]
+    truns = [r.shard(0) for r in g.runs]
+    jruns = []
+    for r in truns:
+        cols = (words_np(r.keys), r.ebytes.numpy(), r.weights.numpy(),
+                r.qsums.numpy() if quality else r.ebytes.numpy() * 0)
+        jruns.append(_jax_run(cols, quality))
+    keys = [words_np(r.keys) for r in truns]
+    q = _queries(*keys, n_absent=100)
+    _check_node_lookup(truns, jruns, q, quality, None, aux)
+    got, _ = g.node_counts(q)
+    np.testing.assert_array_equal(
+        got, _jax_runs_summed(jruns, q, quality, np.ones(len(q), bool),
+                              None)[0])
+
+
+def test_node_lookup_rejects_bad_input():
+    cols = [_edge_run(30 + r, cap=800) for r in range(2)]
+    (ext, bstart, bsum, qcsum), other = [
+        _tables(_port_run(c, True)) for c in cols]
+    q = words_t(_queries(cols[0][0]))
+    valid = torch.ones(q.shape[0], dtype=torch.bool)
+    lookup = kernels.run_vec_lookup
+    good = [(ext, bstart, bsum, qcsum)]
+    assert lookup(good, q, valid)[1].dtype == torch.float64
+    with pytest.raises(TypeError):                  # int64 queries
+        lookup(good, q.to(torch.int64), valid)
+    with pytest.raises(TypeError):                  # int64 counters
+        lookup([(ext, bstart, bsum.to(torch.int64), qcsum)], q, valid)
+    with pytest.raises(TypeError):                  # float32 quality sums
+        lookup([(ext, bstart, bsum, qcsum.float())], q, valid)
+    with pytest.raises(ValueError):                 # 8 counter streams
+        lookup([(ext, bstart, bsum[:8], qcsum)], q, valid)
+    with pytest.raises(ValueError):                 # a short quality table
+        lookup([(ext, bstart, bsum, qcsum[:-1])], q, valid)
+    with pytest.raises(ValueError):                 # quality on one run only
+        lookup(good + [other[:3] + (None,)], q, valid)
+    with pytest.raises(ValueError):                 # three tables a run
+        lookup([(ext, bstart, bsum)], q, valid)
+    with pytest.raises(ValueError):                 # valid of another length
+        lookup(good, q, valid[:-1])
+    with pytest.raises(ValueError):                 # a query of 3 words
+        lookup(good, torch.zeros((4, 3), dtype=torch.int32), valid[:4])
+    with pytest.raises(ValueError):                 # a table on another device
+        lookup([(ext, bstart, bsum.to("meta"), qcsum)], q, valid)
+    with pytest.raises(ValueError):                 # neither CPU nor CUDA
+        lookup([tuple(t.to("meta") for t in good[0])], q.to("meta"),
+               valid.to("meta"))
 
 
 # ------------------------------------------------------------------ graphs

@@ -69,6 +69,18 @@ CHUNK = chip_smoke.CHUNK
     ("run_count_lookup", dict(n=2, w=1, rows=(5,), tbits=0),
      2 * (4 + 1 + 4 + 32 * 4)),
     ("run_count_lookup", dict(n=7, w=2, rows=(), tbits=16), 7 * 13),
+    # the graph's node lookup: the same search, [n, 9] counters out, and a
+    # hit run's length sector and two sectors a counter stream (the key
+    # run's ends) — 8 runs of 26M live rows (10 probes each) and 8 hits a
+    # query: 581,632 x 8 x 29 sectors, ~4.3 GB
+    ("run_vec_lookup", dict(n=581_632, w=2, rows=(26_000_000,) * 8,
+                            tbits=16, hits=8 * 581_632),
+     581_632 * (8 + 1 + 36 + 32 * 8 * 10) + 32 * 19 * 8 * 581_632),
+    # a quality graph's: 8 bytes of sums out, two sectors more a hit
+    ("run_vec_lookup", dict(n=3, w=9, rows=(1, 1 << 16), tbits=16, hits=2,
+                            quality=True),
+     3 * (36 + 1 + 36 + 8 + 32 * (1 + 2)) + 32 * 21 * 2),
+    ("run_vec_lookup", dict(n=7, w=2, rows=(), tbits=16, hits=0), 7 * 45),
 ])
 def test_kernel_bytes(kname, shape, want):
     assert chip_smoke.kernel_bytes(kname, **shape) == want
@@ -96,7 +108,7 @@ def test_bound_ms_is_bytes_over_the_hbm_rate():
 def test_kernel_bytes_covers_every_kernel_and_no_other():
     from kmerind_tpu_torch.ops import kernels
     shape = dict(n=4, nwords=1, na=1, nb=1, n_out=2, w=1, npay=0, rows=(1,),
-                 tbits=16)
+                 tbits=16, hits=1)
     for kname in kernels.KERNELS:
         assert chip_smoke.kernel_bytes(kname, **shape) > 0
     with pytest.raises(KeyError):

@@ -826,6 +826,163 @@ def test_debruijn_graphs_cuda_match_cpu(dev, tmp_path, k, p):
         np.testing.assert_array_equal(g[dev].items()[1], g["cpu"].items()[1])
 
 
+def _vec_run(rng, w, cap, n_sentinel, nvals, tbits, quality):
+    """One graph run's lookup tables as `runs_vec_query_step` passes them:
+    `store.run_vec_query_aux` of sorted key columns drawn as
+    `_lookup_run`'s (runs of equal keys, a sentinel tail of `n_sentinel`
+    rows), a counter table of any int32 (so that differences and sums
+    wrap) and, with `quality`, float64 prefix sums of values of both signs.
+    Returns (the live key columns, (ext, bstart, bsum, qcsum or None))."""
+    from kmerind_tpu_torch.index import store
+    keys, ext, _ = _lookup_run(rng, w, cap, n_sentinel, nvals, tbits)
+    ext, bstart = store._runlen_aux(ext[:w], tbits)
+    bsum = torch.from_numpy(rng.integers(-2**31, 2**31, (9, cap))
+                            .astype(np.int32))
+    qcsum = (torch.from_numpy(np.cumsum(rng.normal(size=cap)))
+             if quality else None)
+    return keys, (ext, bstart, bsum, qcsum)
+
+
+@pytest.mark.parametrize("w,nruns", [(1, 1), (1, 8), (2, 0), (2, 1),
+                                     (2, 8), (2, 17), (9, 1), (9, 8),
+                                     (9, 17)])
+@pytest.mark.parametrize("saturate", [None, 5])
+@pytest.mark.parametrize("quality", [False, True])
+def test_run_vec_lookup_kernel(dev, w, nruns, saturate, quality):
+    """The graph's node lookup against its plain version on the CPU,
+    bitwise (the quality sums too): key widths 1, 2 (k = 31) and 9 past
+    the registers; 0, 1, 8 and 17 runs (17: two launches, the second
+    adding to the first); a run of one row, an all-sentinel run, bucket
+    tables of 2^0 to 2^20 entries; hits at row 0 and in sentinel tails,
+    absent keys, invalid rows, an empty batch; sums that wrap; no host
+    read (sync debug mode "error")."""
+    rng = np.random.default_rng(w * 100 + nruns * 2 + quality)
+    caps = [int(c) for c in rng.integers(1, 6000, nruns)]
+    if nruns >= 8:
+        caps[1], caps[2] = 1, 4096
+    live, tables = [], []
+    for r, cap in enumerate(caps):
+        n_sentinel = cap if r == 2 else int(rng.integers(0, cap // 10 + 1))
+        keys, t = _vec_run(rng, w, cap, n_sentinel, 40 + 37 * r,
+                           LOOKUP_TBITS[r % 4], quality)
+        live.append(keys)
+        tables.append(t)
+    q = [k[:, rng.integers(0, k.shape[1], 400)].T for k in live
+         if k.shape[1]]
+    q += [k[:, :1].T for k in live if k.shape[1]]          # row 0
+    q.append(np.concatenate([rng.integers(0, 2**32, (700, 1),
+                                          dtype=np.uint32),
+                             rng.integers(0, 3, (700, w - 1),
+                                          dtype=np.uint32)], axis=1))
+    q.append(np.full((5, w), 0xFFFFFFFF, np.uint32))      # the sentinel
+    q = words_t(np.concatenate(q))
+    valid = torch.from_numpy(rng.random(q.shape[0]) < 0.85)
+    want, want_q = kernels.run_vec_lookup_plain(tables, q, valid, saturate)
+    d = [tuple(None if x is None else x.to(dev) for x in t) for t in tables]
+    dq, dvalid = q.to(dev), valid.to(dev)
+    torch.cuda.synchronize()
+    before = kernels.LAUNCHES["run_vec_lookup"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, got_q = kernels.run_vec_lookup(d, dq, dvalid, saturate)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = before + max(1, -(-nruns // 16))
+    assert kernels.LAUNCHES["run_vec_lookup"] == launches
+    assert got.dtype == torch.int32 and got.shape == (q.shape[0], 9)
+    assert torch.equal(got.cpu(), want)
+    if quality and nruns:
+        assert got_q.dtype == torch.float64
+        assert torch.equal(got_q.cpu().view(torch.int64),
+                           want_q.view(torch.int64))
+        assert (want_q != 0).sum() > 100
+    else:
+        assert got_q is None and want_q is None
+    if nruns:
+        assert (want != 0).any(1).sum() > 100
+    empty, empty_q = kernels.run_vec_lookup(d, dq[:0], dvalid[:0], saturate)
+    assert empty.shape == (0, 9)
+    assert (empty_q is None) == (not (quality and nruns))
+    assert kernels.LAUNCHES["run_vec_lookup"] == launches
+
+
+def test_run_vec_lookup_refuses_what_it_does_not_take(dev):
+    """CUDA tensors the node lookup does not take raise: non-contiguous
+    queries or counter table, a table on the CPU, int64 counters, float32
+    quality sums, a counter table of the wrong shape, quality sums on some
+    runs only."""
+    rng = np.random.default_rng(2)
+    tables = [tuple(x.to(dev) for x in _vec_run(rng, 2, 100, 3, 10, 16,
+                                                True)[1])
+              for _ in range(2)]
+    (ext, bstart, bsum, qcsum), other = tables
+    q = torch.zeros((8, 2), dtype=torch.int32, device=dev)
+    valid = torch.ones(8, dtype=torch.bool, device=dev)
+    lookup = kernels.run_vec_lookup
+    with pytest.raises(ValueError, match="contiguous"):
+        lookup(tables, q.t().contiguous().t(), valid)
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = torch.zeros((9, 200), dtype=torch.int32, device=dev)
+        lookup([(ext, bstart, wide[:, :100], qcsum)], q, valid)
+    with pytest.raises(ValueError):
+        lookup([(ext, bstart, bsum.cpu(), qcsum)], q, valid)
+    with pytest.raises(TypeError):
+        lookup([(ext, bstart, bsum.to(torch.int64), qcsum)], q, valid)
+    with pytest.raises(TypeError):
+        lookup([(ext, bstart, bsum, qcsum.float())], q, valid)
+    with pytest.raises(ValueError):
+        lookup([(ext, bstart, bsum[:8].contiguous(), qcsum)], q, valid)
+    with pytest.raises(ValueError):
+        lookup([(ext, bstart, bsum, qcsum), other[:3] + (None,)], q, valid)
+
+
+@pytest.mark.parametrize("p", [1, 4])
+def test_graph_node_queries_through_the_lookup_kernel(dev, tmp_path,
+                                                      monkeypatch, p):
+    """Both graphs' node queries on the card over several runs equal the
+    CPU graphs' (counters exactly, quality means at rtol 1e-6: each device
+    builds its own float64 prefix sums); one lookup launch per shard per
+    call, each run entering "query.lookup.run" once a shard, and the plain
+    lookup never runs on the card."""
+    path = tmp_path / "reads.fastq"
+    reads = write_reads(path, 600, 150, 5000, seed=6, n_rate=0.002,
+                        varied_quality=True)
+    spec = kp.KmerSpec(31, kp.DNA)
+    q = [r[i:i + 31] for r in reads[:100] for i in (0, 50, 119)]
+    q += ["ACGT" * 7 + "ACG"] * 3
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain node lookup ran on the card")
+    for cls in (kp.DeBruijnGraph, kp.QualityDeBruijnGraph):
+        g = {}
+        for d in ("cpu", dev):
+            g[d] = cls(spec, device=d, nparts=p, max_runs=8)
+            g[d].insert_batch(read_file(path, kp.ASCII), chunk_bases=4000)
+        want, want_found = g["cpu"].node_counts(q)
+        if cls is kp.QualityDeBruijnGraph:
+            want_mean = g["cpu"].node_quality(q)[0]
+        nruns = len(g[dev].runs)
+        assert nruns > 2
+        with monkeypatch.context() as mp:
+            mp.setattr(kernels, "run_vec_lookup_plain", no_plain)
+            g[dev].node_counts(q)          # the tables and aux, once
+            before = kernels.LAUNCHES["run_vec_lookup"]
+            entered = g[dev].timer.count("query.lookup.run")
+            got, found = g[dev].node_counts(q)
+            assert kernels.LAUNCHES["run_vec_lookup"] == before + p
+            assert g[dev].timer.count("query.lookup.run") == \
+                entered + nruns * p
+            if cls is kp.QualityDeBruijnGraph:
+                mean = g[dev].node_quality(q)[0]
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(found, want_found)
+        assert want_found.sum() > 250 and not want_found.all()
+        np.testing.assert_array_equal(g[dev].edge_exists(q),
+                                      g["cpu"].edge_exists(q))
+        if cls is kp.QualityDeBruijnGraph:
+            np.testing.assert_allclose(mean, want_mean, rtol=1e-6)
+
+
 # ----------------------------------------- Bimolecule and the value maps
 @pytest.mark.parametrize("na,nb", [
     (4 * MERGE_TILE - 1, 4 * MERGE_TILE + 1), (MERGE_TILE, MERGE_TILE),

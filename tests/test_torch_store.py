@@ -263,3 +263,40 @@ def test_run_count_lookup_rejects_bad_input():
         lookup([e.to("meta") for e in exts],
                [b.to("meta") for b in bstarts], qt.to("meta"),
                valid.to("meta"))
+
+
+def test_run_vec_lookup_plain_sums_the_runs_in_order():
+    """The node lookup's plain version (the CPU path) adds each run's
+    counter differences wrapping as int32 and its float64 quality
+    differences in run order from 0.0, bit for bit: on tables whose prefix
+    differences round (any int32 counters, float64 prefix sums of values
+    of both signs), where another order would give other bits."""
+    rng = np.random.default_rng(5)
+    tables, keys = [], []
+    for r in range(4):
+        k, _, t = _stores(20 + r, cap=3000 - 500 * r, n_sentinel=40 * r + 1)
+        ext, bstart = tst._runlen_aux(t.keys)
+        cap = ext.shape[1]
+        bsum = torch.from_numpy(rng.integers(-2**31, 2**31, (9, cap))
+                                .astype(np.int32))
+        qcsum = torch.from_numpy(np.cumsum(rng.normal(size=cap) * 1e3))
+        tables.append((ext, bstart, bsum, qcsum))
+        keys.append(k)
+    q = words_t(np.concatenate(
+        [k[:, rng.integers(0, k.shape[1], 400)].T for k in keys]
+        + [rng.integers(0, 3000, (100, 2)).astype(np.uint32)]))
+    valid = torch.from_numpy(rng.random(q.shape[0]) < 0.9)
+    counts, qsum = kernels.run_vec_lookup(tables, q, valid, 7)
+    parts = [tst.run_vec_lookup_aux(*t, q) for t in tables]
+    want_c = torch.zeros((q.shape[0], 9), dtype=torch.int32)
+    want_q = torch.zeros(q.shape[0], dtype=torch.float64)
+    for c, s in parts:
+        want_c, want_q = want_c + c, want_q + s
+    assert torch.equal(counts, torch.where(valid[:, None],
+                                           want_c.clamp(max=7), 0))
+    assert torch.equal(qsum.view(torch.int64),
+                       torch.where(valid, want_q, 0.0).view(torch.int64))
+    backwards = sum((s for _, s in parts[::-1]),
+                    torch.zeros(q.shape[0], dtype=torch.float64))
+    assert not torch.equal(backwards.view(torch.int64),
+                           want_q.view(torch.int64))

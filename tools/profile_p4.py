@@ -97,6 +97,7 @@ PORT_KERNELS = {
     "prefix_sum_i32": ("prefix_scan_kernel",),
     "run_length_weights": ("rl_tiles", "rl_carry"),
     "run_count_lookup": ("run_count_lookup_kernel",),
+    "run_vec_lookup": ("run_vec_lookup_kernel",),
 }
 
 
