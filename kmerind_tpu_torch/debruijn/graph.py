@@ -7,9 +7,9 @@ bytes of the windows that hit it (de_bruijn_node_trait.hpp:186-280
 `edge_counts`; `edge_exists` is the thresholded view).  Construction is
 the index build with the edge byte as an extra payload
 (de_bruijn_construct_engine.hpp:91-131 zips the k-mer and edge
-iterators); the node store is a list of sorted runs (`store.RunVecStore`,
-p shards stacked on one device) whose counters are prefix-sum
-differences.
+iterators); the node store is a run list (``index/api.py``'s
+`_RunListIndex`) of sorted runs (`store.RunVecStore`, p shards stacked on
+one device) whose counters are prefix-sum differences.
 
 Each chunk lands as one UNIT run per shard (K1 extracts, one sort); runs
 merge (K2: the edge byte as the one payload of two unit runs, the edge
@@ -32,7 +32,7 @@ from .. import alphabets
 from ..io.batch import ReadBatch
 from ..index import distributed as dx
 from ..index import store as st
-from ..index.api import _IndexBase, _next_pow2, _open_npz
+from ..index.api import _RunListIndex, _next_pow2, _open_npz
 from ..kmer import KmerSpec
 from ..ops.keys import from_numpy_u32, to_numpy_u32
 from ..parallel.mesh import Mesh
@@ -44,7 +44,7 @@ __all__ = ["DeBruijnGraph", "QualityDeBruijnGraph"]
 _DIM = 9  # out A C G T, in A C G T, self
 
 
-class DeBruijnGraph(_IndexBase):
+class DeBruijnGraph(_RunListIndex):
     """De Bruijn graph over `nparts` hash-partitioned shards stacked on one
     device (`device`, "cuda" unless the caller names another).
 
@@ -66,6 +66,15 @@ class DeBruijnGraph(_IndexBase):
     """
 
     _npz_kind = "debruijn"
+    # distinct (key, edge byte) groups are a few per node in real genomes:
+    # size a compaction for 4x before giving up on shrinking
+    _compact_headroom = 4
+    _overflow_message = (
+        "de Bruijn raw weight total would overflow the int32 prefix sums on "
+        "a shard; use more shards or smaller insert batches")
+    _stats_step = staticmethod(dx.run_vec_stats_step)
+    _aux_step = staticmethod(dx.run_vec_aux_step)
+    _grow_run = staticmethod(st.run_vec_grow)
 
     def __init__(self, spec: KmerSpec, device="cuda", canonical: bool = True,
                  nparts: int = 1, hash_name: str = "murmur",
@@ -77,81 +86,22 @@ class DeBruijnGraph(_IndexBase):
                 "DeBruijnGraph defines edge orientation on the lex_less "
                 "canonical strand; transform-name presets apply to the "
                 "k-mer index families only")
-        super().__init__(spec, device, canonical, nparts, timer, mesh)
-        self.hash_name = hash_name
-        self.saturate = saturate
-        self.initial_capacity = initial_capacity
-        self.max_runs = max_runs
-        #: compact when capacity >= compact_factor * next_pow2(4 * distinct)
-        self.compact_factor = 4
         self._warned_lossy_edges = False
-        self.clear()
+        super().__init__(spec, device, canonical, nparts, hash_name,
+                         saturate, initial_capacity, max_runs, timer, mesh)
 
-    def _empty_store(self, capacity: int, nwords: int, device):
-        return st.empty_run_vec_store(capacity, nwords, device)
+    def _empty_store(self):
+        return st.empty_run_vec_store(self.initial_capacity,
+                                      self.spec.nwords, self.device)
 
-    def clear(self):
-        """Drop every node: one empty run of `initial_capacity` rows per
-        shard."""
-        self.runs = [st.stack_stores([self._empty_store(
-            self.initial_capacity, self.spec.nwords, self.device)]
-            * self.mesh.p_local)]
-        #: per-run flag: weight 1 per live row, live rows first (file
-        #: ingest output) — such pairs merge without the weight column
-        self._unit = [self.spec.sentinel_safe]
-        self._virgin = True
-        #: bound on any shard's raw weight total (the int32 prefix sums
-        #: would wrap past 2^31; `_note_weight`)
-        self._ingested_weight = 0
-        self._aux_cache: list = []
-        return self
+    def _adopt(self, words, ebytes, weights, qsums, unit: bool):
+        """A LAZY run (the table waits for `_ensure_tables`: an
+        intermediate LSM run is merge fodder)."""
+        return dx.run_vec_adopt_step(words, ebytes, weights, qsums, unit=unit,
+                                     table=False)
 
-    # ------------------------------------------------------------------
-    @property
-    def store(self) -> list:
-        """The run list, as the JAX package's `store`; assigning a run or a
-        list of runs adopts them (`adopt_runs`)."""
-        return self.runs
-
-    @store.setter
-    def store(self, value):
-        self.adopt_runs(list(value) if isinstance(value, (list, tuple))
-                        else [value])
-
-    @property
-    def capacity(self) -> int:
-        """Rows per shard over all runs."""
-        return sum(r.capacity for r in self.runs)
-
-    def _distinct(self) -> list[int]:
-        assert len(self.runs) == 1
-        return dx.run_vec_stats_step(self.runs[0], self.mesh)
-
-    def size(self) -> int:
-        """Number of graph nodes (distinct canonical k-mers)."""
-        return sum(self.local_sizes())
-
-    def local_sizes(self) -> list[int]:
-        """Nodes per shard, in global shard order."""
-        self._consolidate()
-        return self._distinct()
-
-    def _checkpoint_prepare(self):
-        self._consolidate()
-        self._ensure_tables()
-
-    def _merge_two_smallest(self):
-        order = sorted(range(len(self.runs)),
-                       key=lambda i: self.runs[i].capacity, reverse=True)
-        self.runs = [self.runs[i] for i in order]
-        self._unit = [self._unit[i] for i in order]
-        b, ub = self.runs.pop(), self._unit.pop()
-        a, ua = self.runs.pop(), self._unit.pop()
-        with self.timer.phase("merge"):
-            self.runs.append(dx.run_vec_merge_pair_step(
-                a, b, unit=ua and ub, table=False))
-        self._unit.append(ua and ub)
-        self._drop_stale_aux()
+    def _merge_pair(self, a, b, unit: bool):
+        return dx.run_vec_merge_pair_step(a, b, unit=unit, table=False)
 
     def _ensure_tables(self):
         """Build the deferred counter tables of every run (queries,
@@ -165,54 +115,6 @@ class DeBruijnGraph(_IndexBase):
         """The largest shard's raw weight total over all runs."""
         return self.mesh.all_max(int(sum(r.weights.to(torch.int64).sum(-1)
                                          for r in self.runs).max()))
-
-    _I32_WEIGHT_GUARD = (1 << 31) - (1 << 26)
-
-    def _note_weight(self, add: int):
-        """Account `add` incoming weight against the int32 prefix sums of
-        the fullest shard (the bound assumes every row may land on one
-        shard); on pressure tighten it to the true worst shard total, and
-        raise before the sums could wrap."""
-        if self._ingested_weight + add > self._I32_WEIGHT_GUARD:
-            self._ingested_weight = self._shard_weight()
-            if self._ingested_weight + add > (1 << 31) - 1:
-                raise OverflowError(
-                    "de Bruijn raw weight total would overflow the int32 "
-                    "prefix sums on a shard; use more shards or smaller "
-                    "insert batches")
-        self._ingested_weight += add
-
-    def _append_run(self, words, ebytes, weights, qsums=None,
-                    unit: bool = False):
-        """Adopt routed sorted columns as a LAZY run (the table waits for
-        `_ensure_tables`: an intermediate LSM run is merge fodder)."""
-        unit = unit and self.spec.sentinel_safe
-        run = dx.run_vec_adopt_step(words, ebytes, weights, qsums, unit=unit,
-                                    table=False)
-        if self._virgin:
-            self.runs, self._unit, self._virgin = [run], [unit], False
-        else:
-            self.runs.append(run)
-            self._unit.append(unit)
-        while len(self.runs) > self.max_runs:
-            self._merge_two_smallest()
-
-    def _consolidate(self):
-        while len(self.runs) > 1:
-            self._merge_two_smallest()
-        self._maybe_compact()
-
-    def _maybe_compact(self):
-        """Collapse duplicate (key, edge byte) rows when the store is mostly
-        duplicates — amortized O(1) per ingested row."""
-        cap = self.capacity
-        if len(self.runs) != 1 or cap <= (1 << 14):
-            return
-        # distinct (key, edge byte) groups are a few per node in real
-        # genomes; size for 4x before giving up on shrinking
-        target = _next_pow2(max(4 * max(self._distinct()), 1 << 12))
-        if cap >= self.compact_factor * target:
-            self.compact(target)
 
     def compact(self, new_cap: int | None = None):
         """Consolidate to one run and collapse equal (key, edge byte) rows
@@ -235,17 +137,6 @@ class DeBruijnGraph(_IndexBase):
             if new_cap >= cap:
                 return self
             new_cap *= 2
-
-    def reserve(self, n: int):
-        """Grow the capacity to hold ~n rows in all (map_base::reserve): the
-        last run's sentinel tail grows (weight-0 rows change no counter)."""
-        self._ensure_tables()
-        per = _next_pow2(-(-n // self.nparts))
-        if per > self.capacity:
-            self.runs[-1] = st.run_vec_grow(self.runs[-1],
-                                            per - self.capacity)
-            self._drop_stale_aux()
-        return self
 
     # ------------------------------------------------------------------
     def _chunk_halo(self) -> tuple[int, int]:
@@ -306,46 +197,42 @@ class DeBruijnGraph(_IndexBase):
         return self
 
     # ------------------------------------------------------------------
-    def _drop_stale_aux(self):
-        """Release the cached aux of runs that left the run list (it would
-        otherwise keep the replaced runs, tables and all, alive)."""
-        self._aux_cache = [(r, a) for r, a in self._aux_cache
-                           if any(r is x for x in self.runs)]
-
-    def _ensure_aux(self) -> list:
-        """Per-run, per-shard query metadata cached by run IDENTITY (every
-        mutation replaces the run objects)."""
-        out = []
-        for r in self.runs:
-            hit = next((a for rr, a in self._aux_cache if rr is r), None)
-            if hit is None:
-                with self.timer.phase("aux"):
-                    hit = dx.run_vec_aux_step(r)
-            out.append((r, hit))
-        self._aux_cache = out
-        return [a for _, a in out]
-
     def _node_payload(self, kmers):
         """(counters int32[m, 9], quality sums float64[m] or None) of the
         query nodes, transformed like the graph's own.  Phases: "rows",
-        then "query" with its children "query.lookup" (routing, one
-        "query.lookup.run" per run and shard as its tables join the shard's
-        one lookup launch) and "query.reply" (the replies in query order,
-        copied to the host: the wait for the lookup)."""
+        then "query" with its children "query.lookup" (each shard's lookup
+        tables — one "query.lookup.run" per run and shard as its tables
+        join them —, routing and the shard's one lookup launch) and
+        "query.reply" (the replies in query order, copied to the host: the
+        wait for the lookup)."""
         words = self._query_words(kmers)
         self._ensure_tables()
         aux = self._ensure_aux()
         with self.timer.phase("query"):
             with self.timer.phase("query.lookup"):
+                tables = [self._shard_tables(aux, s)
+                          for s in range(self.mesh.p_local)]
                 (vals, qs), m = self._route_rows(
                     lambda q, v, cap: dx.runs_vec_query_step(
-                        q, v, self.runs, aux, self.timer, self.mesh, cap,
-                        self.hash_name, self.saturate), words)
+                        q, v, tables, self.mesh, cap, self.hash_name,
+                        self.saturate), words)
             with self.timer.phase("query.reply"):
                 vals = self._replies(vals, m).cpu().numpy()
                 if qs is not None:
                     qs = self._replies(qs, m).cpu().numpy()
         return vals, qs
+
+    def _shard_tables(self, aux, s: int) -> list:
+        """Local shard s's lookup tables, one (ext, bstart, bsum, qcsum or
+        None) per run: the run's cached aux, counter table and quality
+        prefix sums (`kernels.run_vec_lookup`)."""
+        tables = []
+        for run, run_aux in zip(self.runs, aux):
+            with self.timer.phase("query.lookup.run"):
+                tables.append((*run_aux[s], run.bsum[s],
+                               run.qcsum[s] if isinstance(run, st.RunVecQStore)
+                               else None))
+        return tables
 
     def node_counts(self, kmers):
         """(counters int32[m, 9], found bool[m]) per query node, the
@@ -475,20 +362,6 @@ class DeBruijnGraph(_IndexBase):
         self._append_run(kc, eb, wt, qs)
         return self
 
-    def adopt_runs(self, runs: list):
-        """Replace the contents by already-built stacked runs ([p, ...], p
-        = nparts; e.g. `convert.debruijn_graph_from_state` or a checkpoint);
-        their weights may be anything."""
-        if not runs:
-            return self
-        self.runs, self._virgin = list(runs), False
-        self._unit = [False] * len(self.runs)
-        self._aux_cache = []
-        self._ingested_weight = self._shard_weight()
-        while len(self.runs) > self.max_runs:
-            self._merge_two_smallest()
-        return self
-
 
 class QualityDeBruijnGraph(DeBruijnGraph):
     """A de Bruijn graph whose windows also carry their quality — the
@@ -517,8 +390,9 @@ class QualityDeBruijnGraph(DeBruijnGraph):
         super().__init__(spec, device, canonical, nparts, hash_name,
                          saturate, initial_capacity, max_runs, timer, mesh)
 
-    def _empty_store(self, capacity: int, nwords: int, device):
-        return st.empty_run_vecq_store(capacity, nwords, device)
+    def _empty_store(self):
+        return st.empty_run_vecq_store(self.initial_capacity,
+                                       self.spec.nwords, self.device)
 
     def _codec(self):
         return self.codec

@@ -542,6 +542,216 @@ class _IndexBase:
             self.build(path, fmt, file_id=fid)
         return self
 
+    def _checkpoint_prepare(self):
+        """Bring the store to what a checkpoint holds (`utils/checkpoint`):
+        every pending row flushed."""
+        self._flush()
+
+
+class _RunListIndex(_IndexBase):
+    """The LSM (log-structured merge) run list of the count indexes and the
+    de Bruijn graphs.  Each shard's store is a SMALL LIST of sorted runs,
+    each run stacked [p, ...]: every ingested chunk lands as one run per
+    shard, the index is queryable at once (a query visits every run and
+    sums), and the two smallest runs merge (K2) whenever the list exceeds
+    `max_runs`.  size() and the exports consolidate to one run first, and a
+    consolidated run compacts when it is mostly duplicate or erased rows.
+    Each run's query aux is cached by run identity.
+
+    A family provides what depends on its store: `_empty_store`, `_adopt`
+    (sorted columns -> one stacked run), `_merge_pair`, `_aux_step`,
+    `_stats_step`, `_grow_run`, `_shard_weight`, `compact`,
+    `_compact_headroom` (`_maybe_compact` sizes a compaction at
+    next_pow2(headroom * the largest shard's distinct keys)) and
+    `_overflow_message` (raised before a shard's int32 prefix sums wrap);
+    it may hook `_ensure_tables` (tables a run builds only when read) and
+    `_relieve_weight_pressure`."""
+
+    #: weight budget before a pressure check: headroom under int32 max
+    _I32_WEIGHT_GUARD = (1 << 31) - (1 << 26)
+
+    def __init__(self, spec: KmerSpec, device, canonical, nparts: int,
+                 hash_name: str, saturate: int | None, initial_capacity: int,
+                 max_runs: int, timer: PhaseTimer | None, mesh: Mesh | None):
+        super().__init__(spec, device, canonical, nparts, timer, mesh)
+        self.hash_name = hash_name
+        self.saturate = saturate
+        self.initial_capacity = initial_capacity
+        self.max_runs = max_runs
+        #: compact when capacity >= compact_factor * the compaction target
+        self.compact_factor = 4
+        self.clear()
+
+    def clear(self):
+        """Drop every entry: one empty run of `initial_capacity` rows per
+        shard, as a new index holds."""
+        self.runs = [st.stack_stores([self._empty_store()]
+                                     * self.mesh.p_local)]
+        #: per-run flag: every live row has weight 1 and sentinels mark
+        #: exactly the dead tail (file-ingest output) — such pairs merge
+        #: without the weight column.  Only sentinel-safe specs.
+        self._unit = [self.spec.sentinel_safe]
+        #: the initial empty run is replaced by the first real run
+        self._virgin = True
+        #: upper bound on any shard's raw weight total: the int32 prefix
+        #: sums would wrap past 2^31 (see _note_weight)
+        self._ingested_weight = 0
+        #: (run, its per-shard query aux), by run identity (`_ensure_aux`)
+        self._aux_cache: list = []
+        return self
+
+    @property
+    def store(self) -> list:
+        """The run list, as the JAX package's `store` (its checkpoints
+        flatten it); assigning a run or a list of runs adopts them
+        (`adopt_runs`)."""
+        return self.runs
+
+    @store.setter
+    def store(self, value):
+        self.adopt_runs(list(value) if isinstance(value, (list, tuple))
+                        else [value])
+
+    @property
+    def capacity(self) -> int:
+        """Rows per shard over all runs."""
+        return sum(r.capacity for r in self.runs)
+
+    def _distinct(self) -> list[int]:
+        """Distinct live keys per shard of every rank (one consolidated
+        run)."""
+        assert len(self.runs) == 1
+        return self._stats_step(self.runs[0], self.mesh)
+
+    def size(self) -> int:
+        """Distinct-key count (dsc::map_base::size)."""
+        return sum(self.local_sizes())
+
+    def local_sizes(self) -> list[int]:
+        """Distinct keys per shard, in global shard order (as `items` lists
+        them)."""
+        self._consolidate()
+        return self._distinct()
+
+    def reserve(self, n: int):
+        """Grow the capacity to hold ~n rows in all (map_base::reserve):
+        the last run's sentinel tail grows (weight-0 rows change no
+        count)."""
+        self._ensure_tables()
+        per = _next_pow2(-(-n // self.nparts))
+        if per > self.capacity:
+            self.runs[-1] = self._grow_run(self.runs[-1], per - self.capacity)
+            self._drop_stale_aux()
+        return self
+
+    def _ensure_tables(self):
+        """Build the tables that runs defer until a query, export,
+        compaction or save reads them (none by default)."""
+
+    def _merge_two_smallest(self):
+        order = sorted(range(len(self.runs)),
+                       key=lambda i: self.runs[i].capacity, reverse=True)
+        self.runs = [self.runs[i] for i in order]
+        self._unit = [self._unit[i] for i in order]
+        b, ub = self.runs.pop(), self._unit.pop()
+        a, ua = self.runs.pop(), self._unit.pop()
+        with self.timer.phase("merge"):
+            self.runs.append(self._merge_pair(a, b, ua and ub))
+        self._unit.append(ua and ub)
+        self._drop_stale_aux()
+
+    def _note_weight(self, add: int):
+        """Account `add` incoming weight against the int32 prefix-sum
+        budget of the fullest shard (the bound assumes every row may land
+        on one shard); on pressure, `_relieve_weight_pressure`."""
+        if self._ingested_weight + add > self._I32_WEIGHT_GUARD:
+            self._relieve_weight_pressure(add)
+        self._ingested_weight += add
+
+    def _relieve_weight_pressure(self, incoming: int):
+        """Tighten the bound to the true worst shard total, and raise if a
+        shard's raw int32 weight total could still pass 2^31 with
+        `incoming` more (the reference's uint32 counts overflow silently
+        at 2^32)."""
+        self._ingested_weight = self._shard_weight()
+        self._check_weight(incoming)
+
+    def _check_weight(self, incoming: int):
+        if self._ingested_weight + incoming > (1 << 31) - 1:
+            raise OverflowError(self._overflow_message)
+
+    def _append_run(self, *cols, unit: bool = False):
+        """Adopt a chunk's routed sorted columns as a run and apply the
+        LSM bound."""
+        unit = unit and self.spec.sentinel_safe
+        run = self._adopt(*cols, unit=unit)
+        if self._virgin:
+            self.runs, self._unit, self._virgin = [run], [unit], False
+        else:
+            self.runs.append(run)
+            self._unit.append(unit)
+        while len(self.runs) > self.max_runs:
+            self._merge_two_smallest()
+
+    def adopt_runs(self, runs: list):
+        """Replace the contents by already-built stacked runs ([p, ...],
+        p = nparts) whose weights may be anything (e.g. converted from
+        another index, `convert.py`, or a checkpoint); the LSM bound then
+        applies."""
+        if not runs:
+            return self
+        self.runs, self._virgin = list(runs), False
+        self._unit = [False] * len(self.runs)
+        self._drop_stale_aux()
+        self._ingested_weight = self._shard_weight()
+        while len(self.runs) > self.max_runs:
+            self._merge_two_smallest()
+        return self
+
+    def _consolidate(self):
+        """Merge every run into one (smallest pairs first) and reclaim dead
+        rows if the result is mostly duplicates."""
+        while len(self.runs) > 1:
+            self._merge_two_smallest()
+        self._maybe_compact()
+
+    def _checkpoint_prepare(self):
+        self._consolidate()
+        self._ensure_tables()
+
+    def _maybe_compact(self):
+        """Compact when the store is mostly duplicate or erased rows
+        (amortized O(1) per ingested row: fires only after the store has at
+        least compact_factor/2-folded its live data)."""
+        cap = self.capacity
+        if len(self.runs) != 1 or cap <= (1 << 14):
+            return
+        target = _next_pow2(max(self._compact_headroom
+                                * max(self._distinct()), 1 << 12))
+        if cap >= self.compact_factor * target:
+            self.compact(target)
+
+    def _drop_stale_aux(self):
+        """Release the cached aux of runs that left the run list (the aux
+        would otherwise keep the replaced runs' memory until the next
+        query)."""
+        self._aux_cache = [(r, a) for r, a in self._aux_cache
+                           if any(r is x for x in self.runs)]
+
+    def _ensure_aux(self) -> list:
+        """Per-run, per-shard query-aux metadata cached by run IDENTITY:
+        any mutation replaces the run objects, so a stale entry cannot be
+        hit."""
+        out = []
+        for r in self.runs:
+            hit = next((a for rr, a in self._aux_cache if rr is r), None)
+            if hit is None:
+                with self.timer.phase("aux"):
+                    hit = self._aux_step(r)
+            out.append((r, hit))
+        self._aux_cache = out
+        return [a for _, a in out]
+
 
 class _CountSurfaceMixin:
     """The Index surface (kmer_index.hpp:142-201) of the count indexes,
@@ -632,21 +842,18 @@ class _CountSurfaceMixin:
         return self.size()
 
 
-class CountIndex(_CountSurfaceMixin, _IndexBase):
+class CountIndex(_CountSurfaceMixin, _RunListIndex):
     """k-mer -> count index (CountIndex preset, kmer_index.hpp:409-411;
     counting_densehash_map semantics) over `nparts` hash-partitioned shards
     stacked on one device: key q lives on shard
     ``owner_from_hash(HASHES[hash_name](q), p)``.
 
-    Each shard's store is a SMALL LIST of sorted runs
-    (`store.RunCountStore`, stacked [p, ...]) — log-structured-merge
-    discipline.  Each ingested chunk lands as one sorted UNIT run per
-    shard; the index is queryable at once (count visits every run and
-    sums), and the two smallest runs merge (K2) whenever the list exceeds
-    `max_runs`.  Explicit (key, count) inserts land as weighted runs (their
-    prefix sum is K3), and erase / filter zero the weights of the rows they
-    remove (K3 again), so every later merge of such a run carries the
-    weights as K2's payload.  size(), items(), histogram() and the
+    Each shard's store is a run list (`_RunListIndex`) of
+    `store.RunCountStore` runs.  Each ingested chunk lands as one sorted
+    UNIT run per shard.  Explicit (key, count) inserts land as weighted
+    runs (their prefix sum is K3), and erase / filter zero the weights of
+    the rows they remove (K3 again), so every later merge of such a run
+    carries the weights as K2's payload.  items(), histogram() and the
     predicate scans consolidate to one run first; compaction (run_compact,
     whose prefix sum is K3) collapses duplicate and erased rows when they
     dominate.
@@ -666,97 +873,29 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
         idx.save("index.npz")
     """
 
-    #: weight budget before a pressure check: headroom under int32 max
-    _I32_WEIGHT_GUARD = (1 << 31) - (1 << 26)
+    _compact_headroom = 2
+    _overflow_message = (
+        "count index raw weight total would overflow the int32 prefix sums "
+        "on a shard; use saturate= (clamped counts), more shards, or "
+        "smaller insert batches")
+    _stats_step = staticmethod(dx.run_stats_step)
+    _aux_step = staticmethod(dx.run_aux_step)
+    _grow_run = staticmethod(st.run_grow)
 
     def __init__(self, spec: KmerSpec, device="cuda", canonical=True,
                  initial_capacity: int = 1 << 12, max_runs: int = 8,
                  nparts: int = 1, hash_name: str = "murmur",
                  saturate: int | None = None,
                  timer: PhaseTimer | None = None, mesh: Mesh | None = None):
-        super().__init__(spec, device, canonical, nparts, timer, mesh)
-        self.hash_name = hash_name
-        self.saturate = saturate
-        self.initial_capacity = initial_capacity
-        self.max_runs = max_runs
-        #: compact when capacity >= compact_factor * next_pow2(2*distinct)
-        self.compact_factor = 4
-        self.clear()
+        super().__init__(spec, device, canonical, nparts, hash_name,
+                         saturate, initial_capacity, max_runs, timer, mesh)
 
-    def clear(self):
-        """Drop every entry: one empty run of `initial_capacity` rows per
-        shard, as a new index holds."""
-        self.runs = [st.stack_run_stores(
-            [st.empty_run_count_store(self.initial_capacity,
-                                      self.spec.nwords, self.device)]
-            * self.mesh.p_local)]
-        #: per-run flag: every live row has weight 1 and sentinels mark
-        #: exactly the dead tail (file-ingest output) — such pairs merge
-        #: keys-only (st.run_merge_unit).  Only sentinel-safe specs.
-        self._unit = [self.spec.sentinel_safe]
-        #: the initial empty run is replaced by the first real run
-        self._virgin = True
-        #: upper bound on any shard's raw weight total: the int32 prefix
-        #: sums would wrap past 2^31 (see _note_weight)
-        self._ingested_weight = 0
-        self._aux_cache: list = []
-        return self
+    def _empty_store(self):
+        return st.empty_run_count_store(self.initial_capacity,
+                                        self.spec.nwords, self.device)
 
-    # ------------------------------------------------------------------
-    @property
-    def store(self) -> list:
-        """The run list, as the JAX package's `store` (its checkpoints
-        flatten it); assigning a run or a list of runs adopts them
-        (`adopt_runs`)."""
-        return self.runs
-
-    @store.setter
-    def store(self, value):
-        self.adopt_runs(list(value) if isinstance(value, (list, tuple))
-                        else [value])
-
-    @property
-    def capacity(self) -> int:
-        """Rows per shard over all runs."""
-        return sum(r.capacity for r in self.runs)
-
-    def reserve(self, n: int):
-        """Grow the capacity to hold ~n entries in all (map_base::reserve):
-        the last run's sentinel tail grows (weight-0 rows change no
-        count)."""
-        per = _next_pow2(-(-n // self.nparts))
-        if per > self.capacity:
-            self.runs[-1] = st.run_grow(self.runs[-1], per - self.capacity)
-            self._drop_stale_aux()
-        return self
-
-    def _distinct(self) -> list[int]:
-        """Distinct live keys per shard of every rank (one consolidated
-        run)."""
-        assert len(self.runs) == 1
-        return dx.run_stats_step(self.runs[0], self.mesh)
-
-    def size(self) -> int:
-        """Distinct-key count (dsc::map_base::size)."""
-        return sum(self.local_sizes())
-
-    def local_sizes(self) -> list[int]:
-        """Distinct keys per shard, in global shard order (as `items` lists
-        them)."""
-        self._consolidate()
-        return self._distinct()
-
-    def _merge_two_smallest(self):
-        order = sorted(range(len(self.runs)),
-                       key=lambda i: self.runs[i].capacity, reverse=True)
-        self.runs = [self.runs[i] for i in order]
-        self._unit = [self._unit[i] for i in order]
-        b, ub = self.runs.pop(), self._unit.pop()
-        a, ua = self.runs.pop(), self._unit.pop()
-        with self.timer.phase("merge"):
-            self.runs.append(self._merge_pair(a, b, ua and ub))
-        self._unit.append(ua and ub)
-        self._drop_stale_aux()
+    def _adopt(self, words, weights, unit: bool):
+        return dx.run_adopt_step(words, weights, unit=unit)
 
     def _merge_pair(self, a, b, unit: bool):
         """One LSM level merge of two stacked runs (K2)."""
@@ -767,76 +906,16 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
         return self.mesh.all_max(int(sum(r.csum[:, -1].to(torch.int64)
                                          for r in self.runs).max()))
 
-    def _note_weight(self, add: int):
-        """Account `add` incoming weight against the int32 prefix-sum
-        budget of the fullest shard (the bound assumes every row may land
-        on one shard); on pressure, `_relieve_weight_pressure`."""
-        if self._ingested_weight + add > self._I32_WEIGHT_GUARD:
-            self._relieve_weight_pressure(add)
-        self._ingested_weight += add
-
     def _relieve_weight_pressure(self, incoming: int):
-        """The bound says a shard's raw int32 weight total could pass 2^31
-        with `incoming` more.  A saturating map compacts with the clamp
-        (exact, `store.run_compact`) and rebounds from its distinct counts;
-        a plain map tightens the bound to the true worst shard total.
-        Either raises before the prefix sums can wrap (the reference's
-        uint32 counts overflow silently at 2^32)."""
-        if self.saturate is not None and not self._virgin:
-            self.compact()
-            self._ingested_weight = max(self._distinct()) * int(self.saturate)
-        else:
-            self._ingested_weight = self._shard_weight()
-        if self._ingested_weight + incoming > (1 << 31) - 1:
-            raise OverflowError(
-                "count index raw weight total would overflow the int32 "
-                "prefix sums on a shard; use saturate= (clamped counts), "
-                "more shards, or smaller insert batches")
-
-    def _append_run(self, words, weights, unit: bool = False):
-        unit = unit and self.spec.sentinel_safe
-        run = dx.run_adopt_step(words, weights, unit=unit)
-        if self._virgin:
-            self.runs, self._unit, self._virgin = [run], [unit], False
-        else:
-            self.runs.append(run)
-            self._unit.append(unit)
-        while len(self.runs) > self.max_runs:
-            self._merge_two_smallest()
-
-    def adopt_runs(self, runs: list):
-        """Replace the contents by already-built stacked runs ([p, ...],
-        p = nparts) whose weights may be anything (e.g. converted from
-        another index, `convert.py`); the LSM bound then applies."""
-        if not runs:
-            return self
-        self.runs, self._virgin = list(runs), False
-        self._unit = [False] * len(self.runs)
-        self._drop_stale_aux()
-        self._ingested_weight = self._shard_weight()
-        while len(self.runs) > self.max_runs:
-            self._merge_two_smallest()
-        return self
-
-    def _consolidate(self):
-        """Merge every run into one (smallest pairs first) and reclaim dead
-        rows if the result is mostly duplicates."""
-        while len(self.runs) > 1:
-            self._merge_two_smallest()
-        self._maybe_compact()
-
-    _checkpoint_prepare = _consolidate
-
-    def _maybe_compact(self):
-        """Compact when the store is mostly duplicate or erased rows
-        (amortized O(1) per ingested row: fires only after the store has at
-        least compact_factor/2-folded its live data)."""
-        cap = self.capacity
-        if len(self.runs) != 1 or cap <= (1 << 14):
-            return
-        target = _next_pow2(max(2 * max(self._distinct()), 1 << 12))
-        if cap >= self.compact_factor * target:
-            self.compact(target)
+        """A saturating map compacts with the clamp (exact,
+        `store.run_compact`), rebounds from its distinct counts and raises
+        if that is still too much; a plain map tightens the bound to the
+        true worst shard total and raises (`_RunListIndex`)."""
+        if self.saturate is None or self._virgin:
+            return super()._relieve_weight_pressure(incoming)
+        self.compact()
+        self._ingested_weight = max(self._distinct()) * int(self.saturate)
+        self._check_weight(incoming)
 
     def compact(self, new_cap: int | None = None):
         """Consolidate to one run, collapse every key's rows to one
@@ -913,27 +992,6 @@ class CountIndex(_CountSurfaceMixin, _IndexBase):
             raise ValueError("counts must be non-negative int32 values")
         return self._insert_rows(words, torch.from_numpy(
             c.astype(np.int32)).to(self.device))
-
-    def _drop_stale_aux(self):
-        """Release the cached aux of runs that left the run list (the aux
-        would otherwise keep the replaced runs' memory until the next
-        query)."""
-        self._aux_cache = [(r, a) for r, a in self._aux_cache
-                           if any(r is x for x in self.runs)]
-
-    def _ensure_aux(self) -> list:
-        """Per-run, per-shard query-aux metadata cached by run IDENTITY:
-        any mutation replaces the run objects, so a stale entry cannot be
-        hit."""
-        out = []
-        for r in self.runs:
-            hit = next((a for rr, a in self._aux_cache if rr is r), None)
-            if hit is None:
-                with self.timer.phase("aux"):
-                    hit = dx.run_aux_step(r)
-            out.append((r, hit))
-        self._aux_cache = out
-        return [a for _, a in out]
 
     def _count_words(self, words: torch.Tensor) -> np.ndarray:
         aux = self._ensure_aux()
@@ -1074,21 +1132,23 @@ class BimoleculeCountIndex(CountIndex):
         #: occurrence id (file ids use at most 63 bits)
         self._insert_seq = 1 << 63
 
+    _overflow_message = (
+        "Bimolecule raw weight total would overflow the int32 prefix sums "
+        "on a shard; use saturate=, more shards, or smaller insert batches")
+
     def clear(self):
         """Drop every entry and pending run: one empty run of
         `initial_capacity` rows per shard."""
-        self.runs = [st.stack_stores(
-            [st.empty_run_bimol_store(self.initial_capacity,
-                                      self.spec.nwords, self.device)]
-            * self.mesh.p_local)]
+        super().clear()
         self._unit = [False]
-        self._virgin = True
-        self._ingested_weight = 0
-        self._aux_cache = []
         self._strand_cache = None
         self._pending: list = []
         self._pending_rows = 0
         return self
+
+    def _empty_store(self):
+        return st.empty_run_bimol_store(self.initial_capacity,
+                                        self.spec.nwords, self.device)
 
     # -- the run list: pending runs, one consolidated store -------------
     @property
@@ -1152,11 +1212,7 @@ class BimoleculeCountIndex(CountIndex):
                 self.saturate is not None:
             self.compact()
             self._ingested_weight = self.size() * int(self.saturate)
-        if self._ingested_weight + incoming > (1 << 31) - 1:
-            raise OverflowError(
-                "Bimolecule raw weight total would overflow the int32 "
-                "prefix sums on a shard; use saturate=, more shards, or "
-                "smaller insert batches")
+        self._check_weight(incoming)
 
     def _add_pending(self, run):
         self._pending.append(tuple(run))

@@ -211,7 +211,8 @@ def runs_erase_step(runs, aux, queries: torch.Tensor, qvalid: torch.Tensor,
     """Erase over a list of runs: route the query rows [p, m, w] (qvalid
     [p, m]) to their owners, zero every matching row of every run
     (store.run_erase_cover, one K3 rebuild a run) and count the DISTINCT
-    keys that had a positive count: a key queried twice, or present in
+    keys that had a positive count over all runs (one
+    `kernels.run_count_lookup` a shard): a key queried twice, or present in
     several runs, counts once.  aux: each run's cached per-shard aux.
     Returns (new runs, keys erased, overflow)."""
     owner = owners_for(queries, nparts, hash_name)
@@ -219,9 +220,10 @@ def runs_erase_step(runs, aux, queries: torch.Tensor, qvalid: torch.Tensor,
                                            capacity)
     shards, nerased = [], 0
     for s in range(rq.shape[0]):
-        total = sum(st.run_lookup_aux(ext, bstart, rq[s])
-                    for ext, bstart in (run[s] for run in aux))
-        had = rvalid[s] & (total > 0)
+        total = kernels.run_count_lookup([run[s][0] for run in aux],
+                                         [run[s][1] for run in aux], rq[s],
+                                         rvalid[s], None)
+        had = total > 0
         shards.append([st.run_erase_cover(run.shard(s), *run_aux[s], rq[s],
                                           rvalid[s])
                        for run, run_aux in zip(runs, aux)])
@@ -563,31 +565,25 @@ def run_vec_aux_step(store) -> list:
     return [st.run_vec_query_aux(sh) for sh in _shards(store)]
 
 
-def runs_vec_query_step(queries: torch.Tensor, qvalid: torch.Tensor, runs,
-                        aux, timer, nparts: int = 1,
+def runs_vec_query_step(queries: torch.Tensor, qvalid: torch.Tensor,
+                        tables, nparts: int = 1,
                         capacity: int | None = None,
                         hash_name: str = "murmur",
                         saturate: int | None = None):
     """Node query over a list of edge runs (the node_counts surface,
     de_bruijn_node_trait.hpp:186-280): route once, then per shard one
     `kernels.run_vec_lookup` (every run's lookup, summed, clamped at
-    `saturate`), reply.  queries [p, m, w], qvalid [p, m]; aux: each run's
-    per-shard aux; timer: the graph's `PhaseTimer`, whose phase
-    "query.lookup.run" each run enters on each shard as its tables join
-    the lookup.  Returns (counters int32[p, m, 9], quality sums float64[p,
-    m] — None unless the runs are quality stores —, overflow)."""
+    `saturate`), reply.  queries [p, m, w], qvalid [p, m]; tables: per
+    local shard, each run's (ext, bstart, bsum, qcsum or None) as
+    `kernels.run_vec_lookup` takes them.  Returns (counters int32[p, m,
+    9], quality sums float64[p, m] — None unless the runs are quality
+    stores —, overflow)."""
     owner = owners_for(queries, nparts, hash_name)
     (rq,), rvalid, route = dist.distribute((queries,), owner, qvalid, nparts,
                                            capacity)
     counts, qsums = [], []
     for s in range(rq.shape[0]):
-        tables = []
-        for run, run_aux in zip(runs, aux):
-            with timer.phase("query.lookup.run"):
-                tables.append((*run_aux[s], run.bsum[s],
-                               run.qcsum[s] if isinstance(run, st.RunVecQStore)
-                               else None))
-        c, q = kernels.run_vec_lookup(tables, rq[s], rvalid[s], saturate)
+        c, q = kernels.run_vec_lookup(tables[s], rq[s], rvalid[s], saturate)
         counts.append(c)
         if q is not None:
             qsums.append(q)

@@ -7,11 +7,11 @@ shard's store as its own `torch.save` file, copied off the device one
 shard at a time, beside a JSON file of the index's config (the
 `IndexConfig` fields the JAX package's ``utils/checkpoint.py`` writes) and
 its shard count; `load_index` builds the index from that config and puts
-the shards back on the device as they were.  A count index or a de Bruijn
-graph consolidates to one run first (`_checkpoint_prepare`; the graph also
-builds its counter table, a Bimolecule index merges its pending runs), a
-lazy index flushes.  The config of a
-`QualityDeBruijnGraph` is a de Bruijn one (the JAX package's
+the shards back on the device as they were.  A run-list index (a count
+index or a de Bruijn graph, `index.api._RunListIndex`) consolidates to one
+run first (`_checkpoint_prepare`; the graph also builds its counter table,
+a Bimolecule index merges its pending runs), a lazy index flushes.  The
+config of a `QualityDeBruijnGraph` is a de Bruijn one (the JAX package's
 `IndexConfig` has no quality graph), and the meta file marks it.
 
 Under a mesh of several ranks both are collectives: each rank writes and
@@ -84,10 +84,8 @@ def _config_of(idx) -> dict:
 
 
 def _store_of(idx):
-    """The stacked store a checkpoint holds: a count index's or a graph's
-    one run."""
-    return (idx.runs[0] if isinstance(idx, (hx.CountIndex, DeBruijnGraph))
-            else idx.store)
+    """The stacked store a checkpoint holds: a run-list index's one run."""
+    return idx.runs[0] if isinstance(idx, hx._RunListIndex) else idx.store
 
 
 def save_index(idx, path) -> None:
@@ -95,10 +93,7 @@ def save_index(idx, path) -> None:
     ``shard_<s>.pt`` per shard (and ``splitters.pt`` for the sorted
     family), then ``kmerind_meta.json`` — written last, so a complete meta
     file means a complete checkpoint."""
-    if hasattr(idx, "_checkpoint_prepare"):
-        idx._checkpoint_prepare()
-    else:
-        idx._flush()
+    idx._checkpoint_prepare()
     path = pathlib.Path(path)
     path.mkdir(parents=True, exist_ok=True)
     store = _store_of(idx)
@@ -160,7 +155,7 @@ def load_index(path, device="cuda", nparts: int | None = None, mesh=None):
                          weights_only=True) for s in range(lo, hi)]
     store = type(_store_of(idx))(**{
         name: st.stack([sh[name] for sh in shards]) for name in shards[0]})
-    if isinstance(idx, (hx.CountIndex, DeBruijnGraph)):
+    if isinstance(idx, hx._RunListIndex):
         return idx.adopt_runs([store])
     idx.store = store
     if (path / "splitters.pt").exists():
