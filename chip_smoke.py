@@ -7,7 +7,7 @@ Phases (each prints its seconds; every timing line carries the card's name
 and power limit as nvidia-smi reports them):
 
 * P0  device: nvidia-smi name/power limit and torch's device name.
-* P1  build: nvcc compiles the five CUDA sources of
+* P1  build: nvcc compiles the six CUDA sources of
       kmerind_tpu_torch/ops/csrc (one process each, all at once) into
       kmerind_tpu_torch/_build.
 * P2  every kernel against its plain PyTorch version on the card, at the
@@ -53,7 +53,10 @@ and power limit as nvidia-smi reports them):
       and search) runs at the graph cell's shape (`graph_runs`: the 8
       unit runs its build leaves, the same batch) against the per-run
       searches and table gathers; its bound adds a hit's length sector
-      and two sectors a counter stream.
+      and two sectors a counter stream.  The position ids
+      (`position_ids`, which replaces no TPU kernel) run at the pq
+      cell's chunk (`ID_CHUNK` bases of 101-base reads, pads at the
+      tail), short and long, against their plain version on the card.
 * P3  exact reference: ~12M bases of synthetic reads indexed through
       CountIndex.insert_batch in 2^20-base chunks with max_runs=2 (many K2
       merges), then compact(); to_dict() must equal an independent numpy
@@ -94,8 +97,8 @@ and power limit as nvidia-smi reports them):
       exactly their pairs, and erase_if(window quality < a threshold that
       no numpy window quality lies within rtol 1e-5 of) erases numpy's
       count of such pairs, size() following; find of all 1M queries is
-      timed.  Counters zeroed just before, read just after: K1 ran once
-      per chunk, K2 at least once per flush.
+      timed.  Counters zeroed just before, read just after: K1 and the
+      position ids ran once per chunk, K2 at least once per flush.
 * P7  wide k-mers: the same FASTQ at k = 127 DNA (8 key words, K1's wide
       kernel) on one shard.  CountIndex(max_runs=8).build: 1M count()
       queries (900k read windows, 100k random 127-mers) equal an
@@ -266,7 +269,9 @@ def kernel_bytes(kname: str, **shape) -> int:
     `hits` (query, run) pairs whose run holds the key one sector of its
     run length and two of each counter table stream (the key run's two
     ends, apart unless the key run starts at row 0), two more of the
-    quality sums."""
+    quality sums.  position_ids(n, nrec, long=False): int32 seg ids and
+    int16 (short) or int32 (long) offsets in, int32 id halves out, a
+    base; the uint64 record words read once."""
     if kname == "extract_canonical":
         return shape["n"] * (1 + 4 * shape["nwords"] + 1)
     if kname in ("merge_runs_cols", "merge_sorted_runs"):
@@ -290,6 +295,9 @@ def kernel_bytes(kname: str, **shape) -> int:
         return (shape["n"] * (4 * shape["w"] + 1 + 36 + 8 * quality
                               + 32 * sectors)
                 + 32 * per_hit * shape["hits"])
+    if kname == "position_ids":
+        off = 4 if shape.get("long", False) else 2
+        return shape["n"] * (4 + off + 8) + 8 * shape.get("nrec", 0)
     raise KeyError(kname)
 
 
@@ -301,6 +309,10 @@ LOOKUP_RUNS = ((1 << 27, 21_572_072), (1 << 27, 21_572_072),
                (1 << 26, 16_179_054), (1 << 27, 21_572_072))
 LOOKUP_QUERIES = 581_632    # the cell's batch: every window of 8,192 reads
 LOOKUP_GENOME = 4_603_060   # the cell's genome: its distinct k-mers
+#: a chunk of the benchmark's pq cell (kbench rsph45x-k31-pq: k = 31, one
+#: shard): default_chunk_bases + the k-1 halo, in reads of its length
+ID_CHUNK = (1 << 23) + 30
+ID_READ_LEN = 101
 #: (rows, live rows) of the 8 unit runs a graph build of the benchmark's
 #: graph cell (kbench rsph45x-k31-debruijn: k = 31, max_runs 8) leaves:
 #: one row a window, chunked and merged as the count build's, so the same
@@ -1005,6 +1017,9 @@ def phase_p6(dev, path, quals, qcodes, queries, canon_all, want_counts, smi,
     log(f"P6 launches: {p6}")
     if p6["extract_canonical"] != chunks:
         raise AssertionError(f"P6: K1 launches != {chunks} chunks")
+    if p6["position_ids"] != chunks:
+        raise AssertionError(f"P6: position_ids launches != {chunks} "
+                             "chunks")
     if p6["merge_runs_cols"] < merges or not merges:
         raise AssertionError(f"P6: K2 launches < {merges} flushes")
     return p6
@@ -2702,6 +2717,30 @@ def main() -> int:
                         hits=hits))
     del tables, lq, lvalid, got
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the position ids at the pq cell's chunk: reads of 101 bases, each
+    # record's bases at offsets 4.. (after its header line), the last
+    # 10,000 bases pads (seg -1); record words drawn over all 64 bits
+    nrec = ID_CHUNK // ID_READ_LEN + 1
+    base = torch.arange(ID_CHUNK, device=dev)
+    seg = (base // ID_READ_LEN).to(torch.int32)
+    seg[-10_000:] = -1
+    table = torch.randint(-(2**63), 2**63 - 1, (nrec,), dtype=torch.int64,
+                          device=dev, generator=gen)
+    for kind in ("short", "long"):
+        off = (base % ID_READ_LEN + 4).to(kernels.ID_OFF_DTYPES[kind])
+        got = kernels.position_ids(seg, off, table, kind)
+        want = kernels.position_ids_plain(seg, off, table, kind)
+        err = max(err_of(g, w) for g, w in zip(got, want))
+        del got, want
+        record("position_ids", f"{kind} ids, {ID_CHUNK} bases in "
+               f"{ID_READ_LEN}-base reads, {nrec} records",
+               lambda: kernels.position_ids(seg, off, table, kind),
+               lambda: kernels.position_ids_plain(seg, off, table, kind),
+               err, kernel_bytes("position_ids", n=ID_CHUNK, nrec=nrec,
+                                 long=kind == "long"))
+    del base, seg, table, off
     torch.cuda.empty_cache()
     log(f"P2 seconds {time.perf_counter() - t0:.2f} [{smi}]")
 

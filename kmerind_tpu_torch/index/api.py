@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import concurrent.futures
 import math
-import sys
 
 import numpy as np
 import torch
@@ -45,7 +44,7 @@ from ..io.files import (file_size, read_fasta_block, read_fastq_block,
                         read_file, sniff_format)
 from ..io.kmer_parsers import DeviceBases, transform_name
 from ..kmer import KmerSpec
-from ..ops import bitops, packing
+from ..ops import bitops, kernels, packing
 from ..quality import ILLUMINA18
 from ..ops.keys import from_numpy_u32, to_numpy_u32, to_u64
 from ..parallel.mesh import Mesh
@@ -58,6 +57,13 @@ from . import store as st
 
 __all__ = ["CountIndex", "BimoleculeCountIndex", "PositionIndex",
            "PositionQualityIndex"]
+
+
+#: the buffer dtype of an id index's per-base offsets in the record, as
+#: `kernels.position_ids` takes them (the copy into int16 keeps the low 16
+#: bits a short id keeps)
+_ID_OFF_DTYPES = {kind: torch.empty(0, dtype=dt).numpy().dtype
+                  for kind, dt in kernels.ID_OFF_DTYPES.items()}
 
 
 def _next_pow2(n: int) -> int:
@@ -125,7 +131,9 @@ class _IndexBase:
         transform_name(canonical)  # rejects unknown transforms
         self.timer = timer if timer is not None else PhaseTimer()
         self._marshal_pool: dict = {}
-        self._ids_pool: dict = {}
+        #: `_pooled_id_table`'s two buffers and the one last written
+        self._id_tables = [np.empty(0, np.uint64)] * 2
+        self._id_gen = 0
 
     # -- input marshalling -------------------------------------------------
     def _to_words(self, kmers) -> np.ndarray:
@@ -245,60 +253,43 @@ class _IndexBase:
             cap *= 2
 
     def _marshal_sources(self, batch: ReadBatch) -> list:
-        """(name, per-base source column, pad fill) of each column this
-        index copies to the device: ids and phred bytes only where the
-        index stores them."""
-        srcs = [("codes", batch.codes, 0), ("valid", batch.valid, False),
-                ("seg_id", batch.seg_id, -1), ("owned", batch.owned, False)]
+        """(name, per-base source column, pad fill, buffer dtype) of each
+        column this index copies to the device: an id index's offsets in
+        the record (`_ID_OFF_DTYPES`) and phred bytes only where the index
+        stores them."""
+        srcs = [(nm, a, fill, a.dtype) for nm, a, fill in (
+            ("codes", batch.codes, 0), ("valid", batch.valid, False),
+            ("seg_id", batch.seg_id, -1), ("owned", batch.owned, False))]
         if self.id_kind is not None:
-            ids = self._pooled_ids(batch)
-            if sys.byteorder == "little":
-                # zero-copy u64 -> (hi, lo) int32 halves
-                halves = ids.view(np.int32).reshape(-1, 2)
-                hi, lo = halves[:, 1], halves[:, 0]
-            else:
-                hi = (ids >> np.uint64(32)).astype(np.uint32).view(np.int32)
-                lo = ids.astype(np.uint32).view(np.int32)
-            srcs += [("id_hi", hi, 0), ("id_lo", lo, 0)]
+            srcs.append(("id_off", batch.offset_in_record, 0,
+                         _ID_OFF_DTYPES[self.id_kind]))
         if self.with_quality:
-            srcs.append(("qual", batch.qual, 0))
+            srcs.append(("qual", batch.qual, 0, batch.qual.dtype))
         return srcs
 
-    def _pooled_ids(self, batch: ReadBatch) -> np.ndarray:
-        """uint64[n] position ids of the batch (`ReadBatch.ids`) computed in
-        place into a pooled buffer: the JAX package measured the fresh
-        temporaries of `ReadBatch.ids` at ~30x the in-place cost.  The
-        phase "marshal.ids", inside "marshal" on the feeding thread."""
+    def _pooled_id_table(self, batch: ReadBatch) -> np.ndarray:
+        """uint64[r]: each record's id word (`kernels.position_ids`; short
+        ids: fid << 56 | (record_start & POS40) << 16, long ids: fid << 56
+        | seq_index << 40 | (record_start & POS40)), composed in place into
+        a pooled buffer.  Two buffers alternate, as `_marshal_bufs`'
+        generations do: one is rewritten only after the copy that read it
+        returned.  The phase "marshal.ids", inside "marshal" on the feeding
+        thread."""
         with self.timer.phase("marshal.ids"):
-            n = batch.num_bases
-            bufs = self._ids_pool.get(n)
-            if bufs is None:
-                bufs = self._ids_pool[n] = (np.empty(n, np.uint64),
-                                            np.empty(n, np.uint64))
-            out, tmp = bufs
-            if batch.num_records == 0:
-                out[:] = 0
-                return out
-            pos40 = np.uint64((1 << 40) - 1)
+            r = batch.num_records
+            self._id_gen ^= 1
+            buf = self._id_tables[self._id_gen]
+            if buf.shape[0] < r:
+                buf = self._id_tables[self._id_gen] = np.empty(
+                    _next_pow2(r), np.uint64)
+            out = buf[:r]
+            np.copyto(out, batch.record_start, casting="unsafe")
+            out &= np.uint64((1 << 40) - 1)
             if self.id_kind == "short":
-                # fid << 56 | (record_start & POS40) << 16 | offset16
-                np.take(batch.record_start, batch.seg_id, out=out)
-                out &= pos40
                 out <<= np.uint64(16)
-                np.copyto(tmp, batch.offset_in_record, casting="unsafe")
-                tmp &= np.uint64(0xFFFF)
-                out |= tmp
             else:
-                # long: fid << 56 | seq_index << 40 | (global_pos & POS40)
-                np.copyto(out, batch.global_pos)
-                out &= pos40
-                np.take(batch.seq_index.astype(np.uint64), batch.seg_id,
-                        out=tmp)
-                tmp <<= np.uint64(40)
-                out |= tmp
-            np.take(batch.file_id.astype(np.uint64), batch.seg_id, out=tmp)
-            tmp <<= np.uint64(56)
-            out |= tmp
+                out |= batch.seq_index.astype(np.uint64) << np.uint64(40)
+            out |= batch.file_id.astype(np.uint64) << np.uint64(56)
             return out
 
     def _marshal_bufs(self, pad_to: int, layout: tuple) -> dict:
@@ -322,7 +313,9 @@ class _IndexBase:
         them and the `halo_left` before them (valid, not owned;
         `_chunk_halo`), so every window and its edge context lie whole on
         one shard; short shards are padded (invalid, seg_id -1).  One shard
-        takes the chunk as it is: it already carries its context."""
+        takes the chunk as it is: it already carries its context.  An id
+        index adds "id_table", the chunk's record words
+        (`_pooled_id_table`)."""
         with self.timer.phase("marshal"):
             p, n = self.mesh.p_local, batch.num_bases
             halo, halo_left = self._chunk_halo()
@@ -330,28 +323,41 @@ class _IndexBase:
             srcs = self._marshal_sources(batch)
             bufs = self._marshal_bufs(
                 owned + (halo_left + halo if p > 1 else 0),
-                tuple((nm, a.dtype) for nm, a, _ in srcs))
+                tuple((nm, dt) for nm, _, _, dt in srcs))
             for s in range(p):
                 own_start = min(s * owned, n)
                 lo = max(0, own_start - halo_left)
                 left = own_start - lo
                 ln = min(own_start + owned + halo, n) - lo
-                for nm, src, fill in srcs:
+                for nm, src, fill, _ in srcs:
                     bufs[nm][s, :ln] = src[lo:lo + ln]
                     bufs[nm][s, ln:] = fill
                 bufs["owned"][s, :left] = False
                 bufs["owned"][s, left + owned:] = False
+            if self.id_kind is not None:
+                return dict(bufs, id_table=self._pooled_id_table(batch))
             return bufs
 
     def _to_device(self, cols: dict) -> DeviceBases:
         """Synchronous host-to-device copies (main thread) of [p, L]
         columns: the pooled buffer is rewritten two chunks later, so the
         copy must have read it by the time this returns — and must be a
-        copy on the CPU too, where the multimaps keep the id columns."""
+        copy on the CPU too, where the multimaps keep the id columns.  An
+        id index's ids are then composed on the device
+        (`kernels.position_ids`, one launch) from "seg_id", the offsets
+        "id_off" and the record words "id_table", which are dropped once
+        read."""
         with self.timer.phase("h2d"):
-            return DeviceBases(**{nm: torch.from_numpy(a).to(self.device,
-                                                             copy=True)
-                                  for nm, a in cols.items()})
+            cols = dict(cols)
+            table = cols.pop("id_table", None)
+            dev = {nm: torch.from_numpy(a).to(self.device, copy=True)
+                   for nm, a in cols.items()}
+            if table is not None:
+                words = torch.from_numpy(table.view(np.int64)).to(
+                    self.device, copy=True)
+                dev["id_hi"], dev["id_lo"] = kernels.position_ids(
+                    dev["seg_id"], dev.pop("id_off"), words, self.id_kind)
+            return DeviceBases(**dev)
 
     def _stream_chunks_iter(self, it, marshal, consume, make_dummy):
         """Double-buffered streaming over a lazy chunk iterator: the worker

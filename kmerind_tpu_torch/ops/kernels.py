@@ -26,7 +26,11 @@ and two that replace no Pallas kernel:
   `run_count_lookup_plain` (the per-run searches of ``index/store.py``);
 * `run_vec_lookup` (the same source, the same search) — a de Bruijn
   graph's node lookup over all runs of a shard: 9 counter differences and
-  a quality graph's float64 sum, plain version `run_vec_lookup_plain`.
+  a quality graph's float64 sum, plain version `run_vec_lookup_plain`;
+* `position_ids` (``csrc/position_ids.cu``) — each base's 64-bit position
+  id from its record's word and its offset in the record, plain version
+  `position_ids_plain` (the JAX package builds them on the host,
+  ``ReadBatch.short_ids`` / ``long_ids``).
 
 Each wrapper takes the plain version for tensors on the CPU and, for CUDA
 tensors, launches its kernel or raises: nothing falls back.  It checks
@@ -71,13 +75,14 @@ __all__ = ["LAUNCHES", "K1_LAUNCHES", "K2_PAYLOAD_LAUNCHES", "KERNELS",
            "prefix_sum_i32", "prefix_sum_i32_plain",
            "run_length_weights", "run_length_weights_plain",
            "run_count_lookup", "run_count_lookup_plain",
-           "run_vec_lookup", "run_vec_lookup_plain"]
+           "run_vec_lookup", "run_vec_lookup_plain",
+           "position_ids", "position_ids_plain"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "ops" / "csrc"
 BUILD_DIR = _PKG / "_build"
 _SOURCES = ("extract_canonical.cu", "merge_runs.cu", "prefix_sum.cu",
-            "run_length_weights.cu", "run_lookup.cu")
+            "run_length_weights.cu", "run_lookup.cu", "position_ids.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -108,6 +113,8 @@ KERNELS = {
         "kmerind_tpu_torch/ops/csrc/run_lookup.cu", None),
     "run_vec_lookup": (
         "kmerind_tpu_torch/ops/csrc/run_lookup.cu", None),
+    "position_ids": (
+        "kmerind_tpu_torch/ops/csrc/position_ids.cu", None),
 }
 
 #: launches per kernel wrapper (one per wrapper call that launched)
@@ -184,11 +191,14 @@ def _bind(lib):
     lib.kmerind_run_vec_lookup.argtypes = [
         _vp, _i64, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
         _int, _int, _i64, _vp, _vp, _vp]
+    lib.kmerind_position_ids.argtypes = [
+        _vp, _vp, _int, _vp, _i64, _i64, _vp, _vp, _vp]
     for fn in (lib.kmerind_extract_canonical, lib.kmerind_merge_runs,
                lib.kmerind_bitonic_merge, lib.kmerind_prefix_sum_i32,
                lib.kmerind_run_length_weights,
                lib.kmerind_run_count_lookup_max_runs,
-               lib.kmerind_run_count_lookup, lib.kmerind_run_vec_lookup):
+               lib.kmerind_run_count_lookup, lib.kmerind_run_vec_lookup,
+               lib.kmerind_position_ids):
         fn.restype = _int
     return lib
 
@@ -782,3 +792,76 @@ def run_vec_lookup(tables, queries: torch.Tensor, valid: torch.Tensor,
             _stream(dev))
         _launched("run_vec_lookup", rc)
     return out, qout
+
+
+# ------------------------------------------------------- position ids
+_POS40 = (1 << 40) - 1
+#: id kind -> the dtype of the per-base offsets `position_ids` takes
+#: (int16 / int32 holding the uint16 / uint32 bits)
+ID_OFF_DTYPES = {"short": torch.int16, "long": torch.int32}
+
+
+def position_ids_plain(seg: torch.Tensor, off: torch.Tensor,
+                       table: torch.Tensor, kind: str):
+    """Plain `position_ids`: a gather of the record words, then the id's
+    bit operations in int64."""
+    live = (seg >= 0) & (seg < table.shape[0])
+    if table.shape[0]:
+        w = table[torch.where(live, seg, 0).to(torch.int64)]
+    else:
+        w = torch.zeros(seg.shape, dtype=torch.int64, device=seg.device)
+    if kind == "short":
+        ids = w | (off.to(torch.int64) & 0xFFFF)
+    else:
+        o = off.to(torch.int64) & 0xFFFFFFFF
+        ids = (w & ~_POS40) | (((w & _POS40) + o) & _POS40)
+    ids = torch.where(live, ids, 0)
+    return (ids >> 32).to(torch.int32), ids.to(torch.int32)
+
+
+def position_ids(seg: torch.Tensor, off: torch.Tensor, table: torch.Tensor,
+                 kind: str):
+    """(id_hi, id_lo) int32, seg's shape: each base's 64-bit position id
+    (`ReadBatch.short_ids` / `long_ids` of `kind`) split into its uint32
+    halves.
+
+    seg int32 (each base's record, < 0 on padding), off the base's byte
+    offset in its record (`ID_OFF_DTYPES[kind]`: int16 holding the low 16
+    bits a short id keeps, int32 holding the uint32), seg's shape; table
+    int64[r] each record's word as uint64 bits — short: fid << 56 |
+    (record_start & POS40) << 16; long: fid << 56 | seq_index << 40 |
+    (record_start & POS40).  A short id is the word | the offset; a long
+    one the word's top 24 bits | (its low 40 + the offset) & POS40, which
+    is global_pos & POS40 where global_pos == record_start +
+    offset_in_record.  A base whose seg is < 0 or >= r gets 0.  On the
+    card one launch: a thread composes 4 bases, the table read through
+    L2."""
+    if kind not in ID_OFF_DTYPES:
+        raise ValueError(f"position_ids: unknown id kind {kind!r}")
+    if off.shape != seg.shape:
+        raise ValueError(f"position_ids: offsets {tuple(off.shape)} for "
+                         f"seg {tuple(seg.shape)}")
+    if seg.device.type == "cpu":
+        for name, t, dtype in (("seg", seg, torch.int32),
+                               ("off", off, ID_OFF_DTYPES[kind]),
+                               ("table", table, torch.int64)):
+            if t.device != seg.device:
+                raise ValueError(f"position_ids {name}: on {t.device}")
+            if t.dtype != dtype:
+                raise TypeError(f"position_ids {name}: expected {dtype}, "
+                                f"got {t.dtype}")
+        return position_ids_plain(seg, off, table, kind)
+    dev = seg.device
+    _check_cuda("position_ids seg", seg, torch.int32, seg.dim(), dev)
+    _check_cuda("position_ids off", off, ID_OFF_DTYPES[kind], seg.dim(), dev)
+    _check_cuda("position_ids table", table, torch.int64, 1, dev)
+    hi = torch.empty_like(seg)
+    lo = torch.empty_like(seg)
+    n = seg.numel()
+    if n:
+        rc = _cuda_lib().kmerind_position_ids(
+            seg.data_ptr(), off.data_ptr(), int(kind == "long"),
+            table.data_ptr(), table.shape[0], n, hi.data_ptr(),
+            lo.data_ptr(), _stream(dev))
+        _launched("position_ids", rc)
+    return hi, lo

@@ -79,8 +79,9 @@ def test_chunks_and_split_at_invalid_match_jax(corpus):
 def test_position_ids_match_jax(corpus, fmt):
     """Short and long position ids per base equal the JAX package's, on the
     whole file and on a block (absolute record starts); the multimaps'
-    pooled in-place ids equal `ReadBatch.ids` chunk after chunk (the pool
-    is reused)."""
+    ids, composed from pooled record words and offsets, equal
+    `ReadBatch.ids` on every base of a record and are 0 on the pads,
+    chunk after chunk (the pools are reused)."""
     want = jio.read_file(corpus[fmt], J_DNA)
     got = tio.read_file(corpus[fmt], T_DNA)
     for kind in ("short", "long"):
@@ -95,8 +96,13 @@ def test_position_ids_match_jax(corpus, fmt):
         idx = kp.PositionIndex(kp.KmerSpec(21, T_DNA), device="cpu",
                                id_kind=kind)
         for chunk in got.iter_chunks(4000, 20):
-            np.testing.assert_array_equal(idx._pooled_ids(chunk),
-                                          chunk.ids(kind))
+            bases = idx._to_device(idx._marshal_chunk(chunk))
+            ids = ((bases.id_hi[0].numpy().astype(np.int64) << 32)
+                   | (bases.id_lo[0].numpy().astype(np.int64)
+                      & 0xFFFFFFFF)).astype(np.uint64)
+            rec = chunk.seg_id >= 0
+            np.testing.assert_array_equal(ids[rec], chunk.ids(kind)[rec])
+            assert not ids[~rec].any()
     with pytest.raises(ValueError, match="id kind"):
         got.ids("medium")
 

@@ -138,3 +138,15 @@ def test_per_call_us_from_a_trace():
     got = chip_smoke.per_call_us(trace, calls=3)
     assert got == {"extract_rolling_kernel": 33.0, "rl_tiles": 42.0,
                    "merge_partition_kernel": pytest.approx(70 / 6 * 2)}
+
+
+def test_position_ids_bytes_at_the_pq_chunk():
+    """14 bytes a base of short ids (16 of long) and 8 a record: at the
+    pq cell's chunk ~0.035 ms at the HBM rate."""
+    n, nrec = chip_smoke.ID_CHUNK, chip_smoke.ID_CHUNK // 101 + 1
+    assert n == 8_388_638
+    short = chip_smoke.kernel_bytes("position_ids", n=n, nrec=nrec)
+    assert short == 14 * n + 8 * nrec == 118_105_380
+    assert chip_smoke.kernel_bytes("position_ids", n=n, nrec=nrec,
+                                   long=True) == short + 2 * n
+    assert chip_smoke.bound_ms(short) == pytest.approx(0.0353, abs=5e-5)

@@ -1412,3 +1412,125 @@ def test_count_index_counts_through_the_lookup_kernel(dev, tmp_path,
     np.testing.assert_array_equal(got, want)
     assert (want > 0).sum() > 250
     np.testing.assert_array_equal(idx[dev].exists(q), want > 0)
+
+
+# ------------------------------------------------------- position ids
+def _id_case(shape, kind, nrec, seed):
+    """(seg, off, table) on the CPU: seg in [-3, nrec + 3) (pads and
+    records past the table), offsets over their dtype's whole range, words
+    over all 64 bits."""
+    gen = torch.Generator().manual_seed(seed)
+    seg = torch.randint(-3, nrec + 3, shape, dtype=torch.int32,
+                        generator=gen)
+    bits = 16 if kind == "short" else 32
+    off = torch.randint(-(1 << (bits - 1)), 1 << (bits - 1), shape,
+                        dtype=kernels.ID_OFF_DTYPES[kind], generator=gen)
+    table = torch.randint(-(1 << 63), (1 << 63) - 1, (nrec,),
+                          dtype=torch.int64, generator=gen)
+    return seg, off, table
+
+
+@pytest.mark.parametrize("kind", ["short", "long"])
+@pytest.mark.parametrize("shape", [(1,), (3,), (4,), (5,), (1023,),
+                                   (70_001,), (4, 4_099), (1, 1 << 20),
+                                   (2, (1 << 20) + 3)])
+def test_position_ids_kernel(dev, kind, shape):
+    """One launch, bitwise the plain version's: widths of L that are not
+    a multiple of the 4 bases a thread takes, pads, seg ids past the
+    table, every offset bit and every word bit."""
+    seg, off, table = _id_case(shape, kind, 5_000, seed=len(shape) * 7
+                               + shape[-1])
+    before = kernels.LAUNCHES["position_ids"]
+    hi, lo = kernels.position_ids(seg.to(dev), off.to(dev), table.to(dev),
+                                  kind)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["position_ids"] == before + 1
+    whi, wlo = kernels.position_ids_plain(seg, off, table, kind)
+    assert hi.shape == lo.shape == seg.shape
+    assert torch.equal(hi.cpu(), whi) and torch.equal(lo.cpu(), wlo)
+    assert (whi != 0).any()
+
+
+@pytest.mark.parametrize("kind", ["short", "long"])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_position_ids_unaligned_views_and_no_records(dev, kind, offset):
+    """Views that start off 16 bytes take the scalar path; an empty table
+    gives every base 0."""
+    n = 10_007
+    seg, off, table = _id_case((n + offset,), kind, 300, seed=offset)
+    got = kernels.position_ids(seg.to(dev)[offset:], off.to(dev)[offset:],
+                               table.to(dev), kind)
+    want = kernels.position_ids_plain(seg[offset:], off[offset:], table,
+                                      kind)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    got = kernels.position_ids(seg.to(dev), off.to(dev), empty, kind)
+    assert all(not g.any() for g in got)
+
+
+def test_position_ids_refuses_what_it_does_not_take(dev):
+    seg = torch.zeros(8, dtype=torch.int32, device=dev)
+    table = torch.zeros(2, dtype=torch.int64, device=dev)
+    with pytest.raises(TypeError):
+        kernels.position_ids(seg, seg, table, "short")
+    with pytest.raises(ValueError):
+        kernels.position_ids(seg, seg.cpu(), table, "long")
+    with pytest.raises(ValueError):
+        kernels.position_ids(seg, seg, table.cpu(), "long")
+    with pytest.raises(ValueError):
+        kernels.position_ids(seg[::2], seg[::2], table, "long")
+
+
+def _canonical(s: str) -> str:
+    rc = s[::-1].translate(str.maketrans("ACGT", "TGCA"))
+    return min(s, rc)
+
+
+@pytest.mark.parametrize("p", [1, 4])
+def test_streamed_pq_build_finds_the_batch_ids(dev, tmp_path, p):
+    """A streamed PositionQualityIndex build on the card: every pair that
+    find(with_quality=True) returns carries the short id
+    `ReadBatch.short_ids` gives its window, and every window's id is
+    found; one `position_ids` launch a chunk."""
+    k = 31
+    path = tmp_path / "reads.fastq"
+    reads = write_reads(path, 300, 101, 4_000, seed=11,
+                        varied_quality=True)
+    ids = read_file(path, kp.DNA).short_ids()
+    want: dict = {}
+    for r, read in enumerate(reads):
+        for j in range(len(read) - k + 1):
+            want.setdefault(_canonical(read[j:j + k]), []).append(
+                int(ids[r * len(read) + j]))
+    idx = kp.PositionQualityIndex(kp.KmerSpec(k, kp.DNA), device=dev,
+                                  canonical=True, nparts=p)
+    before = kernels.LAUNCHES["position_ids"]
+    idx.build_stream(str(path), block_bytes=9_000)
+    chunks = idx.timer.count("h2d")
+    assert chunks > 3
+    assert kernels.LAUNCHES["position_ids"] == before + chunks
+    q = [read[j:j + k] for read in reads[:40] for j in range(0, 71, 10)]
+    got, quals, mask = idx.find(q, with_quality=True)
+    assert quals.shape == got.shape
+    for i, kmer in enumerate(q):
+        assert sorted(got[i][mask[i]].tolist()) == \
+            sorted(want[_canonical(kmer)])
+
+
+@pytest.mark.parametrize("cls,kw,launches", [
+    ("PositionQualityIndex", {}, True),
+    ("BimoleculeCountIndex", {}, True),
+    ("KmerValueIndex", {"id_kind": "long"}, True),
+    ("CountIndex", {}, False),
+    ("DeBruijnGraph", {}, False)])
+def test_position_ids_launch_once_a_chunk_of_an_id_index(dev, tmp_path, cls,
+                                                        kw, launches):
+    path = tmp_path / "reads.fastq"
+    write_reads(path, 200, 150, 3000, seed=12)
+    idx = getattr(kp, cls)(kp.KmerSpec(21, kp.DNA), device=dev, **kw)
+    before = kernels.LAUNCHES["position_ids"]
+    idx.insert_batch(read_file(path, idx.parse_alphabet), chunk_bases=7000)
+    chunks = idx.timer.count("h2d")
+    assert chunks > 2
+    assert kernels.LAUNCHES["position_ids"] - before == \
+        (chunks if launches else 0)

@@ -98,6 +98,7 @@ PORT_KERNELS = {
     "run_length_weights": ("rl_tiles", "rl_carry"),
     "run_count_lookup": ("run_count_lookup_kernel",),
     "run_vec_lookup": ("run_vec_lookup_kernel",),
+    "position_ids": ("position_ids_kernel",),
 }
 
 
