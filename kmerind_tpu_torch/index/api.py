@@ -1112,7 +1112,7 @@ class BimoleculeCountIndex(CountIndex):
     with 4 payloads: weight, id halves, strand) — merging each into the
     store one at a time would double its capacity per run.  A key's stored
     orientation is the strand of its live row with the smallest id
-    (`store._segmented_min_rep`).
+    (`store.run_bimol_min_rep`).
 
     Example::
 
@@ -1171,22 +1171,29 @@ class BimoleculeCountIndex(CountIndex):
         return dx.run_bimol_merge_pair_step(a, b)
 
     def _compact_step(self, new_cap: int):
+        """A compaction whose representative minimum is made first, in the
+        phase "bimol.min_rep" (launches only)."""
+        with self.timer.phase("bimol.min_rep"):
+            reps = dx.run_bimol_min_rep_step(self.runs[0])
         return dx.run_bimol_compact_step(self.runs[0], new_cap,
-                                         self.saturate, self.mesh)
+                                         self.saturate, self.mesh, reps)
 
     def _flush(self):
         """Adopt every pending run (K3) and merge them and the store, two
-        smallest first (K2), into one run per shard."""
+        smallest first (K2), into one run per shard: the phase
+        "bimol.flush" when rows wait (its `merge` phases inside it), which
+        ends on `_maybe_compact`'s distinct-key read."""
         if not self._pending:
             return
-        runs = [dx.run_bimol_adopt_step(*rc) for rc in self._pending]
-        self._pending, self._pending_rows = [], 0
-        self.runs = runs if self._virgin else self.runs + runs
-        self._unit, self._virgin = [False] * len(self.runs), False
-        while len(self.runs) > 1:
-            self._merge_two_smallest()
-        self._drop_stale_aux()
-        self._maybe_compact()
+        with self.timer.phase("bimol.flush"):
+            runs = [dx.run_bimol_adopt_step(*rc) for rc in self._pending]
+            self._pending, self._pending_rows = [], 0
+            self.runs = runs if self._virgin else self.runs + runs
+            self._unit, self._virgin = [False] * len(self.runs), False
+            while len(self.runs) > 1:
+                self._merge_two_smallest()
+            self._drop_stale_aux()
+            self._maybe_compact()
 
     def _consolidate(self):
         self._flush()
@@ -1298,11 +1305,13 @@ class BimoleculeCountIndex(CountIndex):
 
     def _strands(self) -> list:
         """Each shard's stored-orientation column of the run, cached by run
-        identity like the query aux."""
+        identity like the query aux; built on a miss in the phase
+        "bimol.strands" (launches only)."""
         if self._strand_cache is None or \
                 self._strand_cache[0] is not self.runs[0]:
-            self._strand_cache = (self.runs[0],
-                                  dx.run_bimol_strands_step(self.runs[0]))
+            with self.timer.phase("bimol.strands"):
+                strands = dx.run_bimol_strands_step(self.runs[0])
+            self._strand_cache = (self.runs[0], strands)
         return self._strand_cache[1]
 
     def _stored(self, canon: torch.Tensor, strand: torch.Tensor):

@@ -50,7 +50,8 @@ __all__ = ["owners_for", "run_ingest_step", "run_insert_step",
            "run_vec_stats_step", "run_vec_compact_step", "run_vec_aux_step",
            "runs_vec_query_step", "run_vec_export_step",
            "bimol_ingest_step", "bimol_tuples_step", "run_bimol_adopt_step",
-           "run_bimol_merge_pair_step", "run_bimol_compact_step",
+           "run_bimol_merge_pair_step", "run_bimol_min_rep_step",
+           "run_bimol_compact_step",
            "run_bimol_strands_step", "run_bimol_find_step",
            "run_bimol_export_step", "kv_insert_step", "kv_ingest_step",
            "kv_find_routed", "kv_erase_routed", "kv_filter_step",
@@ -672,12 +673,20 @@ def run_bimol_merge_pair_step(a: st.RunBimolStore,
                             for s in range(a.keys.shape[0])])
 
 
+def run_bimol_min_rep_step(store: st.RunBimolStore) -> list:
+    """Each shard's representative minimum (store.run_bimol_min_rep)."""
+    return [st.run_bimol_min_rep(sh) for sh in _shards(store)]
+
+
 def run_bimol_compact_step(store: st.RunBimolStore, new_cap: int,
-                           saturate: int | None = None, mesh=None):
+                           saturate: int | None = None, mesh=None,
+                           reps: list | None = None):
     """(compacted stacked store, the largest shard overflow of every rank)
-    — see store.run_bimol_compact."""
-    out = [st.run_bimol_compact(sh, new_cap, saturate)
-           for sh in _shards(store)]
+    — see store.run_bimol_compact; `reps`, when given, is
+    `run_bimol_min_rep_step(store)`."""
+    reps = reps or [None] * store.keys.shape[0]
+    out = [st.run_bimol_compact(sh, new_cap, saturate, r)
+           for sh, r in zip(_shards(store), reps)]
     return (st.stack_stores([o[0] for o in out]),
             as_mesh(mesh or 1).all_max(max(o[1] for o in out)))
 

@@ -50,8 +50,8 @@ __all__ = ["CountStore", "empty_count_store", "stack_count_stores",
            "run_erase_cover", "run_filter", "run_select", "run_histogram",
            "run_compact", "run_grow", "stack_run_stores",
            "RunBimolStore", "empty_run_bimol_store", "run_bimol_from_sorted",
-           "run_bimol_merge", "run_bimol_strands", "run_bimol_find_aux",
-           "run_bimol_export", "run_bimol_compact",
+           "run_bimol_merge", "run_bimol_min_rep", "run_bimol_strands",
+           "run_bimol_find_aux", "run_bimol_export", "run_bimol_compact",
            "MultiStore", "empty_multi_store", "stack_multi_stores",
            "multi_grow", "multi_insert", "multi_merge_flush",
            "multi_merge_flush_flagged", "multi_query_aux",
@@ -481,7 +481,7 @@ class RunBimolStore(RunCountStore):
 
     The Bimolecule preset (kmer_index.hpp:436-562) reports each key in the
     input orientation of its first occurrence: the live row of the key's
-    run with the smallest id (`_segmented_min_rep`) supplies it.  Dead rows
+    run with the smallest id (`run_bimol_min_rep`) supplies it.  Dead rows
     (weight 0) never win; padding rows hold sentinel keys and ids.  File
     ids use at most 63 bits and explicit inserts count up from 2^63, so
     ids compare as UNSIGNED 64-bit values.
@@ -532,7 +532,7 @@ _I64_MIN = torch.iinfo(torch.int64).min
 _I64_MAX = torch.iinfo(torch.int64).max
 
 
-def _segmented_min_rep(store: RunBimolStore):
+def run_bimol_min_rep(store: RunBimolStore):
     """(rep_hi, rep_lo, rep_strand) int32[cap]: each row's key-run minimum
     representative — the live row with the smallest unsigned 64-bit id, the
     first such row on a tie — broadcast over the run.  The id packs into
@@ -566,7 +566,7 @@ def run_bimol_strands(store: RunBimolStore) -> torch.Tensor:
     """int32[cap]: each row's stored orientation (the strand of its run's
     minimum representative) — built once per run version, beside its
     `run_query_aux`, for find."""
-    return _segmented_min_rep(store)[2]
+    return run_bimol_min_rep(store)[2]
 
 
 def run_bimol_find_aux(ext: torch.Tensor, bstart: torch.Tensor,
@@ -593,16 +593,17 @@ def run_bimol_export(store: RunBimolStore, saturate: int | None = None):
 
 
 def run_bimol_compact(store: RunBimolStore, new_cap: int,
-                      saturate: int | None = None):
+                      saturate: int | None = None, reps=None):
     """Collapse every key run to one (key, total, minimum representative)
     row, live rows first in key order, at capacity `new_cap`, the totals
-    clamped at `saturate`.  Returns (new_store, overflow = distinct -
+    clamped at `saturate`; `reps` is the store's `run_bimol_min_rep`,
+    made here when None.  Returns (new_store, overflow = distinct -
     new_cap when positive: the store is then cut and the caller retries
     larger)."""
     w = store.keys.shape[0]
     dev = store.keys.device
     _, is_last, raw, total = _clamped_totals(store, saturate)
-    mhi, mlo, mst = _segmented_min_rep(store)
+    mhi, mlo, mst = run_bimol_min_rep(store) if reps is None else reps
     emit = torch.nonzero(is_last & (raw > 0)).squeeze(1)
     keep = emit[:new_cap]
     n = keep.shape[0]

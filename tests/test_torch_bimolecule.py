@@ -115,7 +115,7 @@ def test_segmented_min_rep_matches_jax(seed):
     cols = _bimol_run(rng, 3000, 250, 40)
     cols[1][:300] = 0                        # whole runs with no live row
     want = _jax_min_rep(*(jnp.asarray(c) for c in cols))
-    got = st._segmented_min_rep(_port_run(cols))
+    got = st.run_bimol_min_rep(_port_run(cols))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(words_np(g), np.asarray(w))
     np.testing.assert_array_equal(words_np(_port_run(cols).csum),
@@ -146,7 +146,7 @@ def test_run_bimol_merge_matches_jax():
                       isinstance(c, torch.Tensor) else words_np(c)
                       for c in (r.weights, r.rep_hi, r.rep_lo, r.rep_strand)]
     assert _per_key(keys, *cols(got)) == _per_key(keys, *cols(want))
-    for g, w in zip(st._segmented_min_rep(got), _jax_min_rep(
+    for g, w in zip(st.run_bimol_min_rep(got), _jax_min_rep(
             want.keys, want.weights, want.rep_hi, want.rep_lo,
             want.rep_strand)):
         np.testing.assert_array_equal(words_np(g), np.asarray(w))
