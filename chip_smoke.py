@@ -7,7 +7,7 @@ Phases (each prints its seconds; every timing line carries the card's name
 and power limit as nvidia-smi reports them):
 
 * P0  device: nvidia-smi name/power limit and torch's device name.
-* P1  build: nvcc compiles the six CUDA sources of
+* P1  build: nvcc compiles the seven CUDA sources of
       kmerind_tpu_torch/ops/csrc (one process each, all at once) into
       kmerind_tpu_torch/_build.
 * P2  every kernel against its plain PyTorch version on the card, at the
@@ -57,6 +57,11 @@ and power limit as nvidia-smi reports them):
       (`position_ids`, which replaces no TPU kernel) run at the pq
       cell's chunk (`ID_CHUNK` bases of 101-base reads, pads at the
       tail), short and long, against their plain version on the card.
+      The representative minimum (`bimol_min_rep`, which replaces no TPU
+      kernel) runs at a Bimolecule flush's shape (a store of 2^27 rows
+      of 2 key words, ~3 rows a key, a quarter of it the sentinel tail,
+      with weights, id halves and strands) against the scatter_reduce
+      passes of its plain version.
 * P3  exact reference: ~12M bases of synthetic reads indexed through
       CountIndex.insert_batch in 2^20-base chunks with max_runs=2 (many K2
       merges), then compact(); to_dict() must equal an independent numpy
@@ -271,7 +276,9 @@ def kernel_bytes(kname: str, **shape) -> int:
     ends, apart unless the key run starts at row 0), two more of the
     quality sums.  position_ids(n, nrec, long=False): int32 seg ids and
     int16 (short) or int32 (long) offsets in, int32 id halves out, a
-    base; the uint64 record words read once."""
+    base; the uint64 record words read once.  bimol_min_rep(n, w): w key
+    words, the weight, both id halves and the strand in, three words out,
+    a row: 4w + 28 bytes."""
     if kname == "extract_canonical":
         return shape["n"] * (1 + 4 * shape["nwords"] + 1)
     if kname in ("merge_runs_cols", "merge_sorted_runs"):
@@ -298,6 +305,8 @@ def kernel_bytes(kname: str, **shape) -> int:
     if kname == "position_ids":
         off = 4 if shape.get("long", False) else 2
         return shape["n"] * (4 + off + 8) + 8 * shape.get("nrec", 0)
+    if kname == "bimol_min_rep":
+        return shape["n"] * (4 * shape["w"] + 28)
     raise KeyError(kname)
 
 
@@ -1797,6 +1806,8 @@ def phase_p10(dev, path, tmp, codes, qcodes, queries, want_counts, smi,
     check(merges and bk2.get(4, 0) >= merges,
           f"Bimolecule K2 with 4 payloads {bk2} < {merges} merges")
     check(bl["prefix_sum_i32"] > 0, "Bimolecule K3 never ran")
+    check(bl["bimol_min_rep"] > 0,
+          "Bimolecule's representative minimum never ran its kernel")
     del keys, cnts, stored
 
     # ------------------------------------------------------ value maps
@@ -2741,6 +2752,34 @@ def main() -> int:
                err, kernel_bytes("position_ids", n=ID_CHUNK, nrec=nrec,
                                  long=kind == "long"))
     del base, seg, table, off
+    torch.cuda.empty_cache()
+
+    # the representative minimum at a Bimolecule flush's shape: a store of
+    # 2^27 rows, three quarters of them drawn from 2^25 distinct keys (runs
+    # of ~3 rows), the rest the sentinel tail; weights 0-3, full 32-bit id
+    # halves and strands (`bimol_pays`); plain: the scatter_reduce passes
+    n, n_live = 1 << 27, 3 << 25
+    table = sortops.sort_rows(torch.randint(
+        -(2**31), 2**31 - 1, (1 << 25, 2), dtype=torch.int32, device=dev,
+        generator=gen), ())[0]
+    pick = torch.sort(torch.randint(0, 1 << 25, (n_live,), device=dev,
+                                    generator=gen)).values
+    mkeys = torch.full((2, n), -1, dtype=torch.int32, device=dev)
+    mkeys[:, :n_live] = table[pick].t()
+    del table, pick
+    mcols = (mkeys, *bimol_pays(mkeys))
+    got = kernels.bimol_min_rep(*mcols)
+    want = kernels.bimol_min_rep_plain(*mcols)
+    err = max(err_of(g, w) for g, w in zip(got, want))
+    del got, want
+    torch.cuda.empty_cache()
+    record("bimol_min_rep", f"[2, {n}] keys, {n_live} drawn from 2^25, "
+           "the rest the sentinel tail, weights, id halves, strand; plain: "
+           "the scatter_reduce passes",
+           lambda: kernels.bimol_min_rep(*mcols),
+           lambda: kernels.bimol_min_rep_plain(*mcols), err,
+           kernel_bytes("bimol_min_rep", n=n, w=2), slow_plain=True)
+    del mkeys, mcols
     torch.cuda.empty_cache()
     log(f"P2 seconds {time.perf_counter() - t0:.2f} [{smi}]")
 

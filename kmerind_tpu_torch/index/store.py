@@ -528,38 +528,14 @@ def run_bimol_merge(a: RunBimolStore, b: RunBimolStore) -> RunBimolStore:
     return run_bimol_from_sorted(keys, *m)
 
 
-_I64_MIN = torch.iinfo(torch.int64).min
-_I64_MAX = torch.iinfo(torch.int64).max
-
-
 def run_bimol_min_rep(store: RunBimolStore):
     """(rep_hi, rep_lo, rep_strand) int32[cap]: each row's key-run minimum
     representative — the live row with the smallest unsigned 64-bit id, the
-    first such row on a tie — broadcast over the run.  The id packs into
-    one int64 biased by 2^63 (signed order = unsigned order; a dead row's
-    is the sentinel's, INT64_MAX), one `scatter_reduce` "amin" per run
-    index (a cumsum of the head flags) gives each run's minimum, a second
-    over the row indices that hold it gives the first, and one gather
-    broadcasts its strand.  A run with no live row reports sentinel ids and
-    strand 0, as the JAX package's associative scan does.  No cummin: a
-    single-block scan on CUDA."""
-    cap = store.capacity
-    dev = store.keys.device
-    live = store.weights > 0
-    key = ((to_u64(store.rep_hi) << 32) | to_u64(store.rep_lo)) ^ _I64_MIN
-    key = torch.where(live, key, _I64_MAX)
-    neq_prev, _ = _adjacent_neq(store.keys)
-    run_id = torch.cumsum(neq_prev, 0) - 1
-    rmin = torch.full((cap,), _I64_MAX, dtype=torch.int64,
-                      device=dev).scatter_reduce(0, run_id, key, "amin")
-    rmin = rmin[run_id]
-    rows = torch.arange(cap, device=dev)
-    first = torch.full((cap,), cap, dtype=torch.int64,
-                       device=dev).scatter_reduce(
-        0, run_id, torch.where(key == rmin, rows, cap), "amin")
-    strand = torch.where(live, store.rep_strand, 0)[first[run_id]]
-    ident = rmin ^ _I64_MIN
-    return (ident >> 32).to(torch.int32), ident.to(torch.int32), strand
+    first such row on a tie — broadcast over the run; a run with no live
+    row reports sentinel ids and strand 0 (`kernels.bimol_min_rep`: one
+    segmented scan on the card, `bimol_min_rep_plain` on the CPU)."""
+    return kernels.bimol_min_rep(store.keys, store.weights, store.rep_hi,
+                                 store.rep_lo, store.rep_strand)
 
 
 def run_bimol_strands(store: RunBimolStore) -> torch.Tensor:

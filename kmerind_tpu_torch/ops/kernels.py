@@ -19,7 +19,7 @@ The kernels replace the Pallas kernels of
 * K4 `run_length_weights` (``csrc/run_length_weights.cu``) — plain version
   `run_length_weights_plain`;
 
-and two that replace no Pallas kernel:
+and four that replace no Pallas kernel:
 
 * `run_count_lookup` (``csrc/run_lookup.cu``) — a count batch's lookup
   over all runs of a count index's shard, plain version
@@ -30,7 +30,11 @@ and two that replace no Pallas kernel:
 * `position_ids` (``csrc/position_ids.cu``) — each base's 64-bit position
   id from its record's word and its offset in the record, plain version
   `position_ids_plain` (the JAX package builds them on the host,
-  ``ReadBatch.short_ids`` / ``long_ids``).
+  ``ReadBatch.short_ids`` / ``long_ids``);
+* `bimol_min_rep` (``csrc/bimol_min_rep.cu``) — a Bimolecule store's
+  representative minimum, each row's key-run minimum id and its strand,
+  plain version `bimol_min_rep_plain` (the JAX package's associative
+  scan, ``store._segmented_min_rep``).
 
 Each wrapper takes the plain version for tensors on the CPU and, for CUDA
 tensors, launches its kernel or raises: nothing falls back.  It checks
@@ -63,7 +67,7 @@ import torch
 
 from ..kmer import KmerSpec
 from . import packing
-from .keys import SENTINEL, biased, lex_argsort
+from .keys import SENTINEL, biased, lex_argsort, to_u64
 
 __all__ = ["LAUNCHES", "K1_LAUNCHES", "K2_PAYLOAD_LAUNCHES", "KERNELS",
            "build", "reset_launches",
@@ -76,13 +80,15 @@ __all__ = ["LAUNCHES", "K1_LAUNCHES", "K2_PAYLOAD_LAUNCHES", "KERNELS",
            "run_length_weights", "run_length_weights_plain",
            "run_count_lookup", "run_count_lookup_plain",
            "run_vec_lookup", "run_vec_lookup_plain",
-           "position_ids", "position_ids_plain"]
+           "position_ids", "position_ids_plain",
+           "bimol_min_rep", "bimol_min_rep_plain"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "ops" / "csrc"
 BUILD_DIR = _PKG / "_build"
 _SOURCES = ("extract_canonical.cu", "merge_runs.cu", "prefix_sum.cu",
-            "run_length_weights.cu", "run_lookup.cu", "position_ids.cu")
+            "run_length_weights.cu", "run_lookup.cu", "position_ids.cu",
+            "bimol_min_rep.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -115,6 +121,8 @@ KERNELS = {
         "kmerind_tpu_torch/ops/csrc/run_lookup.cu", None),
     "position_ids": (
         "kmerind_tpu_torch/ops/csrc/position_ids.cu", None),
+    "bimol_min_rep": (
+        "kmerind_tpu_torch/ops/csrc/bimol_min_rep.cu", None),
 }
 
 #: launches per kernel wrapper (one per wrapper call that launched)
@@ -193,12 +201,16 @@ def _bind(lib):
         _int, _int, _i64, _vp, _vp, _vp]
     lib.kmerind_position_ids.argtypes = [
         _vp, _vp, _int, _vp, _i64, _i64, _vp, _vp, _vp]
+    lib.kmerind_bimol_min_rep_scratch_words.argtypes = [_i64]
+    lib.kmerind_bimol_min_rep_scratch_words.restype = _i64
+    lib.kmerind_bimol_min_rep.argtypes = [
+        _vp, _int, _i64, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp]
     for fn in (lib.kmerind_extract_canonical, lib.kmerind_merge_runs,
                lib.kmerind_bitonic_merge, lib.kmerind_prefix_sum_i32,
                lib.kmerind_run_length_weights,
                lib.kmerind_run_count_lookup_max_runs,
                lib.kmerind_run_count_lookup, lib.kmerind_run_vec_lookup,
-               lib.kmerind_position_ids):
+               lib.kmerind_position_ids, lib.kmerind_bimol_min_rep):
         fn.restype = _int
     return lib
 
@@ -245,16 +257,24 @@ def _cuda_lib():
     return _lib
 
 
-def _check_cuda(name: str, t: torch.Tensor, dtype, ndim: int, device):
-    if t.device != device or t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor on {device}, "
-                         f"got {t.device}")
+def _check_tensor(name: str, t: torch.Tensor, dtype, ndim: int, device):
+    """A wrapper's input: on `device`, of `dtype`, `ndim` dims, contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got "
+                         f"{t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {t.dim()}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def _check_cuda(name: str, t: torch.Tensor, dtype, ndim: int, device):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor on {device}, "
+                         f"got {t.device}")
+    _check_tensor(name, t, dtype, ndim, device)
 
 
 def _launched(name: str, rc: int):
@@ -865,3 +885,81 @@ def position_ids(seg: torch.Tensor, off: torch.Tensor, table: torch.Tensor,
             lo.data_ptr(), _stream(dev))
         _launched("position_ids", rc)
     return hi, lo
+
+
+# ------------------------------------------------ representative minimum
+_I64_MIN = torch.iinfo(torch.int64).min
+_I64_MAX = torch.iinfo(torch.int64).max
+
+
+def bimol_min_rep_plain(keys, weights, rep_hi, rep_lo, rep_strand):
+    """Plain `bimol_min_rep`: the id packs into one int64 biased by 2^63
+    (signed order = unsigned order; a dead row's is the sentinel's,
+    INT64_MAX), one `scatter_reduce` "amin" per run index (a cumsum of the
+    head flags) gives each run's minimum, a second over the row indices
+    that hold it gives the first, and one gather broadcasts its strand.
+    No cummin: a single-block scan on CUDA."""
+    cap = keys.shape[1]
+    dev = keys.device
+    live = weights > 0
+    key = ((to_u64(rep_hi) << 32) | to_u64(rep_lo)) ^ _I64_MIN
+    key = torch.where(live, key, _I64_MAX)
+    neq_prev = torch.ones(cap, dtype=torch.bool, device=dev)
+    neq_prev[1:] = (keys[:, 1:] != keys[:, :-1]).any(dim=0)
+    run_id = torch.cumsum(neq_prev, 0) - 1
+    rmin = torch.full((cap,), _I64_MAX, dtype=torch.int64,
+                      device=dev).scatter_reduce(0, run_id, key, "amin")
+    rmin = rmin[run_id]
+    rows = torch.arange(cap, device=dev)
+    first = torch.full((cap,), cap, dtype=torch.int64,
+                       device=dev).scatter_reduce(
+        0, run_id, torch.where(key == rmin, rows, cap), "amin")
+    strand = torch.where(live, rep_strand, 0)[first[run_id]]
+    ident = rmin ^ _I64_MIN
+    return (ident >> 32).to(torch.int32), ident.to(torch.int32), strand
+
+
+def bimol_min_rep(keys, weights, rep_hi, rep_lo, rep_strand):
+    """(rep_hi, rep_lo, rep_strand) int32[cap]: each row's key-run minimum
+    representative — the live row with the smallest unsigned 64-bit id,
+    the first such row on a tie — broadcast over the run.  A run with no
+    live row reports sentinel ids and strand 0, as the JAX package's
+    associative scan does.
+
+    One shard: keys int32[w, cap] (column-major uint32 words, sorted with
+    duplicates and sentinel padding; any w >= 1), weights (live where > 0),
+    rep_hi / rep_lo (the id's uint32 halves) and rep_strand int32[cap],
+    all contiguous on one device.  On the card one segmented scan with
+    decoupled look-back over tiles of 1024 rows, then a fill of the rows
+    of runs that cross a tile's right edge (three launches with the
+    scratch's memset; cap < 2^31)."""
+    dev = keys.device
+    cols = (("weights", weights), ("rep_hi", rep_hi), ("rep_lo", rep_lo),
+            ("rep_strand", rep_strand))
+    check = _check_cuda if dev.type == "cuda" else _check_tensor
+    check("bimol_min_rep keys", keys, torch.int32, 2, dev)
+    for name, t in cols:
+        check(f"bimol_min_rep {name}", t, torch.int32, 1, dev)
+    w, cap = keys.shape
+    if w < 1:
+        raise ValueError("bimol_min_rep needs at least one key word")
+    for name, t in cols:
+        if t.shape[0] != cap:
+            raise ValueError(f"bimol_min_rep {name}: {t.shape[0]} rows for "
+                             f"{cap} keys")
+    if dev.type == "cpu":
+        return bimol_min_rep_plain(keys, weights, rep_hi, rep_lo, rep_strand)
+    if cap >= 1 << 31:
+        raise ValueError(f"bimol_min_rep: {cap} rows, at most 2^31 - 1")
+    outs = tuple(torch.empty(cap, dtype=torch.int32, device=dev)
+                 for _ in range(3))
+    if cap:
+        lib = _cuda_lib()
+        scratch = torch.empty(lib.kmerind_bimol_min_rep_scratch_words(cap),
+                              dtype=torch.int64, device=dev)
+        rc = lib.kmerind_bimol_min_rep(
+            keys.data_ptr(), w, cap, weights.data_ptr(), rep_hi.data_ptr(),
+            rep_lo.data_ptr(), rep_strand.data_ptr(),
+            *(o.data_ptr() for o in outs), scratch.data_ptr(), _stream(dev))
+        _launched("bimol_min_rep", rc)
+    return outs

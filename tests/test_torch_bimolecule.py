@@ -106,14 +106,26 @@ def _port_run(cols):
         words_t(strand))
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_segmented_min_rep_matches_jax(seed):
+@pytest.mark.parametrize("seed,n,nkeys,tail,dead_runs", [
+    pytest.param(0, 3000, 250, 40, 0.0, id="0"),
+    pytest.param(1, 3000, 250, 40, 0.0, id="1"),
+    pytest.param(2, 3000, 250, 40, 0.0, id="2"),
+    # runs of ~2,000-6,000 rows, across the card's 1024-row tiles
+    pytest.param(3, 30_000, 8, 500, 0.0, id="long-runs"),
+    # half of ~1,500 runs with no live row, and a long sentinel tail
+    pytest.param(4, 12_000, 1500, 4100, 0.5, id="all-dead-runs")])
+def test_segmented_min_rep_matches_jax(seed, n, nkeys, tail, dead_runs):
     """Each row's run-minimum representative (id halves and strand) —
-    dead rows, inserted ids, ties and all-dead runs included — equals the
-    JAX package's associative scan."""
+    dead rows, inserted ids, ties, all-dead runs and long runs included —
+    equals the JAX package's associative scan."""
     rng = np.random.default_rng(seed)
-    cols = _bimol_run(rng, 3000, 250, 40)
+    cols = _bimol_run(rng, n, nkeys, tail)
     cols[1][:300] = 0                        # whole runs with no live row
+    keys = cols[0]
+    head = np.ones(n, bool)
+    head[1:] = (keys[:, 1:] != keys[:, :-1]).any(axis=0)
+    run = np.cumsum(head) - 1
+    cols[1][(rng.random(run[-1] + 1) < dead_runs)[run]] = 0
     want = _jax_min_rep(*(jnp.asarray(c) for c in cols))
     got = st.run_bimol_min_rep(_port_run(cols))
     for g, w in zip(got, want):
@@ -121,6 +133,44 @@ def test_segmented_min_rep_matches_jax(seed):
     np.testing.assert_array_equal(words_np(_port_run(cols).csum),
                                   np.asarray(_jax_run(cols).csum).view(
                                       np.uint32))
+
+
+def test_bimol_min_rep_wrapper_on_the_cpu(monkeypatch):
+    """On CPU tensors `kernels.bimol_min_rep` is its plain version (no
+    launch counted, no library built); it refuses a wrong dtype, a wrong
+    shape, a run of mismatched columns and a non-contiguous input."""
+    from kmerind_tpu_torch.ops import kernels
+    cols = [words_t(c) if c.dtype == np.uint32 else torch.from_numpy(c)
+            for c in _bimol_run(np.random.default_rng(7), 500, 40, 20)]
+    calls = []
+    plain = kernels.bimol_min_rep_plain
+    monkeypatch.setattr(kernels, "bimol_min_rep_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    monkeypatch.setattr(kernels, "_cuda_lib", lambda: pytest.fail(
+        "the CPU path loaded the kernel library"))
+    before = kernels.LAUNCHES["bimol_min_rep"]
+    got = st.run_bimol_min_rep(_port_run(_bimol_run(
+        np.random.default_rng(7), 500, 40, 20)))
+    assert calls == [1] and kernels.LAUNCHES["bimol_min_rep"] == before
+    for g, w in zip(got, plain(*cols)):
+        assert torch.equal(g, w)
+    keys, weights, hi, lo, strand = cols
+    with pytest.raises(TypeError):
+        kernels.bimol_min_rep(keys, weights.to(torch.int64), hi, lo, strand)
+    with pytest.raises(TypeError):
+        kernels.bimol_min_rep(keys.to(torch.int64), weights, hi, lo, strand)
+    with pytest.raises(ValueError):                        # keys not [w, n]
+        kernels.bimol_min_rep(keys[0], weights, hi, lo, strand)
+    with pytest.raises(ValueError):                        # no key word
+        kernels.bimol_min_rep(keys[:0], weights, hi, lo, strand)
+    with pytest.raises(ValueError):                        # rows differ
+        kernels.bimol_min_rep(keys, weights[:-1], hi, lo, strand)
+    with pytest.raises(ValueError):                        # strided view
+        kernels.bimol_min_rep(keys[:, ::2], weights[::2], hi[::2], lo[::2],
+                              strand[::2])
+    with pytest.raises(ValueError):                        # keys transposed
+        kernels.bimol_min_rep(keys.t().contiguous().t(), weights, hi, lo,
+                              strand)
 
 
 def _per_key(keys, *cols):

@@ -81,6 +81,10 @@ CHUNK = chip_smoke.CHUNK
                             quality=True),
      3 * (36 + 1 + 36 + 8 + 32 * (1 + 2)) + 32 * 21 * 2),
     ("run_vec_lookup", dict(n=7, w=2, rows=(), tbits=16, hits=0), 7 * 45),
+    # the representative minimum: w key words, weight, id halves and
+    # strand in, three words out — 36 bytes a row at w = 2, 44 at w = 4
+    ("bimol_min_rep", dict(n=1 << 27, w=2), (1 << 27) * 36),
+    ("bimol_min_rep", dict(n=5, w=4), 5 * 44),
 ])
 def test_kernel_bytes(kname, shape, want):
     assert chip_smoke.kernel_bytes(kname, **shape) == want
@@ -103,6 +107,9 @@ def test_bound_ms_is_bytes_over_the_hbm_rate():
     # the one-run bitonic merges' [2^24, 2] + 1 payload case
     assert chip_smoke.bound_ms(402_653_184) == pytest.approx(0.1202,
                                                              abs=5e-5)
+    # the representative minimum at a Bimolecule flush's [2, 2^27]
+    assert chip_smoke.bound_ms((1 << 27) * 36) == pytest.approx(1.4423,
+                                                                abs=5e-5)
 
 
 def test_kernel_bytes_covers_every_kernel_and_no_other():

@@ -14,7 +14,10 @@ K3 scan sizes around its tile, look-back over many tiles, repeated calls,
 unaligned views; for K4 a run over 10,000 tiles, tv at a tile boundary,
 unaligned views, repeated calls; the de Bruijn graphs' edge-byte payloads
 and 0 / 1 counter streams; for the count lookup key widths 1-17, 0-17
-runs, sums that wrap, no host read), and the port's indexes on the card
+runs, sums that wrap, no host read; for Bimolecule's representative
+minimum key widths 1-8, runs of one row, runs ending at and crossing
+tile edges, one key over many tiles, all-dead runs, ids >= 2^63, ties,
+sentinel tails, one launch a shard), and the port's indexes on the card
 against the same index on the CPU: CountIndex (one shard, 4 hashed
 shards, k = 81 and 127; several runs through the count lookup, one
 launch a shard), SortedCountIndex, the multimaps (k up to 128), both de Bruijn
@@ -29,6 +32,8 @@ it runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1534,3 +1539,152 @@ def test_position_ids_launch_once_a_chunk_of_an_id_index(dev, tmp_path, cls,
     assert chunks > 2
     assert kernels.LAUNCHES["position_ids"] - before == \
         (chunks if launches else 0)
+
+
+# ------------------------------------------- the representative minimum
+MIN_REP_TILE = 1024   # rows per tile of bimol_min_rep.cu (kTile)
+
+
+def _min_rep_case(rng, w, lens, tail=0, dead=0.3, tie=0.0, dead_runs=0.0):
+    """A sorted Bimolecule shard as int32 CPU tensors (keys [w, n],
+    weights, id halves, strand): key runs of the lengths `lens` over
+    distinct sorted keys, then `tail` sentinel rows (weight 0, sentinel
+    ids); weights 0-3 with a share `dead` of dead rows, whole runs dead at
+    the rate `dead_runs`; ids over all 64 bits (a third >= 2^63, and 2^64
+    - 1 now and then) or, at the rate `tie`, from {0, 1, 2}; strands over
+    a range wider than 0 / 1."""
+    lens = np.asarray(lens, np.int64)
+    nk = lens.shape[0]
+    table = np.unique(rng.integers(0, 2**32 - 1, (nk * 2 + 8, w),
+                                   dtype=np.uint32), axis=0)
+    table = table[np.sort(rng.choice(table.shape[0], nk, replace=False))]
+    n = int(lens.sum()) + tail
+    keys = np.full((w, n), 0xFFFFFFFF, np.uint32)
+    keys[:, :n - tail] = np.repeat(table, lens, axis=0).T
+    weights = rng.integers(1, 4, n).astype(np.int32)
+    weights[rng.random(n) < dead] = 0
+    weights[np.repeat(rng.random(nk) < dead_runs, lens).nonzero()[0]] = 0
+    ids = rng.integers(0, 2**63, n, dtype=np.uint64)
+    ids[rng.random(n) < 1 / 3] |= np.uint64(1 << 63)
+    ids[rng.random(n) < 0.01] = np.uint64(2**64 - 1)
+    small = rng.random(n) < tie
+    ids[small] = rng.integers(0, 3, int(small.sum())).astype(np.uint64)
+    strand = rng.integers(-3, 4, n).astype(np.int32)
+    weights[n - tail:] = 0
+    ids[n - tail:] = np.uint64(2**64 - 1)
+    strand[n - tail:] = 0
+    return (words_t(keys), torch.from_numpy(weights),
+            words_t((ids >> np.uint64(32)).astype(np.uint32)),
+            words_t(ids.astype(np.uint32)), torch.from_numpy(strand))
+
+
+def _random_lens(rng, n, mean):
+    """Run lengths 1..2*mean summing to n."""
+    lens = []
+    while n > 0:
+        lens.append(min(int(rng.integers(1, 2 * mean)), n))
+        n -= lens[-1]
+    return lens
+
+
+T = MIN_REP_TILE
+#: name -> (w, run lengths (a function of rng), sentinel tail, case kwargs)
+MIN_REP_CASES = {
+    "w1": (1, lambda r: _random_lens(r, 3 * T + 5, 3), 7, {}),
+    "w2": (2, lambda r: _random_lens(r, 5 * T + 11, 4), 100, {}),
+    "w8": (8, lambda r: _random_lens(r, 3 * T + 1, 3), 30, {}),
+    "w2 runs of one row": (2, lambda r: [1] * (4 * T + 3), 0, {}),
+    "w2 runs ending at every tile edge": (2, lambda r: [T] * 5, 0, {}),
+    "w2 runs of T - 1, T + 1, 3T + 7": (
+        2, lambda r: [T - 1, T + 1, 3 * T + 7, T + 1, T - 1, 5], 3, {}),
+    "w2 one key over many tiles": (
+        2, lambda r: [3] * 700 + [150_001] + [2] * 900, 20, {}),
+    "w8 one key over many tiles": (
+        8, lambda r: [1] * 5 + [100_003] + [4] * 300, 0, {}),
+    "w2 all-dead runs": (2, lambda r: _random_lens(r, 6 * T, 40), 50,
+                         {"dead_runs": 0.5}),
+    "w2 every row dead": (2, lambda r: _random_lens(r, 3 * T, 300), 9,
+                          {"dead": 1.0}),
+    "w2 ties": (2, lambda r: _random_lens(r, 4 * T + 3, 6), 1,
+                {"tie": 0.9, "dead": 0.1}),
+    "w2 sentinel tail over tiles": (
+        2, lambda r: _random_lens(r, T + 17, 3), 7 * T + 5, {}),
+    "w2 one row": (2, lambda r: [1], 0, {}),
+    "w2 one tile less a row": (2, lambda r: _random_lens(r, T - 1, 2), 0,
+                               {}),
+    "w2 one tile": (2, lambda r: _random_lens(r, T - 3, 2), 3, {}),
+    "w2 a tile and a row": (2, lambda r: _random_lens(r, T, 2), 1, {}),
+    "w3 only the sentinel tail": (3, lambda r: [], 3 * T + 2, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(MIN_REP_CASES))
+def test_bimol_min_rep_kernel(dev, case):
+    """One launch, bitwise the plain version's: key widths 1, 2, 8; runs
+    of one row, runs that end at and cross tile edges, one key over many
+    tiles, all-dead runs, ids >= 2^63 and 2^64 - 1, ties, sentinel tails
+    and sizes that are not a multiple of the tile."""
+    w, lens, tail, kw = MIN_REP_CASES[case]
+    rng = np.random.default_rng(len(case) * 31 + w)
+    cols = _min_rep_case(rng, w, lens(rng), tail, **kw)
+    want = kernels.bimol_min_rep_plain(*cols)
+    before = kernels.LAUNCHES["bimol_min_rep"]
+    got = kernels.bimol_min_rep(*(c.to(dev) for c in cols))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bimol_min_rep"] == before + 1
+    for g, wv in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g.cpu(), wv)
+
+
+def test_bimol_min_rep_repeated_calls_and_views(dev):
+    """Calls back to back reset their scratch; a shard of a stacked store
+    (a view at an offset) gives the same answer."""
+    rng = np.random.default_rng(3)
+    cols = [c.to(dev) for c in _min_rep_case(
+        rng, 2, _random_lens(rng, 9 * T + 3, 5), 40, tie=0.3)]
+    want = kernels.bimol_min_rep(*cols)
+    for _ in range(3):
+        got = kernels.bimol_min_rep(*cols)
+        assert all(torch.equal(g, wv) for g, wv in zip(got, want))
+    stacked = [torch.stack([torch.zeros_like(c), c]) for c in cols]
+    got = kernels.bimol_min_rep(*(s[1] for s in stacked))
+    assert all(torch.equal(g, wv) for g, wv in zip(got, want))
+    plain = kernels.bimol_min_rep_plain(*(c.cpu() for c in cols))
+    assert all(torch.equal(g.cpu(), wv) for g, wv in zip(want, plain))
+
+
+@pytest.mark.parametrize("p", [1, 4])
+def test_bimol_min_rep_launches_once_a_shard(dev, p):
+    """`run_bimol_min_rep_step` over p stacked shards launches the kernel
+    once a shard, and each shard's answer is the plain version's."""
+    from kmerind_tpu_torch.index import distributed as dx
+    from kmerind_tpu_torch.index import store as st
+    rng = np.random.default_rng(p)
+    shards = [st.run_bimol_from_sorted(*_min_rep_case(
+        rng, 2, _random_lens(rng, 2 * T + 100, 3), 500)) for _ in range(p)]
+    store = st.stack_stores(shards)
+    on_card = st.stack_stores([st.RunBimolStore(
+        *(getattr(sh, f.name).to(dev)
+          for f in dataclasses.fields(sh))) for sh in shards])
+    before = kernels.LAUNCHES["bimol_min_rep"]
+    got = dx.run_bimol_min_rep_step(on_card)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bimol_min_rep"] == before + p
+    for g, sh in zip(got, dx.run_bimol_min_rep_step(store)):
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(g, sh))
+
+
+def test_bimol_min_rep_refuses_what_it_does_not_take(dev):
+    keys = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+    col = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        kernels.bimol_min_rep(keys, col.to(torch.int64), col, col, col)
+    with pytest.raises(ValueError):
+        kernels.bimol_min_rep(keys[0], col, col, col, col)
+    with pytest.raises(ValueError):
+        kernels.bimol_min_rep(keys, col[:7], col, col, col)
+    with pytest.raises(ValueError):
+        kernels.bimol_min_rep(keys[:, ::2], col[::2], col[::2], col[::2],
+                              col[::2])
+    with pytest.raises(ValueError):
+        kernels.bimol_min_rep(keys, col, col.cpu(), col, col)

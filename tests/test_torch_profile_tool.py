@@ -85,12 +85,16 @@ def test_port_kernel_ms_sums_each_kernels_launches():
         "int const*, long)": 40.0,
         "void (anonymous namespace)::position_ids_kernel<false, unsigned "
         "short, ushort4>(int const*, unsigned short const*)": 60.0,
+        "(anonymous namespace)::min_rep_scan_kernel((anonymous namespace)"
+        "::Cols, int*)": 70.0,
+        "(anonymous namespace)::min_rep_fill_kernel((anonymous namespace)"
+        "::Cols, int*)": 5.0,
     }
     got = profile_p4.port_kernel_ms(by_name)
     assert got == {"extract_canonical": 0.2, "merge_runs_cols": 1.0,
                    "prefix_sum_i32": 0.5, "run_length_weights": 0.002,
                    "run_count_lookup": 0.03, "run_vec_lookup": 0.04,
-                   "position_ids": 0.06}
+                   "position_ids": 0.06, "bimol_min_rep": 0.075}
 
 
 def test_phases_of_both_runs():

@@ -99,6 +99,7 @@ PORT_KERNELS = {
     "run_count_lookup": ("run_count_lookup_kernel",),
     "run_vec_lookup": ("run_vec_lookup_kernel",),
     "position_ids": ("position_ids_kernel",),
+    "bimol_min_rep": ("min_rep_scan_kernel", "min_rep_fill_kernel"),
 }
 
 
