@@ -1509,26 +1509,34 @@ class _MultimapSurfaceMixin:
 
     def _find_words(self, words: torch.Tensor, max_per_query: int = 64,
                     with_quality: bool = False, grow_to_fit: bool = True):
+        """Spans: "find" a gather width tried, inside it "find.lookup"
+        (the routed gather and the counts' read) and, at the width that
+        holds every pair, "find.reply" (the answer's copies to the host
+        and the ids composed there)."""
         self._flush()
         aux = self._ensure_aux()
         while True:
             with self.timer.phase("find"):
-                (hi, lo, q, mask, nfound), m = self._route_rows(
-                    lambda w, v, cap: dx.multi_find_routed(
-                        self.store, aux, w, v, self._owners(w), self.mesh,
-                        cap, max_per_query), words)
-                counts = self._replies(nfound, m).to(
-                    torch.int32).cpu().numpy()
-            worst = int(counts.max()) if m else 0
-            if grow_to_fit and worst > max_per_query:
-                max_per_query = _next_pow2(worst)
-                continue
-            rows = lambda t: self._replies(t, m)  # noqa: E731
-            ids = ((to_numpy_u32(rows(hi)).astype(np.uint64) << np.uint64(32))
-                   | to_numpy_u32(rows(lo)).astype(np.uint64))
-            out = (ids,) + ((rows(q).cpu().numpy(),) if with_quality else ())
-            out += (rows(mask).to(torch.bool).cpu().numpy(),)
-            return out if grow_to_fit else out + (counts,)
+                with self.timer.phase("find.lookup"):
+                    (hi, lo, q, mask, nfound), m = self._route_rows(
+                        lambda w, v, cap: dx.multi_find_routed(
+                            self.store, aux, w, v, self._owners(w),
+                            self.mesh, cap, max_per_query), words)
+                    counts = self._replies(nfound, m).to(
+                        torch.int32).cpu().numpy()
+                worst = int(counts.max()) if m else 0
+                if grow_to_fit and worst > max_per_query:
+                    max_per_query = _next_pow2(worst)
+                    continue
+                with self.timer.phase("find.reply"):
+                    rows = lambda t: self._replies(t, m)  # noqa: E731
+                    ids = ((to_numpy_u32(rows(hi)).astype(np.uint64)
+                            << np.uint64(32))
+                           | to_numpy_u32(rows(lo)).astype(np.uint64))
+                    out = (ids,) + ((rows(q).cpu().numpy(),) if with_quality
+                                    else ())
+                    out += (rows(mask).to(torch.bool).cpu().numpy(),)
+                return out if grow_to_fit else out + (counts,)
 
     def erase(self, kmers) -> int:
         """Remove ALL pairs whose key matches a query k-mer; returns the

@@ -63,6 +63,14 @@ class _SortedBase(_IndexBase):
         self._flush()
         return to_numpy_u32(self.splitters)
 
+    def _live_of_all(self, *cols) -> list:
+        """Each stacked [p_local, cap, ...] store column's live rows (a
+        shard's first `store.size`), shard by shard over every rank: in
+        ascending key order, since shard i holds the i-th key range."""
+        sizes = self.store.size.tolist()
+        return [self._rows_of_all(c[s, :n] for s, n in enumerate(sizes))
+                for c in cols]
+
     def _routed(self, step, words: torch.Tensor):
         """Run a splitter-routed step(store, splitters, rows, valid, nparts,
         capacity) -> (*outputs, overflow) over query rows, doubling the
@@ -138,7 +146,9 @@ class SortedCountIndex(_CountSurfaceMixin, _SortedBase):
     # -- the global samplesort flush -----------------------------------
     def _flush(self):
         """Re-sort the store's rows and all pending rows across the shards,
-        retrying with doubled bucket capacity on overflow."""
+        retrying with doubled bucket capacity on overflow.  Each attempt is
+        one "sorted.flush" span, which ends on the distinct-key read and,
+        over several shards, the overflow read (both syncs)."""
         if self.splitters is not None and not self._pending:
             return
         live = (torch.arange(self.capacity, device=self.device)[None, :]
@@ -151,7 +161,7 @@ class SortedCountIndex(_CountSurfaceMixin, _SortedBase):
         cap = max(self._bucket_capacity(max(self.mesh.all_sum(
             int(valid.sum())), 1)), 16)
         while True:
-            with self.timer.phase("flush"):
+            with self.timer.phase("sorted.flush"):
                 store, splitters, ovf = sx.count_flush_step(
                     words, weights, valid, self.mesh, cap, self.saturate,
                     self.spec.sentinel_safe)
@@ -206,6 +216,14 @@ class SortedCountIndex(_CountSurfaceMixin, _SortedBase):
         return sorted(self.count_if(lambda k, c: ~less(k, lo) & less(k, hi)))
 
     # -- persistence / export ------------------------------------------
+    def items(self) -> tuple[np.ndarray, np.ndarray]:
+        """(words uint32[t, w], counts int64[t]) — every distinct key once,
+        in ascending key order over all shards, with its count (clipped at
+        `saturate`): `CountIndex.items`' shape, in the sorted map's order."""
+        self._flush()
+        keys, counts = self._live_of_all(self.store.keys, self.store.counts)
+        return to_numpy_u32(keys), counts.cpu().numpy().astype(np.int64)
+
     def to_dict(self) -> dict[int, int]:
         """Full contents as {kmer_int: count} (host-side; tests/tools)."""
         return dict(self.count_if(lambda k, c: c >= 0))

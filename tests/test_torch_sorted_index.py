@@ -153,7 +153,7 @@ def test_convert_jax_state(reads):
         np.asarray(jidx.splitters), kp.KmerSpec(21, kp.DNA), "cpu")
     q = _queries(seqs, np.random.default_rng(7), m=1000)
     np.testing.assert_array_equal(pidx.count(q), jidx.count(q))
-    assert pidx.timer.count("flush") == 0
+    assert pidx.timer.count("sorted.flush") == 0
     assert pidx.to_dict() == jidx.to_dict()
 
 

@@ -1,7 +1,8 @@
 """The port's tracing: `PhaseTimer` phases as profiler ranges named
 "kmerind/<phase>" only while a profiler runs, and the spans where a build
 and a count batch wait (feed_wait, marshal.ids, h2d, flush, rows, aux,
-count.lookup, count.reply), on the CPU."""
+count.lookup, count.reply) and a multimap's find splits into
+(find.lookup, find.reply), on the CPU."""
 
 import json
 import pathlib
@@ -195,6 +196,22 @@ def test_count_records_rows_lookup_and_reply_once_a_call(family, reads):
     assert t.count("aux") == 0
     assert t.total("count.lookup") + t.total("count.reply") <= \
         t.total("count")
+
+
+@pytest.mark.parametrize("family", ["position_quality", "sorted_position"])
+def test_find_records_a_lookup_each_width_and_one_reply(family, reads):
+    """A width below a query's pairs reruns wider: "find" and
+    "find.lookup" once a width, "find.reply" once, inside "find"."""
+    path, queries = reads
+    idx = FAMILIES[family]()
+    idx.build(str(path))
+    assert int(idx.count(queries).max()) > 1
+    idx.timer.clear()
+    idx.find(queries, max_per_query=1, with_quality=True)
+    t = idx.timer
+    assert t.count("find") == t.count("find.lookup") == 2
+    assert t.count("find.reply") == 1
+    assert t.total("find.lookup") + t.total("find.reply") <= t.total("find")
 
 
 def test_phase_ranges_nest_as_the_timer_says(reads):
